@@ -1,0 +1,82 @@
+"""Tile synthesis (port of ``rnagan_tpu/eval/generate.py`` and ``GANTrainer.sample``).
+
+:class:`Synthesizer` serves RNA-GAN tiles: frozen beta-VAE encode -> infused
+noise (CUDA kernel ``kernels/infusion``) -> BN-folded DCGAN generator ->
+tanh->uint8 NHWC (CUDA kernel ``kernels/quantize``). It is the counterpart of
+``GANTrainer._sample_impl`` followed by ``make_serving_fn``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from rnagan_tpu_torch.core.config import GANConfig
+from rnagan_tpu_torch.core.device import resolve_device
+from rnagan_tpu_torch.eval.serving import make_serving_fn
+from rnagan_tpu_torch.losses.rna_infusion import (encode_z_mean, infused_noise,
+                                                  infused_noise_population)
+from rnagan_tpu_torch.models.betavae import BetaVAE
+
+
+def unnormalize(images: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] -> [0, 1] (mean/std 0.5 inverse, reference ``gan_utils.py:236-240``)."""
+    return torch.clamp(torch.as_tensor(images, dtype=torch.float32) * 0.5 + 0.5, 0.0, 1.0)
+
+
+def to_unit_range(images: torch.Tensor) -> torch.Tensor:
+    """Tiles to [0, 1] floats by dtype: uint8 -> /255; float with negatives ->
+    un-normalize from [-1, 1]; other floats are already in [0, 1]."""
+    t = torch.as_tensor(images)
+    if t.dtype == torch.uint8:
+        return t.float() / 255.0
+    t = t.float()
+    return unnormalize(t) if bool(t.min() < 0) else t
+
+
+class Synthesizer:
+    """Frozen beta-VAE + serving generator on one device.
+
+    ``vae_state_dict`` and ``g_state_dict`` are torch state_dicts in the
+    reference layouts (``convert.py`` makes them from JAX weights or loads
+    them from ``.pt`` / ``.model`` files)."""
+
+    def __init__(self, cfg: GANConfig, vae_state_dict: Dict[str, torch.Tensor],
+                 g_state_dict: Dict[str, torch.Tensor], *, uint8_output: bool = True,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.vae = BetaVAE(cfg.vae, device=self.device)
+        self.vae.load_state_dict(vae_state_dict)
+        self.vae.eval().requires_grad_(False)
+        self.serve = make_serving_fn(cfg.model, g_state_dict, uint8_output=uint8_output,
+                                     device=self.device)
+
+    @torch.inference_mode()
+    def synthesize(self, gene, n: Optional[int] = None, *, seed: Optional[int] = None,
+                   u: Optional[torch.Tensor] = None,
+                   z_pop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+        """Tiles (n, H, W, C) for ``gene`` (B, F) normalized expression rows;
+        a (1, F) row is one patient broadcast over ``n`` samples (default B).
+
+        Exactly one of ``seed`` (uniforms drawn in the kernel) and ``u``
+        ((n, encoding_dims) uniforms in [-noise_range, noise_range]). Without
+        ``z_pop`` the noise is standardized over the batch, as the reference
+        does; with ``z_pop = (mean, std)`` of z over the training population
+        (``z_population_stats``) it keeps the patient signal."""
+        gene = torch.as_tensor(gene, dtype=torch.float32).to(self.device)
+        if gene.ndim != 2:
+            raise ValueError(f"gene must be (B, F); got {tuple(gene.shape)}")
+        n = gene.shape[0] if n is None else n
+        if u is not None:
+            u = torch.as_tensor(u, dtype=torch.float32).to(self.device).contiguous()
+        z = encode_z_mean(self.vae, gene)
+        r = self.cfg.noise_range
+        if z_pop is None:
+            noise = infused_noise(z, n, seed=seed, u=u, noise_range=r)
+        else:
+            pop_mean, pop_std = (torch.as_tensor(t, dtype=torch.float32).to(self.device).contiguous()
+                                 for t in z_pop)
+            noise = infused_noise_population(z, pop_mean, pop_std, n, seed=seed, u=u, noise_range=r)
+        return self.serve(noise)

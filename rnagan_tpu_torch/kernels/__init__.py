@@ -1,0 +1,12 @@
+"""Hand-written CUDA kernels of the port, one module per TPU kernel it replaces.
+
+Each module holds the kernel's wrapper, its plain PyTorch version and a
+launch counter (a plain int on the wrapper). A CPU tensor goes to the plain
+version; a CUDA tensor launches the kernel or raises. ``_build`` compiles
+``csrc/*.cu`` with ``nvcc`` at the first launch and binds it with ``ctypes``.
+
+| module        | kernel                    | replaces                                          |
+|---------------|---------------------------|---------------------------------------------------|
+| ``infusion``  | ``csrc/infusion.cu``      | ``rnagan_tpu/ops/infusion.py::pallas_infused_noise`` |
+| ``quantize``  | ``csrc/quantize.cu``      | ``rnagan_tpu/ops/quantize.py::pallas_tanh_to_uint8`` |
+"""

@@ -1,0 +1,84 @@
+"""The port's package rules: no JAX, CUDA by default, unported options named."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from rnagan_tpu.eval import generate as jgen
+from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig, VAEModelConfig
+from rnagan_tpu_torch.eval import generate as tgen
+from rnagan_tpu_torch.eval.serving import make_serving_fn
+from rnagan_tpu_torch.models.betavae import BetaVAE
+from rnagan_tpu_torch.models.dcgan import DCGANGenerator
+
+REPO = Path(__file__).resolve().parent.parent
+SMALL = GANConfig(
+    model=GANModelConfig(out_size=16, encoding_dims=8, step_channels=4, compute_dtype="float32"),
+    vae=VAEModelConfig(rna_features=16, z_dim=8, encoder_dims=(12, 8), decoder_dims=(12,)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import rnagan_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(rnagan_tpu_torch.__path__, "rnagan_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax") or m.split(".")[0] == "rnagan_tpu")
+print(len(names))
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax():
+    """In a fresh interpreter (this one has JAX loaded by the conftest):
+    importing every module of the port loads no jax/flax/optax/rnagan_tpu module."""
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 14  # every module of the slice was imported
+
+
+def test_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("the card is present: the CUDA default does not raise here")
+    vae_sd = BetaVAE(SMALL.vae).state_dict()
+    g_sd = DCGANGenerator(SMALL.model).state_dict()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tgen.Synthesizer(SMALL, vae_sd, g_sd)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_serving_fn(SMALL.model, g_sd)
+
+
+@pytest.mark.parametrize("option,item", [("quantized_head", "B4"), ("quantized_full", "A5")])
+def test_unported_serving_options_name_their_roadmap_item(option, item):
+    g_sd = DCGANGenerator(SMALL.model).state_dict()
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        make_serving_fn(SMALL.model, g_sd, device="cpu", **{option: True})
+
+
+def test_synthesize_needs_exactly_one_noise_source():
+    synth = tgen.Synthesizer(SMALL, BetaVAE(SMALL.vae).state_dict(),
+                             DCGANGenerator(SMALL.model).state_dict(), device="cpu")
+    gene = torch.zeros(2, 16)
+    with pytest.raises(ValueError, match="exactly one"):
+        synth.synthesize(gene)
+    with pytest.raises(ValueError):  # three patients cannot fill two rows
+        synth.synthesize(torch.zeros(3, 16), 2, seed=0)
+    assert synth.synthesize(gene, seed=0).shape == (2, 16, 16, 3)
+
+
+@pytest.mark.parametrize("images", [
+    np.linspace(-1.2, 1.2, 24, dtype=np.float32).reshape(2, 2, 2, 3),
+    np.linspace(0.0, 1.0, 24, dtype=np.float32).reshape(2, 2, 2, 3),
+    np.arange(24, dtype=np.uint8).reshape(2, 2, 2, 3) * 10,
+])
+def test_unit_range_helpers_match_jax(images):
+    np.testing.assert_allclose(tgen.to_unit_range(torch.from_numpy(images)).numpy(),
+                               jgen.to_unit_range(images), atol=1e-7)
+    if images.dtype == np.float32:
+        np.testing.assert_allclose(tgen.unnormalize(torch.from_numpy(images)).numpy(),
+                                   jgen.unnormalize(images), atol=1e-7)
