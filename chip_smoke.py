@@ -8,24 +8,37 @@ Phases (any failure raises and exits non-zero; no result line is printed):
 1. the card, its power limit, and the kernels built from ``rnagan_tpu_torch/csrc``;
 2. K1 (infused noise) against its plain PyTorch version at (128, 2048);
 3. K2 (tanh -> uint8, NCHW -> NHWC) against its plain version at (128, 3, 256, 256);
-4. the main path at full width (``VAEModelConfig()`` and ``GANModelConfig()``
+   K3 (Adam) against its plain version on the training generator's
+   parameters, float32 and bfloat16 mu: bit-equal;
+4. the serving path at full width (``VAEModelConfig()`` and ``GANModelConfig()``
    widths, float32, TF32 off): a ``Synthesizer`` on the card serves a batch of
    128 patients (reference mode), one patient x 64 (population mode) and a
    repeat of the first request, with the launch counters read around them;
    the kernel path is held against the plain-op path, and a small
    configuration against the same Synthesizer on the CPU;
-5. timings with CUDA events: each kernel (through its wrapper, and replayed
+5. training checks (float32, TF32 off, cuDNN deterministic): one full-width
+   ``GANTrainer`` step through K3 against the same step through the plain
+   Adam, and a small configuration's step on the card against the CPU;
+6. the training path: ``GANConfig()`` (wganvae, bfloat16, batch 8) at full
+   width takes 3 warm-up and 10 timed steps, with the K1 and K3 launch
+   counters read around the timed ones (2 launches a step each); the step
+   again at batch 64, the step's stages timed one by one, and three steps
+   under ``torch.profiler`` (device time by kernel category, idle share);
+7. timings with CUDA events: each kernel (through its wrapper, and replayed
    from a CUDA graph for its device time), its plain version and a PyTorch
    yardstick; the serving stages and tiles/s at batch 128 in float32 and
    bfloat16; the generator again with cuDNN autotuning.
 
 It prints a details line, the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": ...}``.
-Weights are random, from fixed seeds. Needs no JAX and no network.
+Weights and data are random, from fixed seeds. Needs no JAX and no network.
 """
 
+import contextlib
+import copy
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -89,6 +102,18 @@ def generator_flops(cfg, batch):
         flops += 2 * h * h * cout * cin * 4
         cin = cout
     return batch * flops
+
+
+def k4_bound():
+    """The bound of K4 (``ops/quant_matmul.py``, not ported yet) at its serving
+    shapes, N = 128: x (N, 2048) f32, w_q (2048, 32768) int8, per-column
+    scale and bias f32, out (N, 32768) f32; 2*N*2048*32768 operations at the
+    bf16 dense peak (989 TFLOP/s)."""
+    n, k, m = 128, 2048, 32768
+    nbytes = n * k * 4 + k * m + 2 * m * 4 + n * m * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * n * k * m / 989e12 * 1e3
+    return {"bytes": nbytes, "bytes_ms": t_bytes, "operations_ms": t_ops,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def vae_encode_flops(cfg, batch):
@@ -159,6 +184,386 @@ def check_k2(dev, gen):
     return worst, share
 
 
+ADAM_HP = dict(lr=1e-4, b1=0.5, b2=0.999, eps=1e-8)
+
+
+def adam_corrections(t, b1=ADAM_HP["b1"], b2=ADAM_HP["b2"]):
+    from rnagan_tpu_torch.optim.adam import bias_corrections
+
+    return bias_corrections(t, b1, b2)
+
+
+def adam_inputs(shapes, dev, gen, mu_dtype):
+    """p, g, mu, nu as a step-5 state would hold them: nu >> (1-b2)*g^2, so
+    the update is not the sign(g)*lr of a first step."""
+    def draw(s, scale):
+        return torch.randn(s, generator=gen, device=dev) * scale
+    return ([draw(s, 0.02) for s in shapes], [draw(s, 1e-3) for s in shapes],
+            [draw(s, 1e-3).to(mu_dtype) for s in shapes],
+            [torch.rand(s, generator=gen, device=dev) * 1e-5 + 1e-7 for s in shapes])
+
+
+def ulps(a, b):
+    """Largest distance in units in the last place between two float tensors."""
+    if a.dtype == torch.bfloat16:
+        a, b = a.float(), b.float()
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+
+
+def check_k3(dev, gen, shapes):
+    """K3 against its plain version on one model's parameter list, float32 and
+    bfloat16 mu. Both round each step alone in the same order: bit-equal."""
+    from rnagan_tpu_torch.kernels.fused_adam import adam_update_plain, fused_adam
+
+    c1, c2 = adam_corrections(6)
+    worst, err = {}, 0.0
+    for mu_dtype in (torch.float32, torch.bfloat16):
+        a = adam_inputs(shapes, dev, gen, mu_dtype)
+        p0 = [t.clone() for t in a[0]]
+        b = [[t.clone() for t in ts] for ts in a]
+        fused_adam(*a, c1=c1, c2=c2, **ADAM_HP)
+        adam_update_plain(*b, c1, c2, **ADAM_HP)
+        torch.cuda.synchronize()
+        for name, xs, ys in zip(("p", "mu", "nu"), (a[0], a[2], a[3]), (b[0], b[2], b[3])):
+            worst[f"{name}_{str(mu_dtype)[6:]}"] = max(ulps(x, y) for x, y in zip(xs, ys))
+            err = max(err, max(float((x.float() - y.float()).abs().max()) for x, y in zip(xs, ys)))
+        check(all(not torch.equal(x, y) for x, y in zip(a[0], p0)), "K3 left a tensor unchanged")
+        del a, b, p0
+    print(f"K3 fused_adam vs plain on {len(shapes)} tensors, "
+          f"{sum(math.prod(s) for s in shapes):,} params: largest ulp difference {worst}, "
+          f"max abs err {err}")
+    check(max(worst.values()) == 0, f"K3 differs from its plain version: {worst} ulp")
+    return err
+
+
+def k3_timings(shapes_by_model, dev, gen):
+    """K3 through its wrapper and replayed from a CUDA graph, its plain
+    version, and ``torch.optim.Adam(fused=True)`` as the yardstick, per model."""
+    from rnagan_tpu_torch.kernels.fused_adam import adam_update_plain, fused_adam
+
+    c1, c2 = adam_corrections(6)
+    out = {}
+    for name, shapes in shapes_by_model.items():
+        a = adam_inputs(shapes, dev, gen, torch.float32)
+        params = sum(math.prod(s) for s in shapes)
+        call = lambda: fused_adam(*a, c1=c1, c2=c2, **ADAM_HP)  # noqa: E731
+        ps = [torch.nn.Parameter(t.clone()) for t in a[0]]
+        for p, g in zip(ps, a[1]):
+            p.grad = g
+        library = torch.optim.Adam(ps, lr=ADAM_HP["lr"], betas=(ADAM_HP["b1"], ADAM_HP["b2"]),
+                                   eps=ADAM_HP["eps"], fused=True)
+        ms_bound, by = bound_ms(28 * params, 11 * params)  # read p, g, mu, nu; write p, mu, nu
+        out[name] = {"params": params, "ms": time_ms(call, iters=20),
+                     "device_ms": graph_ms(call, reps=10, iters=5),
+                     "plain_ms": time_ms(lambda: adam_update_plain(*a, c1, c2, **ADAM_HP), iters=5),
+                     "library_ms": time_ms(library.step, iters=10),
+                     "bound_ms": ms_bound, "bound_by": by}
+        del a, ps, library
+    return out
+
+
+# ---------------------------------------------------------------- training
+
+
+def random_batch(gen, n, cfg, dev, size=256):
+    return {"image": torch.randint(0, 256, (n, size, size, 3), generator=gen, device=dev,
+                                   dtype=torch.uint8),
+            "rna_data": torch.randn(n, cfg.vae.rna_features, generator=gen, device=dev)}
+
+
+def training_draws(gen, n, cfg, dev):
+    d, r = cfg.model.encoding_dims, cfg.noise_range
+    u = lambda: (torch.rand(n, d, generator=gen, device=dev) * 2 - 1) * r  # noqa: E731
+    return {"u_d": u(), "u_gp": u(), "u_g": u(), "eps": torch.rand(n, 1, 1, 1, generator=gen, device=dev)}
+
+
+def warm_adam(state, gen):
+    """Adam moments as at step 5 (nu far above (1-b2)*g^2), so one step's
+    update is smooth in the gradient instead of the sign(g)*lr of a first step."""
+    for opt in (state.g_opt, state.d_opt):
+        for mu, nu in zip(opt.mu, opt.nu):
+            mu.copy_(torch.randn(mu.shape, generator=gen, device=mu.device) * 1e-3)
+            nu.copy_((torch.rand(nu.shape, generator=gen, device=nu.device) + 0.5) * 1e-2)
+        opt.count = 5
+    state.step = 5
+
+
+def state_to(state, dev):
+    """A copy of a ``GANTrainState`` on ``dev``."""
+    st = copy.deepcopy(state)
+    st.generator.to(dev)
+    st.discriminator.to(dev)
+    st.g_stats = [(m.to(dev), v.to(dev)) for m, v in st.g_stats]
+    st.d_stats = [(m.to(dev), v.to(dev)) for m, v in st.d_stats]
+    for opt in (st.g_opt, st.d_opt):
+        opt.mu, opt.nu = [t.to(dev) for t in opt.mu], [t.to(dev) for t in opt.nu]
+    return st
+
+
+def state_pairs(a, b):
+    """(group, tensor of a, tensor of b) over parameters, BN statistics and Adam moments."""
+    for group, x, y in (("params", a.generator, b.generator), ("params", a.discriminator, b.discriminator)):
+        yield from ((group, p, q) for p, q in zip(x.parameters(), y.parameters()))
+    for s, t in ((a.g_stats, b.g_stats), (a.d_stats, b.d_stats)):
+        yield from (("stats", x, y) for u, w in zip(s, t) for x, y in zip(u, w))
+    for o, q in ((a.g_opt, b.g_opt), (a.d_opt, b.d_opt)):
+        yield from (("mu", x, y) for x, y in zip(o.mu, q.mu))
+        yield from (("nu", x, y) for x, y in zip(o.nu, q.nu))
+
+
+def state_diff(a, b):
+    """Largest absolute difference between two training states."""
+    return max(float((x.detach().float() - y.detach().float().to(x.device)).abs().max())
+               for _, x, y in state_pairs(a, b))
+
+
+#: group -> (rtol, atol, share of the tensor's largest value): the CPU tests'
+#: bounds (tests/test_torch_port_train.py) for one step from the same state
+STATE_TOL = {"params": (1e-6, 1e-7, 0.0), "stats": (1e-5, 1e-6, 0.0),
+             "mu": (1e-4, 1e-7, 1e-5), "nu": (1e-4, 1e-9, 1e-5)}
+
+
+def state_excess(a, b):
+    """The largest ratio of a difference to its allowance under STATE_TOL (1 passes)."""
+    worst = 0.0
+    for group, x, y in state_pairs(a, b):
+        x, y = x.detach().float().cpu(), y.detach().float().cpu()
+        rtol, atol, share = STATE_TOL[group]
+        allow = atol + rtol * y.abs() + share * float(y.abs().max())
+        worst = max(worst, float(((x - y).abs() / allow).max()))
+    return worst
+
+
+@contextlib.contextmanager
+def plain_adam():
+    """Adam steps through K3's plain version instead of the kernel."""
+    from rnagan_tpu_torch.kernels.fused_adam import adam_update_plain
+    from rnagan_tpu_torch.optim import adam as adam_module
+
+    kernel = adam_module.fused_adam
+    adam_module.fused_adam = lambda p, g, mu, nu, *, c1, c2, lr, b1, b2, eps: adam_update_plain(
+        p, g, mu, nu, c1, c2, lr, b1, b2, eps)
+    try:
+        yield
+    finally:
+        adam_module.fused_adam = kernel
+
+
+def train_kernel_vs_plain(dev, gen, vae_sd):
+    """One full-width float32 step through K3 and the same step through the
+    plain Adam, from one state with the same batch and draws: bit-equal.
+
+    cuDNN is deterministic, but its algorithm choice for the very first step
+    differs from later ones (the free workspace changes once the first step
+    has allocated), which moves a few values by an ulp. So a throwaway step
+    runs first, and ``first_step_max_abs_diff`` reports how far it lies from
+    the compared steps."""
+    from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+
+    cfg = GANConfig(model=GANModelConfig(compute_dtype="float32"))
+    tr = GANTrainer(cfg, vae_sd, device=dev)
+    a = tr.init_state()
+    warm_adam(a, gen)
+    first, b = copy.deepcopy(a), copy.deepcopy(a)
+    batch, draws = random_batch(gen, cfg.batch_size, cfg, dev), training_draws(gen, cfg.batch_size, cfg, dev)
+    tr.train_step(first, batch, draws)
+    _, ma = tr.train_step(a, batch, draws)
+    with plain_adam():
+        _, mb = tr.train_step(b, batch, draws)
+    diff = state_diff(a, b)
+    metric_diff = max(abs(float(ma[k]) - float(mb[k])) for k in ma)
+    check(diff == 0.0 and metric_diff == 0.0,
+          f"full-width f32 step: K3 vs plain Adam differ by {diff} (metrics {metric_diff})")
+    return {"state_max_abs_diff": diff, "metric_max_abs_diff": metric_diff,
+            "first_step_max_abs_diff": state_diff(first, a),
+            "metrics": {k: float(v) for k, v in ma.items()}}
+
+
+def train_small_matches_cpu(dev, gen):
+    """A small configuration's step on the card against the same step on the
+    CPU (whose plain versions the CPU tests hold against the JAX package).
+    cuDNN and the CPU sum convolutions in other orders: the state within the
+    CPU tests' bounds (``STATE_TOL``), metrics within 1e-3 relative + 1e-5."""
+    from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig, VAEModelConfig
+    from rnagan_tpu_torch.models.betavae import BetaVAE
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+
+    cfg = GANConfig(model=GANModelConfig(out_size=32, encoding_dims=64, step_channels=8,
+                                         compute_dtype="float32"),
+                    vae=VAEModelConfig(rna_features=256, z_dim=64, encoder_dims=(128, 96, 64),
+                                       decoder_dims=(96, 128)))
+    cpu_gen = torch.Generator().manual_seed(SEED)
+    vae = BetaVAE(cfg.vae, seed=3)
+    randomize(vae, cpu_gen)
+    cpu = GANTrainer(cfg, vae.state_dict(), device="cpu")
+    card = GANTrainer(cfg, vae.state_dict(), device=dev)
+    s_cpu = cpu.init_state()
+    warm_adam(s_cpu, cpu_gen)
+    s_card = state_to(s_cpu, dev)
+    batch = random_batch(cpu_gen, cfg.batch_size, cfg, "cpu", size=32)
+    draws = training_draws(cpu_gen, cfg.batch_size, cfg, "cpu")
+    _, m_cpu = cpu.train_step(s_cpu, batch, draws)
+    _, m_card = card.train_step(s_card, batch, draws)
+    excess = state_excess(s_card, s_cpu)
+    for k in m_cpu:
+        a, b = float(m_cpu[k]), float(m_card[k])
+        check(abs(a - b) <= 1e-3 * abs(a) + 1e-5, f"small training step {k}: CPU {a}, card {b}")
+    check(excess <= 1.0, f"small training step: card vs CPU state at {excess} x its tolerance")
+    return {"state_excess": excess, "state_max_abs_diff": state_diff(s_card, s_cpu)}
+
+
+def train_main_path(dev, gen, vae_sd):
+    """``GANConfig()`` at full width (wganvae, bfloat16, batch 8) on random
+    uint8 tiles and genes: 3 warm-up steps, then 10 steps with the launch
+    counters set to 0 before them and read after."""
+    from rnagan_tpu_torch.core.config import GANConfig
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.kernels.infusion import infused_noise
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+
+    cfg = GANConfig()
+    tr = GANTrainer(cfg, vae_sd, device=dev)
+    st = tr.init_state()
+    batches = [random_batch(gen, cfg.batch_size, cfg, dev) for _ in range(4)]
+    before = [p.detach().clone() for p in (*st.generator.parameters(), *st.discriminator.parameters())]
+    for i in range(3):
+        tr.train_step(st, batches[i % 4])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fused_adam.launches = infused_noise.launches = 0
+    t0 = time.perf_counter()
+    metrics = [tr.train_step(st, batches[i % 4])[1] for i in range(10)]
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 10
+    launches = {"fused_adam": fused_adam.launches, "infused_noise": infused_noise.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"training path: 10 steps at batch 8, {step_ms:.2f} ms a step; launches {launches}")
+    check(launches == {"fused_adam": 20, "infused_noise": 20},
+          f"training launches {launches}, expected 2 a step each")
+    last = {k: float(v) for k, v in metrics[-1].items()}
+    check(all(math.isfinite(float(v)) for m in metrics for v in m.values()), f"losses not finite: {last}")
+    after = [*st.generator.parameters(), *st.discriminator.parameters()]
+    unchanged = sum(bool(torch.equal(a, b)) for a, b in zip(before, after))
+    check(unchanged == 0, f"{unchanged} parameter tensors did not change in 13 steps")
+    check(st.g_opt.count == st.d_opt.count == 13 and st.step == 13, "Adam counts")
+    return tr, st, batches, {"step_ms_b8": step_ms, "peak_mem_gib_b8": peak_gib,
+                             "launches": launches, "last_metrics": last}
+
+
+def train_step_ms_b64(dev, gen, vae_sd):
+    from rnagan_tpu_torch.core.config import GANConfig
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+
+    cfg = GANConfig(batch_size=64)
+    tr = GANTrainer(cfg, vae_sd, device=dev)
+    st = tr.init_state()
+    batch = random_batch(gen, cfg.batch_size, cfg, dev)
+    for _ in range(2):
+        tr.train_step(st, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        tr.train_step(st, batch)
+    torch.cuda.synchronize()
+    return {"step_ms_b64": (time.perf_counter() - t0) * 1e3 / 5,
+            "peak_mem_gib_b64": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def training_stage_ms(tr, st, batch):
+    """The step's stages one by one with CUDA events, at the step's shapes:
+    what ``train_step`` runs, without applying the updates."""
+    from rnagan_tpu_torch.kernels.infusion import infused_noise
+    from rnagan_tpu_torch.losses import gan as losses
+    from rnagan_tpu_torch.losses.rna_infusion import encode_z_mean
+
+    cfg, dev = tr.cfg, tr.device
+    G, D = st.generator, st.discriminator
+    g_params, d_params = list(G.parameters()), list(D.parameters())
+    real = (batch["image"].float() / 127.5 - 1.0).permute(0, 3, 1, 2).contiguous()
+    n = real.shape[0]
+    z = encode_z_mean(tr.vae, batch["rna_data"])
+    noise = infused_noise(z, n, seed=1)
+    with torch.no_grad():
+        fake, _ = G.forward_stats(noise, st.g_stats, True)
+    eps = torch.rand(n, 1, 1, 1, device=dev)
+    interp = eps * real + (1.0 - eps) * fake
+
+    def g_forward():
+        with torch.no_grad():
+            G.forward_stats(noise, st.g_stats, True)
+
+    def critic_loss():
+        dx, s1 = D(real, st.d_stats, True)
+        dgz, s2 = D(fake, s1, True)
+        return losses.wasserstein_discriminator_loss(dx, dgz), s2
+
+    def d_critic():
+        torch.autograd.grad(critic_loss()[0], d_params)
+
+    def d_stage():
+        loss, s2 = critic_loss()
+        gp = losses.gradient_penalty(lambda x: D(x, s2, True)[0], interp)
+        torch.autograd.grad(loss + cfg.gp_lambda * gp, d_params)
+
+    def g_stage():
+        f, _ = G.forward_stats(noise, st.g_stats, True)
+        dgz, _ = D(f, st.d_stats, True)
+        torch.autograd.grad(losses.wasserstein_generator_loss(dgz), g_params)
+
+    t = {"vae_encode_ms": time_ms(lambda: encode_z_mean(tr.vae, batch["rna_data"]), iters=10),
+         "infused_noise_ms": time_ms(lambda: infused_noise(z, n, seed=1), iters=20),
+         "g_forward_ms": time_ms(g_forward, iters=10),
+         "d_critic_fwd_bwd_ms": time_ms(d_critic, iters=10),
+         "d_stage_with_gp_ms": time_ms(d_stage, iters=10),
+         "g_stage_ms": time_ms(g_stage, iters=10)}
+    t["gp_ms"] = t["d_stage_with_gp_ms"] - t["d_critic_fwd_bwd_ms"]
+    return t
+
+
+def kernel_category(name):
+    n = name.lower()
+    for cat, keys in (("K3 fused_adam", ("fused_adam",)), ("K1 infused_noise", ("infused_noise",)),
+                      ("convolution (cuDNN)", ("conv", "xmma", "dgrad", "wgrad", "fprop", "cudnn",
+                                               "implicit")),
+                      ("matmul (cuBLAS)", ("gemm", "cublas", "cutlass")),
+                      ("reduction", ("reduce",))):
+        if any(k in n for k in keys):
+            return cat
+    return "elementwise and other"
+
+
+def profile_training(tr, st, batch, steps=3):
+    """``steps`` training steps under ``torch.profiler``: device time by
+    kernel category and the heaviest kernels, and the device's idle share
+    of the window (the profiler's own host cost inflates the window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tr.train_step(st, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tr.train_step(st, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_ms = lambda e: getattr(e, "self_device_time_total", 0.0) / 1e3 / steps  # noqa: E731
+    busy = sum(dev_ms(e) for e in kernels)
+    if busy == 0.0:
+        return {"device_time": "not measured: the profiler recorded no device time"}
+    cats = {}
+    for e in kernels:
+        cats[kernel_category(e.key)] = cats.get(kernel_category(e.key), 0.0) + dev_ms(e)
+    top = sorted(kernels, key=dev_ms, reverse=True)[:10]
+    return {"wall_ms_per_step": wall_ms / steps, "device_busy_ms_per_step": busy,
+            "device_idle_share": 1.0 - busy * steps / wall_ms,
+            "by_category_ms": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
+            "top_kernels": [(e.key[:90], dev_ms(e), e.count // steps) for e in top]}
+
+
 def small_config_matches_cpu(dev):
     """A small configuration through the Synthesizer on the card and on the
     CPU (whose plain versions the CPU tests hold against the JAX package)."""
@@ -195,7 +600,7 @@ def main():
     from rnagan_tpu_torch.kernels.quantize import tanh_to_uint8, tanh_to_uint8_plain
     from rnagan_tpu_torch.losses.rna_infusion import encode_z_mean, z_population_stats
     from rnagan_tpu_torch.models.betavae import BetaVAE
-    from rnagan_tpu_torch.models.dcgan import DCGANGenerator
+    from rnagan_tpu_torch.models.dcgan import DCGANDiscriminator, DCGANGenerator
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -217,8 +622,11 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(SEED)
     k1_err = check_k1(dev, gen)
     k2_worst, k2_share = check_k2(dev, gen)
+    shapes = {name: [tuple(p.shape) for p in net(GANModelConfig(), device=dev).parameters()]
+              for name, net in (("G", DCGANGenerator), ("D", DCGANDiscriminator))}
+    k3_err = check_k3(dev, gen, shapes["G"])
 
-    # ---- phase 4: the main path at full width, float32, TF32 off
+    # ---- phase 4: the serving path at full width, float32, TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
@@ -267,7 +675,25 @@ def main():
     print(f"kernel path vs plain path (max level, share differing): {path_diff}; "
           f"small config card vs CPU: {small}")
 
-    # ---- phase 5: timings
+    # ---- phase 5: training checks, float32, TF32 off, cuDNN deterministic
+    train_check = train_kernel_vs_plain(dev, gen, vae_sd)
+    train_small = train_small_matches_cpu(dev, gen)
+    print(f"full-width f32 step, K3 vs plain Adam: {train_check}; small config step card vs CPU: "
+          f"{train_small}")
+
+    # ---- phase 6: the training path, GANConfig() (bfloat16), cuDNN as PyTorch defaults it
+    torch.backends.cudnn.deterministic = False
+    trainer, train_state, train_batches, training = train_main_path(dev, gen, vae_sd)
+    training["stages_b8"] = training_stage_ms(trainer, train_state, train_batches[0])
+    training["profile_b8"] = profile_training(trainer, train_state, train_batches[0])
+    del trainer, train_state, train_batches
+    training.update(train_step_ms_b64(dev, gen, vae_sd))
+    print("training: " + json.dumps(training))
+
+    # ---- phase 7: timings (serving as in its first measurement: cuDNN deterministic)
+    torch.backends.cudnn.deterministic = True
+    torch.cuda.reset_peak_memory_stats()
+    k3 = k3_timings(shapes, dev, gen)
     n, d = BATCH, gan_cfg.encoding_dims
     zt = torch.randn(n, d, generator=gen, device=dev)
     x = torch.randn(BATCH, 3, 256, 256, generator=gen, device=dev)
@@ -281,7 +707,8 @@ def main():
     k2_bound, k2_by = bound_ms(k2_elems * 4 + k2_elems, 6 * k2_elems)  # tanh + 5 flops
     kernels = [
         {"name": "infused_noise", "route": "cuda", "source": "rnagan_tpu_torch/csrc/infusion.cu",
-         "replaces": "rnagan_tpu/ops/infusion.py:46", "launches": launches["infused_noise"],
+         "replaces": "rnagan_tpu/ops/infusion.py:46",
+         "launches": launches["infused_noise"] + training["launches"]["infused_noise"],
          "max_abs_err": k1_err,
          "ms": time_ms(lambda: infused_noise(zt, n, seed=3), iters=200),
          "device_ms": graph_ms(lambda: infused_noise(zt, n, seed=3)),
@@ -294,6 +721,12 @@ def main():
          "device_ms": graph_ms(lambda: tanh_to_uint8(x)),
          "plain_ms": time_ms(lambda: tanh_to_uint8_plain(x), iters=20),
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": time_ms(k2_library, iters=20)},
+        {"name": "fused_adam", "route": "cuda", "source": "rnagan_tpu_torch/csrc/fused_adam.cu",
+         "replaces": "rnagan_tpu/ops/fused_adam.py:66", "launches": training["launches"]["fused_adam"],
+         "max_abs_err": k3_err,
+         **{key: k3["G"][key] + k3["D"][key]  # one training step: G's launch and D's
+            for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
+         "bound_by": k3["G"]["bound_by"]},
     ]
 
     g_flops, v_flops = generator_flops(gan_cfg, BATCH), vae_encode_flops(vae_cfg, BATCH)
@@ -332,7 +765,9 @@ def main():
 
     details = {"card": smi, "build_s": kb.seconds, "k2_share_differing": k2_share,
                "main_path_s": main_s, "kernel_vs_plain_path": path_diff, "small_vs_cpu": small,
-               "serving_b128": serving, "peak_mem_gib": peak_gib,
+               "serving_b128": serving, "peak_mem_gib_timings": peak_gib,
+               "training_f32_k3_vs_plain": train_check, "training_small_vs_cpu": train_small,
+               "training": training, "fused_adam_by_model": k3, "k4_bound": k4_bound(),
                "total_s": time.perf_counter() - t_start}
     print("details: " + json.dumps(details))
     print(json.dumps({"kernels": kernels}))

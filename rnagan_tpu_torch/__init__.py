@@ -1,11 +1,12 @@
 """PyTorch/CUDA port of the RNA-GAN framework, for one NVIDIA Hopper card.
 
 The JAX package ``rnagan_tpu`` is the reference; this package mirrors its
-module names (``core/``, ``models/``, ``losses/``, ``eval/``) and carries its
+module names (``core/``, ``models/``, ``losses/``, ``eval/``, ``train/``) and carries its
 own copy of everything it needs: it imports ``torch``, ``numpy`` and the
 standard library only. The Pallas kernels of the reference become CUDA C++
 kernels under ``csrc/``, built with ``nvcc`` at their first launch and bound
 with ``ctypes`` (``kernels/``).
 
-Entry point for tile synthesis: :class:`rnagan_tpu_torch.eval.generate.Synthesizer`.
+Entry points: tile synthesis, :class:`rnagan_tpu_torch.eval.generate.Synthesizer`;
+GAN training, :class:`rnagan_tpu_torch.train.gan_trainer.GANTrainer`.
 """

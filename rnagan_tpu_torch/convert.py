@@ -10,20 +10,27 @@ the port's state_dicts. They copy the logic of
 * flax ConvTranspose kernels are HWIO and ``lax.conv_transpose`` convolves
   with the spatially flipped kernel, while torch's ConvTranspose2d places it
   unflipped as (in, out, kH, kW): both spatial axes flip in transit;
+* flax Conv kernels are HWIO and torch Conv2d weights OIHW; both
+  cross-correlate, so the kernel is transposed and not flipped;
 * BatchNorm ``scale``/``bias`` + ``mean``/``var`` become
   ``weight``/``bias``/``running_mean``/``running_var`` (+ ``num_batches_tracked``).
+
+Adam moments (optax ``mu``/``nu`` trees) move by the same layout transforms,
+in the order of the port's ``parameters()``, which is torchgan's.
 
 The loaders read:
 
 * a reference or JAX-exported betaVAE ``.pt`` state_dict
   (``params_to_torch_state_dict`` + ``torch.save``);
 * the ``generator`` entry of a torchgan-layout ``.model`` bundle, which
-  ``python -m rnagan_tpu.cli.export_torch`` writes from a JAX-trained checkpoint.
+  ``python -m rnagan_tpu.cli.export_torch`` writes from a JAX-trained checkpoint;
+* a whole training bundle of that layout (``load_training_bundle``), which
+  ``save_training_bundle`` writes.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,8 +42,9 @@ StateDict = Dict[str, torch.Tensor]
 
 
 def _t(x) -> torch.Tensor:
-    # np.array copies: jax-backed arrays are read-only, torch wants owned memory
-    return torch.from_numpy(np.array(x))
+    # np.array copies: jax-backed arrays are read-only, torch wants owned,
+    # C-contiguous memory (a transposed view would otherwise keep its strides)
+    return torch.from_numpy(np.array(x, order="C"))
 
 
 def _put_bn(sd: StateDict, prefix: str, params, stats) -> None:
@@ -93,6 +101,143 @@ def generator_state_dict_from_jax(cfg: GANModelConfig, params: Dict[str, Any],
             _put_bn(sd, f"model.{b}.1", params[f"_BN_{b}"]["BatchNorm_0"],
                     stats[f"_BN_{b}"]["BatchNorm_0"])
     return sd
+
+
+def conv_kernel_to_torch(k) -> torch.Tensor:
+    """flax Conv HWIO -> torch Conv2d OIHW: a transpose, no flip (both cross-correlate)."""
+    return _t(np.asarray(k).transpose(3, 2, 0, 1))
+
+
+def discriminator_state_dict_from_jax(cfg: GANModelConfig, params: Dict[str, Any],
+                                      stats: Dict[str, Any]) -> StateDict:
+    """JAX ``DCGANDiscriminator`` params/batch_stats -> torchgan ``model.<b>.0|1``
+    keys (blocks 1..r carry ``_BN_{b-1}`` when ``cfg.batchnorm``), plus
+    ``cond_proj.weight`` for the projection critic."""
+    if cfg.arch != "dcgan":
+        raise NotImplementedError(f"arch={cfg.arch!r}: the torchgan layout covers 'dcgan' only")
+    r = num_repeats(cfg.out_size)
+    sd: StateDict = {}
+    for b in range(r + 2):
+        leaf = params[f"Conv_{b}"]
+        sd[f"model.{b}.0.weight"] = conv_kernel_to_torch(leaf["kernel"])
+        if "bias" in leaf:
+            sd[f"model.{b}.0.bias"] = _t(leaf["bias"])
+        if cfg.batchnorm and 1 <= b <= r:
+            _put_bn(sd, f"model.{b}.1", params[f"_BN_{b - 1}"]["BatchNorm_0"],
+                    stats[f"_BN_{b - 1}"]["BatchNorm_0"])
+    if cfg.critic == "projection":
+        sd["cond_proj.weight"] = _t(np.asarray(params["cond_proj"]["kernel"]).T)
+    return sd
+
+
+# ------------------------------------------------- parameter lists, moments
+
+_TO_TORCH = {"convt": convt_kernel_to_torch, "conv": conv_kernel_to_torch,
+             "dense": lambda a: _t(np.asarray(a).T), "vec": _t}
+_FROM_TORCH = {"convt": lambda a: a.transpose(2, 3, 0, 1)[::-1, ::-1],
+               "conv": lambda a: a.transpose(2, 3, 1, 0), "dense": lambda a: a.T,
+               "vec": lambda a: a}
+
+
+def param_paths(cfg: GANModelConfig, net: str):
+    """``[(flax_path, kind)]`` of the ``"generator"`` or ``"discriminator"`` in
+    the port's ``parameters()`` order (torchgan's, ``dcgan_torch.py:159-170``):
+    per block the conv kernel, its bias or the BN scale and bias; then the
+    projection critic's ``cond_proj``."""
+    if net not in ("generator", "discriminator"):
+        raise ValueError(f"net must be 'generator' or 'discriminator', not {net!r}")
+    gen = net == "generator"
+    r = num_repeats(cfg.out_size)
+    conv, kind = ("ConvTranspose", "convt") if gen else ("Conv", "conv")
+    order = []
+    for b in range(r + 2):
+        order.append(((f"{conv}_{b}", "kernel"), kind))
+        has_bn = cfg.batchnorm and (b <= r if gen else 1 <= b <= r)
+        if has_bn:
+            bn = f"_BN_{b if gen else b - 1}"
+            order += [((bn, "BatchNorm_0", "scale"), "vec"), ((bn, "BatchNorm_0", "bias"), "vec")]
+        else:
+            order.append(((f"{conv}_{b}", "bias"), "vec"))
+    if not gen and cfg.critic == "projection":
+        order.append((("cond_proj", "kernel"), "dense"))
+    return order
+
+
+def _get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def param_list_from_jax(cfg: GANModelConfig, net: str, tree) -> list:
+    """A flax-layout tree shaped like the net's ``params`` (the parameters or
+    an optax moment of them) -> float32 tensors in the port's ``parameters()``
+    order and layout."""
+    return [_TO_TORCH[kind](np.asarray(_get(tree, path), np.float32))
+            for path, kind in param_paths(cfg, net)]
+
+
+def param_list_to_jax(cfg: GANModelConfig, net: str, tensors) -> Dict[str, Any]:
+    """The inverse of :func:`param_list_from_jax`: a float32 numpy tree in the
+    flax layout."""
+    tree: Dict[str, Any] = {}
+    for (path, kind), t in zip(param_paths(cfg, net), tensors, strict=True):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(_FROM_TORCH[kind](t.detach().float().cpu().numpy()))
+    return tree
+
+
+def adam_moments_from_jax(cfg: GANModelConfig, net: str, mu_tree, nu_tree):
+    """optax ``ScaleByAdamState.mu``/``nu`` -> ``(mus, nus)``, the state of the
+    port's :class:`rnagan_tpu_torch.optim.adam.Adam` (float32; a bf16 mu is
+    widened exactly)."""
+    return param_list_from_jax(cfg, net, mu_tree), param_list_from_jax(cfg, net, nu_tree)
+
+
+def adam_moments_to_jax(cfg: GANModelConfig, net: str, mus, nus):
+    """``(mu_tree, nu_tree)``, float32 numpy trees in the flax layout."""
+    return param_list_to_jax(cfg, net, mus), param_list_to_jax(cfg, net, nus)
+
+
+# ------------------------------------------------------- training bundles
+
+def save_training_bundle(path: str, generator: StateDict, discriminator: StateDict,
+                         optimizer_generator: Dict[str, Any],
+                         optimizer_discriminator: Dict[str, Any], *, epoch: int = 0,
+                         step: Optional[int] = None, g_ema: Optional[StateDict] = None,
+                         z_pop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> None:
+    """Write a torchgan-``Trainer``-layout ``.model`` bundle with ``torch.save``,
+    the format ``rnagan_tpu/models/dcgan_torch.py::export_torchgan_bundle``
+    writes and ``import_torchgan_bundle`` reads: ``epoch`` (epochs done, so
+    ``epoch + 1``), the two state_dicts, the two ``torch.optim.Adam``
+    state_dicts and empty loss/metric containers. The port's extra keys
+    ``step``, ``g_ema`` (generator parameters by name) and ``z_pop``
+    (``mean``/``std``) are ignored by readers that do not know them."""
+    cpu = lambda sd: {k: v.detach().cpu() for k, v in sd.items()}  # noqa: E731
+    bundle: Dict[str, Any] = {
+        "epoch": int(epoch) + 1, "loss_information": {}, "loss_objects": {},
+        "metric_objects": {}, "loss_logs": {}, "metric_logs": {},
+        "generator": cpu(generator), "discriminator": cpu(discriminator),
+        "optimizer_generator": optimizer_generator,
+        "optimizer_discriminator": optimizer_discriminator,
+    }
+    if step is not None:
+        bundle["step"] = int(step)
+    if g_ema is not None:
+        bundle["g_ema"] = cpu(g_ema)
+    if z_pop is not None:
+        bundle["z_pop"] = {"mean": torch.as_tensor(z_pop[0]).detach().cpu(),
+                           "std": torch.as_tensor(z_pop[1]).detach().cpu()}
+    torch.save(bundle, path)
+
+
+def load_training_bundle(path: str) -> Dict[str, Any]:
+    """A torchgan-layout ``.model`` bundle as written by
+    :func:`save_training_bundle` or the JAX package's ``export_torchgan_bundle``,
+    loaded with ``weights_only=True`` onto the CPU."""
+    return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def load_betavae_state_dict(path: str) -> StateDict:

@@ -3,15 +3,14 @@
 Field names and defaults are the JAX package's, so a configuration moves
 between the two packages field for field. Knobs that only choose a TPU
 compute schedule with the same math (``GANModelConfig.convt_impl``,
-``remat``) and the training-run fields of ``GANConfig`` are not copied yet:
-the serving slice reads none of them.
+``remat``) and the device mesh (``GANConfig.mesh``, ROADMAP A15) are not copied.
 """
 
 from __future__ import annotations
 
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -51,13 +50,39 @@ class GANModelConfig:
 
 @dataclass(frozen=True)
 class GANConfig:
-    """The serving fields of the GAN run configuration."""
+    """GAN training run and serving (reference ``histopathology_gan.py`` CLI + literals)."""
 
     model: GANModelConfig = field(default_factory=GANModelConfig)
+    loss_type: str = "wganvae"  # minimax | wgan | wganvae | lsgan
+    batch_size: int = 8  # hardcoded in the reference (histopathology_gan.py:94)
+    num_epochs: int = 900
+    # TTUR Adam (reference histopathology_gan.py:252,257)
+    g_lr: float = 1e-4
+    d_lr: float = 4e-4
+    adam_b1: float = 0.5
+    adam_b2: float = 0.999
+    # wgan weight clip (reference histopathology_gan.py:270)
+    clip: Optional[Tuple[float, float]] = (-0.01, 0.01)
+    gp_lambda: float = 10.0  # reference wgan_loss.py:287
     noise_range: float = 0.3  # U(-0.3, 0.3) infusion noise, wgan_loss.py:100
-    seed: int = 99
-    #: frozen betaVAE encoder of the wganvae loss family
+    #: frozen betaVAE ``.pt`` of the wganvae loss family (reference wgan_loss.py:67-69)
+    vae_checkpoint: Optional[str] = None
     vae: VAEModelConfig = field(default_factory=VAEModelConfig)
+    #: the reference's two D steps a batch: critic loss, then a GP-only step
+    #: with one scalar interpolation epsilon and a global gradient norm
+    #: (wgan_loss.py:376,43)
+    compat_reference_gp: bool = False
+    #: a TPU schedule in the JAX package (real and fake as one 2B-batch D
+    #: call); the same function as the two-pass step, which the port computes
+    fused_critic_batch: bool = False
+    #: critic iterations per generator update (G updates on every n_critic-th step)
+    n_critic: int = 1
+    #: dtype of Adam's first moment ("bfloat16" or None = float32); nu stays float32
+    adam_mu_dtype: Optional[str] = None
+    #: EMA decay of the generator weights, updated on steps that update G; None = off
+    g_ema_decay: Optional[float] = None
+    sample_size: int = 64  # per-epoch sample grid (histopathology_gan.py:300)
+    seed: int = 99
 
 
 def load_reference_json(path: str) -> Dict[str, Any]:

@@ -1,0 +1,51 @@
+"""Functional BatchNorm with the semantics of flax ``nn.BatchNorm``.
+
+The JAX package's DCGAN BatchNorm (``rnagan_tpu/models/dcgan.py::_BN``) is
+flax's with ``momentum=0.9``, ``epsilon=1e-5`` and the default
+``use_fast_variance=True``. In train mode that means:
+
+* the batch statistics are reduced in float32 over every axis but the
+  channels, ``var = max(E[x^2] - E[x]^2, 0)`` (the biased variance);
+* ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32, cast to
+  the compute dtype of ``x``;
+* the running statistics become ``0.9 * old + 0.1 * batch``, the variance the
+  biased one.
+
+In eval mode the running statistics normalize. Torch's own BatchNorm differs
+on two counts: momentum 0.1 is the weight of the batch, and its running
+variance takes the *unbiased* batch variance. This module never mutates a
+buffer: it returns the new statistics and the caller decides which to keep.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+
+MOMENTUM = 0.9  # flax: weight of the old running statistics
+EPS = 1e-5
+
+#: running (mean, var) of each BatchNorm of a module, in module order
+Stats = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
+               var: torch.Tensor, *, train: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``x`` (N, C, ...) in the compute dtype; ``scale``, ``bias`` and the
+    running ``mean``, ``var`` (C,) float32. Returns ``(y, new_mean, new_var)``:
+    ``y`` in ``x``'s dtype; in eval mode the running statistics come back as
+    they were."""
+    axes = [0, *range(2, x.ndim)]
+    xf = x.float()
+    if train:
+        m = xf.mean(axes)
+        v = torch.clamp((xf * xf).mean(axes) - m * m, min=0.0)
+        new_mean = (MOMENTUM * mean + (1.0 - MOMENTUM) * m).detach()
+        new_var = (MOMENTUM * var + (1.0 - MOMENTUM) * v).detach()
+    else:
+        m, v, new_mean, new_var = mean, var, mean, var
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    mul = torch.rsqrt(v + EPS) * scale
+    y = (xf - m.reshape(shape)) * mul.reshape(shape) + bias.reshape(shape)
+    return y.to(x.dtype), new_mean, new_var

@@ -1,24 +1,41 @@
-"""DCGAN generator (port of ``DCGANGenerator`` in ``rnagan_tpu/models/dcgan.py``).
+"""DCGAN generator and discriminator (port of ``rnagan_tpu/models/dcgan.py``).
 
 torchgan's ``nn.Sequential`` layout, so ``model.<block>.0|1`` keys match the
-``.model`` bundles the JAX package exports (``models/dcgan_torch.py``):
+``.model`` bundles the JAX package exports (``models/dcgan_torch.py``).
+
+Generator:
 
 * block 0: ``ConvTranspose2d(z, d, 4, 1, 0)`` on the 1x1 noise map, BN, LeakyReLU;
 * blocks 1..r: ``ConvTranspose2d(c, c/2, 4, 2, 1)``, BN, LeakyReLU;
 * block r+1: ``ConvTranspose2d(step, out_channels, 4, 2, 1)`` with a bias.
 
-``r = out_size.bit_length() - 4`` (5 at 256x256: channels 2048 -> 1024 ->
-... -> 64 -> 3). Without BatchNorm (``cfg.batchnorm=False``, the BN-folded
-serving form) every conv carries a bias. A stride-2 ``ConvTranspose2d`` with
-padding 1 equals flax's ``padding="SAME"`` once the kernel is flipped in
-transit (``convert.py``). Layout is NCHW; the serving path turns the output
-into the JAX package's NHWC at its egress (``eval/serving.py``).
+Discriminator (the mirror):
+
+* block 0: ``Conv2d(in, step, 4, 2, 1)`` with a bias, LeakyReLU;
+* blocks 1..r: ``Conv2d(c, 2c, 4, 2, 1)``, BN, LeakyReLU;
+* block r+1: ``Conv2d(d, 1, 4, 1, 0)`` with a bias, reshaped to (N,) scores,
+  then LeakyReLU when ``disc_last_leaky``;
+* ``critic="projection"`` adds ``<cond_proj(z_mean), sum_hw h>`` to the score,
+  ``h`` the last 4x4 feature map and ``cond_proj`` a bias-free Linear.
+
+``r = out_size.bit_length() - 4`` (5 at 256x256). Without BatchNorm
+(``cfg.batchnorm=False``; for the generator also the BN-folded serving form)
+every conv carries a bias. A stride-2 ``ConvTranspose2d`` with padding 1
+equals flax's ``padding="SAME"`` once the kernel is flipped in transit; a
+``Conv2d`` kernel is only transposed (``convert.py``). Layout is NCHW.
+
+BatchNorm has flax's semantics (``models/batchnorm.py``). ``forward_stats`` /
+the discriminator's ``forward`` take the running statistics as an argument
+and return the updated ones, so each training stage decides which to keep;
+the generator's ``forward`` keeps them in its BatchNorm buffers.
 
 Parameters stay float32; ``cfg.compute_dtype`` names the compute type (cast
-copies of the weights, float32 output), as ``dcgan_lax_apply`` does.
+copies of the weights, float32 output), as the JAX modules do.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +43,7 @@ from torch import nn
 
 from rnagan_tpu_torch.core.config import GANModelConfig
 from rnagan_tpu_torch.core.device import compute_dtype
+from rnagan_tpu_torch.models.batchnorm import Stats, batch_norm
 
 #: architectures of ``make_generator`` that later slices port, by ROADMAP item
 _LATER = {"dcgan_up": "A4", "condgan": "A4", "sagan": "A13", "biggan": "A13"}
@@ -45,11 +63,48 @@ def _require_dcgan(cfg: GANModelConfig) -> None:
         raise ValueError(f"unknown gan arch: {cfg.arch}")
 
 
-class DCGANGenerator(nn.Module):
+class _DCGAN(nn.Module):
+    """What the two nets share: seeded init and the BN buffers as ``Stats``."""
+
+    cfg: GANModelConfig
+
+    @torch.no_grad()
+    def _init_weights(self, seed: int) -> None:
+        """Convs and Linear N(0, 0.02), BN scale N(1, 0.02), biases zero
+        (``models/dcgan.py:45-49``), drawn in module order from ``seed``."""
+        gen = None
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.BatchNorm2d, nn.Linear)):
+                if gen is None:
+                    gen = torch.Generator(device=m.weight.device).manual_seed(seed)
+                m.weight.normal_(1.0 if isinstance(m, nn.BatchNorm2d) else 0.0, 0.02, generator=gen)
+                if m.bias is not None:
+                    m.bias.zero_()
+
+    def _bns(self):
+        return [m for m in self.modules() if isinstance(m, nn.BatchNorm2d)]
+
+    def bn_stats(self) -> Stats:
+        """The BatchNorm buffers (running mean, running var), in module order."""
+        return [(bn.running_mean, bn.running_var) for bn in self._bns()]
+
+    @torch.no_grad()
+    def load_bn_stats(self, stats: Stats) -> None:
+        for bn, (mean, var) in zip(self._bns(), stats, strict=True):
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var)
+
+    def _bn(self, x, p, block: int, stats: Stats, k: int, train: bool, new: Stats):
+        x, mean, var = batch_norm(x, p[f"model.{block}.1.weight"], p[f"model.{block}.1.bias"],
+                                  *stats[k], train=train)
+        new.append((mean, var))
+        return x
+
+
+class DCGANGenerator(_DCGAN):
     """z (N, encoding_dims) -> images (N, out_channels, out_size, out_size).
 
-    Weights are drawn from ``seed``: convs N(0, 0.02), BN scale N(1, 0.02),
-    biases zero (``models/dcgan.py:45-49``). ``final_tanh=False`` returns the
+    Weights are drawn from ``seed``. ``final_tanh=False`` returns the
     pre-tanh map, for the fused uint8 egress."""
 
     def __init__(self, cfg: GANModelConfig, *, final_tanh: bool = True, seed: int = 0, device=None):
@@ -72,40 +127,101 @@ class DCGANGenerator(nn.Module):
         bn = self.cfg.batchnorm
         layers = [nn.ConvTranspose2d(cin, cout, 4, stride, pad, bias=not bn, device=device)]
         if bn:
-            layers.append(nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1, device=device))
+            layers.append(nn.BatchNorm2d(cout, eps=1e-5, device=device))
         layers.append(nn.LeakyReLU(self.cfg.leaky_slope))
         return nn.Sequential(*layers)
 
-    @torch.no_grad()
-    def _init_weights(self, seed: int) -> None:
-        gen = None
-        for m in self.modules():
-            if isinstance(m, (nn.ConvTranspose2d, nn.BatchNorm2d)):
-                if gen is None:
-                    gen = torch.Generator(device=m.weight.device).manual_seed(seed)
-                m.weight.normal_(1.0 if isinstance(m, nn.BatchNorm2d) else 0.0, 0.02, generator=gen)
-                if m.bias is not None:
-                    m.bias.zero_()
-
     def forward(self, z: torch.Tensor) -> torch.Tensor:
+        """Module mode: BatchNorm reads its buffers; train mode also writes the
+        updated statistics back to them, as flax's mutable ``batch_stats``."""
+        out, new = self.forward_stats(z, self.bn_stats(), self.training)
+        if self.training:
+            self.load_bn_stats(new)
+        return out
+
+    def forward_stats(self, z: torch.Tensor, stats: Stats, train: bool,
+                      params: Optional[Sequence[torch.Tensor]] = None) -> Tuple[torch.Tensor, Stats]:
+        """``(images, new_stats)`` with the BatchNorm statistics ``stats`` and,
+        when given, ``params`` in place of the module's parameters (the EMA
+        generator samples this way)."""
         dt = compute_dtype(self.cfg.compute_dtype)
+        p = dict(self.named_parameters())
+        if params is not None:
+            p = dict(zip(p, params, strict=True))
         x = z.to(dt)[:, :, None, None]
+        new: Stats = []
         last = len(self.model) - 1
         for i, block in enumerate(self.model):
             conv = block[0]
-            bias = None if conv.bias is None else conv.bias.to(dt)
-            x = F.conv_transpose2d(x, conv.weight.to(dt), bias, conv.stride, conv.padding)
+            bias = p.get(f"model.{i}.0.bias")
+            x = F.conv_transpose2d(x, p[f"model.{i}.0.weight"].to(dt),
+                                   None if bias is None else bias.to(dt), conv.stride, conv.padding)
             if i == last:
                 break
             if self.cfg.batchnorm:
-                bn = block[1]
-                if bn.training and dt != torch.float32:
-                    raise NotImplementedError(
-                        "bfloat16 BatchNorm training waits for GAN training (ROADMAP A8)")
-                # float32 .to() returns the buffers themselves: training mode
-                # updates the running statistics in place
-                x = F.batch_norm(x, bn.running_mean.to(dt), bn.running_var.to(dt),
-                                 bn.weight.to(dt), bn.bias.to(dt), bn.training, bn.momentum, bn.eps)
+                x = self._bn(x, p, i, stats, i, train, new)
             x = F.leaky_relu(x, self.cfg.leaky_slope)
         x = x.float()
-        return torch.tanh(x) if self.final_tanh else x
+        return (torch.tanh(x) if self.final_tanh else x), new
+
+
+class DCGANDiscriminator(_DCGAN):
+    """images (N, out_channels, out_size, out_size) -> (N,) critic scores.
+
+    Weights are drawn from ``seed``; ``critic="projection"`` adds the
+    ``cond_proj`` Linear (encoding_dims -> the last feature width)."""
+
+    def __init__(self, cfg: GANModelConfig, *, seed: int = 0, device=None):
+        super().__init__()
+        _require_dcgan(cfg)
+        if cfg.critic not in ("unconditional", "projection"):
+            raise ValueError(f"unknown critic: {cfg.critic}")
+        self.cfg = cfg
+        r = num_repeats(cfg.out_size)
+        d = cfg.step_channels
+        slope = cfg.leaky_slope
+        blocks = [nn.Sequential(nn.Conv2d(cfg.out_channels, d, 4, 2, 1, bias=True, device=device),
+                                nn.LeakyReLU(slope))]
+        for _ in range(r):
+            layers = [nn.Conv2d(d, 2 * d, 4, 2, 1, bias=not cfg.batchnorm, device=device)]
+            if cfg.batchnorm:
+                layers.append(nn.BatchNorm2d(2 * d, eps=1e-5, device=device))
+            blocks.append(nn.Sequential(*layers, nn.LeakyReLU(slope)))
+            d *= 2
+        blocks.append(nn.Sequential(nn.Conv2d(d, 1, 4, 1, 0, bias=True, device=device)))
+        self.model = nn.Sequential(*blocks)
+        if cfg.critic == "projection":
+            self.cond_proj = nn.Linear(cfg.encoding_dims, d, bias=False, device=device)
+        self._init_weights(seed)
+
+    def forward(self, x: torch.Tensor, stats: Stats, train: bool,
+                cond: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Stats]:
+        """``(scores, new_stats)``. ``cond`` (N, encoding_dims) is the frozen
+        VAE's z_mean, required by the projection critic."""
+        cfg = self.cfg
+        dt = compute_dtype(cfg.compute_dtype)
+        p = dict(self.named_parameters())
+        new: Stats = []
+        x = x.to(dt)
+        last = len(self.model) - 1
+        for i, block in enumerate(self.model):
+            conv = block[0]
+            if i == last:
+                h = x  # the final 4x4 feature map
+            bias = p.get(f"model.{i}.0.bias")
+            x = F.conv2d(x, p[f"model.{i}.0.weight"].to(dt), None if bias is None else bias.to(dt),
+                         conv.stride, conv.padding)
+            if i == last:
+                break
+            if cfg.batchnorm and i > 0:
+                x = self._bn(x, p, i, stats, i - 1, train, new)
+            x = F.leaky_relu(x, cfg.leaky_slope)
+        score = x.float().reshape(x.shape[0])
+        if cfg.critic == "projection":
+            if cond is None:
+                raise ValueError("critic='projection' requires cond (z_mean)")
+            proj = F.linear(cond.to(dt), p["cond_proj.weight"].to(dt))
+            score = score + (h.sum(dim=(2, 3)) * proj).sum(dim=-1).float()
+        if cfg.disc_last_leaky:
+            score = F.leaky_relu(score, cfg.leaky_slope)
+        return score, new

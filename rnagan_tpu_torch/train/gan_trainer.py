@@ -1,0 +1,398 @@
+"""GAN trainer (port of ``rnagan_tpu/train/gan_trainer.py``).
+
+One :meth:`GANTrainer.train_step` is the JAX package's ``_train_step_impl``
+(``:207-386``), stage by stage, on one card:
+
+* uint8 NHWC tiles are normalized on the device (``x/127.5 - 1``);
+* ``wgan`` clamps D's parameters at the start of the step;
+* **D stage**: G forward in train mode (G's BatchNorm statistics update); D
+  on the real tiles, then on the fakes, each updating D's statistics; the
+  critic loss; with the fused GP, the per-sample penalty on
+  ``eps*real + (1-eps)*fake`` (eps of shape (N,1,1,1)), its D forward in
+  train mode with its statistics update discarded; one Adam step of D;
+* **GP stage** (``compat_reference_gp``): a fresh G forward, one scalar
+  eps, the global-norm penalty and a second Adam step of D. The penalty's
+  forward updates D's statistics with the pre-step weights, the update the
+  JAX package replays (``:333``);
+* **G stage**: G forward from the post-D-stage statistics, D with its
+  updated weights in train mode (both keep their statistics), one Adam step
+  of G. With ``n_critic > 1`` only every ``n_critic``-th step runs it;
+* the EMA of G's weights, on steps that updated G.
+
+Every Adam step is one launch of the K3 kernel (``optim/adam.py``); every
+stage's noise is one launch of the K1 kernel (``kernels/infusion.py``), its
+uniforms drawn from a seed of ``core/rng.py`` or given in ``draws``. The
+frozen VAE encodes z_mean once a step: JAX encodes it per stage, with the
+same result. ``fused_critic_batch=True`` is accepted and runs this two-pass
+step: in the JAX package it is a TPU schedule of the same function, and its
+test shows the two agree (``tests/test_gan_trainer.py:337``).
+
+Unlike the JAX step, which is pure, ``train_step`` updates the state in place
+and returns it. ``fit`` writes a sample grid PNG and ``gan_last.model`` per
+epoch, synchronously (the JAX ``AsyncSaver`` works around a slow host link).
+"""
+
+from __future__ import annotations
+
+import copy
+import logging
+import math
+import os
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+
+import torch
+
+from rnagan_tpu_torch import convert
+from rnagan_tpu_torch.core.config import GANConfig
+from rnagan_tpu_torch.core.device import resolve_device
+from rnagan_tpu_torch.core.rng import SeedStream
+from rnagan_tpu_torch.losses import gan as gan_losses
+from rnagan_tpu_torch.losses.rna_infusion import (encode_z_mean, infused_noise,
+                                                  infused_noise_population, z_population_stats)
+from rnagan_tpu_torch.models.batchnorm import Stats
+from rnagan_tpu_torch.models.betavae import BetaVAE
+from rnagan_tpu_torch.models.dcgan import DCGANDiscriminator, DCGANGenerator
+from rnagan_tpu_torch.optim.adam import Adam
+from rnagan_tpu_torch.utils.images import save_image_grid
+
+log = logging.getLogger(__name__)
+
+#: the stages that draw noise, and their index in a step's seeds
+_STAGES = {"d": 0, "gp": 1, "g": 2, "eps": 3}
+
+
+@dataclass
+class GANTrainState:
+    """The training state. ``generator``/``discriminator`` hold the live
+    parameters; ``g_stats``/``d_stats`` the BatchNorm running statistics
+    (``(mean, var)`` per BatchNorm, module order); ``g_ema`` the EMA of G's
+    parameters in ``parameters()`` order, or None when it is off."""
+
+    step: int
+    generator: DCGANGenerator
+    discriminator: DCGANDiscriminator
+    g_stats: Stats
+    d_stats: Stats
+    g_opt: Adam
+    d_opt: Adam
+    g_ema: Optional[List[torch.Tensor]] = None
+
+
+def load_frozen_vae(path: str) -> Dict[str, torch.Tensor]:
+    """The frozen betaVAE of the wganvae loss family, from a reference or
+    JAX-exported ``.pt`` state_dict."""
+    return convert.load_betavae_state_dict(path)
+
+
+def _copy_stats(stats: Stats) -> Stats:
+    return [(m.detach().clone(), v.detach().clone()) for m, v in stats]
+
+
+class GANTrainer:
+    """RNA-GAN training on one card (``device="cuda"``, the default, raises
+    without CUDA; the tests pass ``"cpu"``).
+
+    ``vae_state_dict`` is the frozen betaVAE of the wganvae loss family (or
+    ``cfg.vae_checkpoint`` names its ``.pt``)."""
+
+    def __init__(self, cfg: GANConfig, vae_state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 device="cuda", image_dir: Optional[str] = None, model_dir: Optional[str] = None):
+        if cfg.loss_type not in gan_losses.DISCRIMINATOR_LOSSES:
+            raise ValueError(f"unknown loss_type {cfg.loss_type}")
+        if cfg.model.critic == "projection" and cfg.loss_type != "wganvae":
+            raise ValueError("critic='projection' conditions on the frozen VAE embedding; "
+                             "it requires loss_type=wganvae")
+        if cfg.adam_mu_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError("adam_mu_dtype must be None, 'float32' or 'bfloat16'")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.image_dir = image_dir
+        self.model_dir = model_dir
+        self.seeds = SeedStream(cfg.seed)
+        self.vae: Optional[BetaVAE] = None
+        if cfg.loss_type == "wganvae":
+            if vae_state_dict is None:
+                if not cfg.vae_checkpoint:
+                    raise ValueError("loss_type=wganvae requires vae_state_dict or cfg.vae_checkpoint")
+                vae_state_dict = load_frozen_vae(cfg.vae_checkpoint)
+            self.vae = BetaVAE(cfg.vae, device=self.device)
+            self.vae.load_state_dict(vae_state_dict)
+            self.vae.eval().requires_grad_(False)
+        #: (mean, std) of z_mean over the training population, for generation
+        #: that keeps the patient signal; saved into every checkpoint
+        self.z_pop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._mu_dtype = torch.bfloat16 if cfg.adam_mu_dtype == "bfloat16" else torch.float32
+
+    # ------------------------------------------------------------------ state
+    def init_state(self) -> GANTrainState:
+        cfg, dev = self.cfg, self.device
+        g = DCGANGenerator(cfg.model, seed=self.seeds.seed("init", stage=0), device=dev)
+        d = DCGANDiscriminator(cfg.model, seed=self.seeds.seed("init", stage=1), device=dev)
+        betas = dict(b1=cfg.adam_b1, b2=cfg.adam_b2, mu_dtype=self._mu_dtype)
+        return GANTrainState(
+            step=0, generator=g, discriminator=d,
+            g_stats=_copy_stats(g.bn_stats()), d_stats=_copy_stats(d.bn_stats()),
+            g_opt=Adam(list(g.parameters()), lr=cfg.g_lr, **betas),
+            d_opt=Adam(list(d.parameters()), lr=cfg.d_lr, **betas),
+            g_ema=([p.detach().clone() for p in g.parameters()]
+                   if cfg.g_ema_decay is not None else None))
+
+    # ------------------------------------------------------------------ noise
+    def _given(self, draws, key):
+        if draws is None:
+            return None
+        return torch.as_tensor(draws[key], dtype=torch.float32).to(self.device).contiguous()
+
+    def _noise(self, step: int, stage: str, n: int, z_mean, draws) -> torch.Tensor:
+        """A stage's noise prior: VAE-infused through K1 for wganvae (reference
+        ``wgan_loss.py:97-106``), standard normal otherwise. ``draws["u_<stage>"]``
+        holds the uniforms (or the normals) when given."""
+        given = self._given(draws, "u_" + stage)
+        if self.cfg.loss_type == "wganvae":
+            if given is not None:
+                return infused_noise(z_mean, n, u=given, noise_range=self.cfg.noise_range)
+            return infused_noise(z_mean, n, seed=self.seeds.seed("train", step, _STAGES[stage]),
+                                 noise_range=self.cfg.noise_range)
+        if given is not None:
+            return given
+        gen = self.seeds.generator("train", step, _STAGES[stage], self.device)
+        return torch.randn((n, self.cfg.model.encoding_dims), generator=gen, device=self.device)
+
+    def _eps(self, step: int, shape, draws) -> torch.Tensor:
+        given = self._given(draws, "eps")
+        if given is not None:
+            return given.reshape(shape)
+        gen = self.seeds.generator("train", step, _STAGES["eps"], self.device)
+        return torch.rand(shape, generator=gen, device=self.device)
+
+    # ------------------------------------------------------------- train step
+    def train_step(self, state: GANTrainState, batch: Dict[str, Any],
+                   draws: Optional[Dict[str, Any]] = None):
+        """One step on ``batch`` (``"image"`` (N, H, W, C) uint8 or float in
+        [-1, 1]; ``"rna_data"`` (N, F) for wganvae). ``draws`` optionally
+        gives the stage noise ``u_d``, ``u_gp``, ``u_g`` (uniforms in
+        [-noise_range, noise_range] for wganvae, else normals) and ``eps``.
+        Returns ``(state, metrics)``, the state updated in place; the metrics
+        (``d_loss``, ``dx``, ``dgz``, ``gp``, ``g_loss``) are 0-dim float tensors."""
+        cfg, dev = self.cfg, self.device
+        real = torch.as_tensor(batch["image"]).to(dev)
+        if real.dtype == torch.uint8:
+            real = real.float() / 127.5 - 1.0
+        real = real.float().permute(0, 3, 1, 2).contiguous()
+        n, step = real.shape[0], state.step
+        G, D = state.generator, state.discriminator
+        g_params, d_params = list(G.parameters()), list(D.parameters())
+        z_mean = None
+        if cfg.loss_type == "wganvae":
+            with torch.no_grad():
+                z_mean = encode_z_mean(
+                    self.vae, torch.as_tensor(batch["rna_data"], dtype=torch.float32).to(dev))
+        cond = z_mean if cfg.model.critic == "projection" else None
+        wgan_family = cfg.loss_type in ("wgan", "wganvae")
+        fused_gp = wgan_family and not cfg.compat_reference_gp
+        metrics: Dict[str, torch.Tensor] = {}
+
+        if cfg.loss_type == "wgan" and cfg.clip is not None:
+            gan_losses.clip_params(d_params, *cfg.clip)
+
+        # ---------------- D stage (critic loss, fused with the GP by default)
+        with torch.no_grad():
+            fake, state.g_stats = G.forward_stats(self._noise(step, "d", n, z_mean, draws),
+                                                  state.g_stats, True)
+        dx, s1 = D(real, state.d_stats, True, cond)
+        dgz, s2 = D(fake, s1, True, cond)
+        loss = gan_losses.DISCRIMINATOR_LOSSES[cfg.loss_type](dx, dgz)
+        metrics.update(d_loss=loss.detach(), dx=dx.detach().mean(), dgz=dgz.detach().mean())
+        if fused_gp:
+            eps = self._eps(step, (n, 1, 1, 1), draws)
+            interp = eps * real + (1.0 - eps) * fake
+            gp = gan_losses.gradient_penalty(lambda x: D(x, s2, True, cond)[0], interp,
+                                             per_sample=True)
+            metrics["gp"] = gp.detach()
+            loss = loss + cfg.gp_lambda * gp
+        state.d_opt.step(d_params, torch.autograd.grad(loss, d_params))
+        state.d_stats = s2
+
+        # ---------------- GP stage (a second D step: the reference's dynamics)
+        if wgan_family and not fused_gp:
+            with torch.no_grad():
+                fake_gp, state.g_stats = G.forward_stats(
+                    self._noise(step, "gp", n, z_mean, draws), state.g_stats, True)
+            eps = self._eps(step, (), draws)
+            interp = eps * real + (1.0 - eps) * fake_gp
+            kept: List[Stats] = []
+
+            def critic(x):
+                out, s = D(x, state.d_stats, True, cond)
+                kept.append(s)
+                return out
+
+            gp = gan_losses.gradient_penalty(critic, interp, per_sample=False)
+            grads = torch.autograd.grad(cfg.gp_lambda * gp, d_params)
+            state.d_stats = kept[0]
+            state.d_opt.step(d_params, grads)
+            metrics["gp"] = gp.detach()
+
+        # ---------------- G stage
+        if cfg.n_critic <= 1 or step % cfg.n_critic == cfg.n_critic - 1:
+            fake, gs = G.forward_stats(self._noise(step, "g", n, z_mean, draws), state.g_stats, True)
+            dgz, ds = D(fake, state.d_stats, True, cond)
+            g_loss = gan_losses.GENERATOR_LOSSES[cfg.loss_type](dgz)
+            state.g_opt.step(g_params, torch.autograd.grad(g_loss, g_params))
+            state.g_stats, state.d_stats = gs, ds
+            metrics["g_loss"] = g_loss.detach().float()
+            if state.g_ema is not None:
+                decay = cfg.g_ema_decay
+                with torch.no_grad():
+                    for e, p in zip(state.g_ema, g_params):
+                        e.copy_(e * decay + (1.0 - decay) * p)
+        else:
+            metrics["g_loss"] = torch.zeros((), device=dev)
+        state.step += 1
+        return state, metrics
+
+    # -------------------------------------------------------------- sampling
+    @torch.no_grad()
+    def sample(self, state: GANTrainState, n: int, gene=None, z_pop=None,
+               use_ema: Optional[bool] = None, seed: int = 0) -> torch.Tensor:
+        """``n`` images (n, H, W, C) float32 in [-1, 1], generated in eval mode.
+        With ``gene`` (wganvae) the noise is the infusion prior of the
+        patients' z_mean ((B, F) rows, B = n or 1), standardized over the batch,
+        or with ``z_pop = (mean, std)`` by population statistics; both through
+        K1 with Philox ``seed``. Without ``gene`` it is standard normal.
+        ``use_ema=None`` picks the EMA generator whenever the state has one."""
+        if use_ema is None:
+            use_ema = state.g_ema is not None
+        elif use_ema and state.g_ema is None:
+            raise ValueError("use_ema=True but the state carries no EMA (set GANConfig.g_ema_decay)")
+        dev, r = self.device, self.cfg.noise_range
+        if gene is not None:
+            if self.vae is None:
+                raise ValueError("sampling from gene expression needs the wganvae loss family")
+            z = encode_z_mean(self.vae, torch.as_tensor(gene, dtype=torch.float32).to(dev))
+            if z_pop is not None:
+                mean, std = (torch.as_tensor(t, dtype=torch.float32).to(dev).contiguous()
+                             for t in z_pop)
+                noise = infused_noise_population(z, mean, std, n, seed=seed, noise_range=r)
+            else:
+                noise = infused_noise(z, n, seed=seed, noise_range=r)
+        else:
+            gen = self.seeds.generator("sample", seed, device=dev)
+            noise = torch.randn((n, self.cfg.model.encoding_dims), generator=gen, device=dev)
+        imgs, _ = state.generator.forward_stats(noise, state.g_stats, False,
+                                                params=state.g_ema if use_ema else None)
+        return imgs.permute(0, 2, 3, 1)
+
+    def set_z_population(self, rna_matrix) -> None:
+        """z_mean statistics of the (normalized) training expression matrix,
+        kept for generation and saved into every checkpoint."""
+        if self.vae is None:
+            raise ValueError("z population statistics need the wganvae loss family")
+        self.z_pop = z_population_stats(self.vae, rna_matrix)
+
+    # ------------------------------------------------------------ checkpoints
+    @staticmethod
+    def _state_dict(module, stats: Stats) -> Dict[str, torch.Tensor]:
+        module.load_bn_stats(stats)
+        return module.state_dict()
+
+    def save_model(self, state: GANTrainState, path: str, epoch: int = 0) -> None:
+        """The whole training state as a torchgan-layout ``.model`` bundle
+        (``convert.save_training_bundle``)."""
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        g_ema = None
+        if state.g_ema is not None:
+            names = [name for name, _ in state.generator.named_parameters()]
+            g_ema = dict(zip(names, state.g_ema))
+        convert.save_training_bundle(
+            path, self._state_dict(state.generator, state.g_stats),
+            self._state_dict(state.discriminator, state.d_stats),
+            state.g_opt.state_dict(), state.d_opt.state_dict(), epoch=epoch, step=state.step,
+            g_ema=g_ema, z_pop=self.z_pop)
+
+    def load_model(self, path: str) -> GANTrainState:
+        """Resume from a ``.model`` bundle written by :meth:`save_model` or by
+        the JAX package's ``export_torchgan_bundle``. A bundle without ``step``
+        resumes at step 0 (as the JAX importer does); one without ``g_ema``
+        seeds the EMA from the loaded weights when the EMA is on."""
+        bundle = convert.load_training_bundle(path)
+        state = self.init_state()
+        g, d = state.generator, state.discriminator
+        g.load_state_dict(bundle["generator"])
+        d.load_state_dict(bundle["discriminator"])
+        state.g_stats, state.d_stats = _copy_stats(g.bn_stats()), _copy_stats(d.bn_stats())
+        state.g_opt.load_state_dict(bundle["optimizer_generator"])
+        state.d_opt.load_state_dict(bundle["optimizer_discriminator"])
+        state.step = int(bundle.get("step", 0))
+        if state.g_ema is not None:
+            ema = bundle.get("g_ema")
+            state.g_ema = [(ema[name] if ema is not None else p).detach().to(self.device).clone()
+                           for name, p in g.named_parameters()]
+        if "z_pop" in bundle:
+            self.z_pop = (bundle["z_pop"]["mean"].to(self.device),
+                          bundle["z_pop"]["std"].to(self.device))
+        return state
+
+    # ------------------------------------------------------------------- fit
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def fit(self, batches_per_epoch_fn: Callable[[int], Iterable[Dict[str, Any]]], *,
+            num_epochs: Optional[int] = None, state: Optional[GANTrainState] = None,
+            sample_every: int = 1, save_every: int = 1, auto_resume: bool = False,
+            eval_fn=None, eval_every: int = 0,
+            keep_best_metric: Optional[str] = None) -> Tuple[GANTrainState, Dict[str, Any]]:
+        """Epoch loop (``rnagan_tpu/train/gan_trainer.py:512-608``).
+        ``batches_per_epoch_fn(epoch)`` yields batch dicts. Per epoch: the
+        metric means (read from the card once, at the epoch's end),
+        ``eval_fn(epoch, state, trainer) -> dict`` every ``eval_every`` epochs,
+        a ``sample_size`` grid PNG into ``image_dir`` and ``gan_last.model``
+        into ``model_dir``. ``auto_resume`` starts from
+        ``model_dir/gan_last.model`` when it exists. ``keep_best_metric`` names
+        an ``eval_fn`` scalar (lower is better): the state at its best value
+        is kept and written to ``model_dir/gan_best.model``."""
+        cfg = self.cfg
+        if state is None and auto_resume and self.model_dir:
+            last = os.path.join(self.model_dir, "gan_last.model")
+            if os.path.exists(last):
+                log.info("auto-resuming from %s", last)
+                state = self.load_model(last)
+        state = state if state is not None else self.init_state()
+        num_epochs = cfg.num_epochs if num_epochs is None else num_epochs
+        history: List[Dict[str, float]] = []
+        best_val, best_state, best_epoch = math.inf, None, -1
+        for epoch in range(num_epochs):
+            sums: Dict[str, torch.Tensor] = {}
+            count = 0
+            t0 = time.perf_counter()
+            for batch in batches_per_epoch_fn(epoch):
+                state, metrics = self.train_step(state, batch)
+                for k, v in metrics.items():
+                    sums[k] = sums[k] + v if k in sums else v
+                count += 1
+            self._sync()
+            epoch_s = time.perf_counter() - t0
+            means = {k: float(v) / max(count, 1) for k, v in sums.items()}
+            means["steps_per_sec"] = count / max(epoch_s, 1e-9)
+            means["step_ms_mean"] = 1e3 * epoch_s / max(count, 1)
+            if eval_fn is not None and eval_every and (epoch + 1) % eval_every == 0:
+                means.update(eval_fn(epoch, state, self))
+                if keep_best_metric and means.get(keep_best_metric, math.inf) < best_val:
+                    best_val, best_state, best_epoch = means[keep_best_metric], copy.deepcopy(state), epoch
+            history.append(means)
+            log.info("epoch %d: %s", epoch, " ".join(f"{k} {v:.4f}" for k, v in means.items()))
+            if self.image_dir and (epoch + 1) % sample_every == 0:
+                imgs = self.sample(state, cfg.sample_size, seed=self.seeds.seed("grid", epoch))
+                save_image_grid(imgs, os.path.join(self.image_dir, f"epoch_{epoch}.png"), nrow=8)
+            if self.model_dir and (epoch + 1) % save_every == 0:
+                self.save_model(state, os.path.join(self.model_dir, "gan_last.model"), epoch=epoch)
+        out: Dict[str, Any] = {"history": history}
+        if best_state is not None:
+            if self.model_dir:
+                self.save_model(best_state, os.path.join(self.model_dir, "gan_best.model"),
+                                epoch=best_epoch)
+            out["best"] = {"state": best_state, "epoch": best_epoch, keep_best_metric: best_val}
+        return state, out

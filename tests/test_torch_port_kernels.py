@@ -146,4 +146,4 @@ def test_c_entry_points_match_their_bindings():
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
         assert m, name
         assert len(m.group(1).split(",")) == len(argtypes), name
-    assert {p.name for p in _build.sources()} == {"infusion.cu", "quantize.cu"}
+    assert {p.name for p in _build.sources()} == {"infusion.cu", "quantize.cu", "fused_adam.cu"}
