@@ -9,13 +9,20 @@ Phases (any failure raises and exits non-zero; no result line is printed):
 2. K1 (infused noise) against its plain PyTorch version at (128, 2048);
 3. K2 (tanh -> uint8, NCHW -> NHWC) against its plain version at (128, 3, 256, 256);
    K3 (Adam) against its plain version on the training generator's
-   parameters, float32 and bfloat16 mu: bit-equal;
+   parameters, float32 and bfloat16 mu: bit-equal; K4 (int8 matmul) against
+   its plain version (TF32 off) at the head's (128, 2048) x (2048, 32768),
+   N = 1, and ragged shapes: within 1e-5 of max |out|;
 4. the serving path at full width (``VAEModelConfig()`` and ``GANModelConfig()``
    widths, float32, TF32 off): a ``Synthesizer`` on the card serves a batch of
    128 patients (reference mode), one patient x 64 (population mode) and a
    repeat of the first request, with the launch counters read around them;
    the kernel path is held against the plain-op path, and a small
-   configuration against the same Synthesizer on the CPU;
+   configuration against the same Synthesizer on the CPU. Then the same
+   three requests through ``Synthesizer(quantized_head=True)`` (K1, K4, K2),
+   held against K1, K4 and K2's plain versions, with the int8 head's
+   deviation from the float head on the same noise; and small
+   configurations of ``quantized_full``, ``dcgan_up`` (exact border on and
+   off, and with the int8 head) and ``condgan`` on the card against the CPU;
 5. training checks (float32, TF32 off, cuDNN deterministic): one full-width
    ``GANTrainer`` step through K3 against the same step through the plain
    Adam, and a small configuration's step on the card against the CPU;
@@ -27,7 +34,11 @@ Phases (any failure raises and exits non-zero; no result line is printed):
 7. timings with CUDA events: each kernel (through its wrapper, and replayed
    from a CUDA graph for its device time), its plain version and a PyTorch
    yardstick; the serving stages and tiles/s at batch 128 in float32 and
-   bfloat16; the generator again with cuDNN autotuning.
+   bfloat16; the generator again with cuDNN autotuning; the float head's
+   ConvTranspose alone; tiles/s of ``quantized_head``, ``quantized_full`` and
+   ``dcgan_up`` serving in float32 and bfloat16, and in float32 the last two
+   checked at that width: every W8A8 layer exact against float64, W8A8
+   against the float path, and a few rows of each against the CPU.
 
 It prints a details line, the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -47,9 +58,11 @@ import torch
 
 BATCH = 128
 SEED = 0
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 non-tensor-core FLOP/s
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 non-tensor-core and
+# bf16 dense tensor-core FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 
 def check(cond, msg):
@@ -86,8 +99,8 @@ def graph_ms(fn, reps=20, iters=10):
     return time_ms(graph.replay, iters=iters) / reps
 
 
-def bound_ms(nbytes, flops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+def bound_ms(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -104,16 +117,12 @@ def generator_flops(cfg, batch):
     return batch * flops
 
 
-def k4_bound():
-    """The bound of K4 (``ops/quant_matmul.py``, not ported yet) at its serving
-    shapes, N = 128: x (N, 2048) f32, w_q (2048, 32768) int8, per-column
-    scale and bias f32, out (N, 32768) f32; 2*N*2048*32768 operations at the
-    bf16 dense peak (989 TFLOP/s)."""
-    n, k, m = 128, 2048, 32768
+def k4_bound(n, k, m):
+    """The bound of K4 on x (n, k) f32, w_q (k, m) int8, per-column scale and
+    bias f32, out (n, m) f32: each read or written once; 2*n*k*m operations
+    at the bf16 dense tensor-core peak (the kernel's products are bf16)."""
     nbytes = n * k * 4 + k * m + 2 * m * 4 + n * m * 4
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, 2 * n * k * m / 989e12 * 1e3
-    return {"bytes": nbytes, "bytes_ms": t_bytes, "operations_ms": t_ops,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return (*bound_ms(nbytes, 2 * n * k * m, BF16_FLOP_PER_S), nbytes)
 
 
 def vae_encode_flops(cfg, batch):
@@ -123,9 +132,9 @@ def vae_encode_flops(cfg, batch):
 
 def randomize(module, gen):
     """Random BN running statistics, far from (0, 1), so BN folding is
-    exercised; ConvTranspose weights redrawn with a variance that keeps the
-    activations O(1), so the tiles span the uint8 range (DCGAN's N(0, 0.02)
-    init gives tiles of one grey level)."""
+    exercised; ConvTranspose and Conv weights redrawn with a variance that
+    keeps the activations O(1), so the tiles span the uint8 range (DCGAN's
+    N(0, 0.02) init gives tiles of one grey level)."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
@@ -134,6 +143,8 @@ def randomize(module, gen):
             elif isinstance(m, torch.nn.ConvTranspose2d):
                 taps = 1 if m.stride[0] == 1 else 4  # a 1x1-input head vs a stride-2 4x4
                 m.weight.normal_(0.0, (m.in_channels * taps) ** -0.5, generator=gen)
+            elif isinstance(m, torch.nn.Conv2d):  # dcgan_up's 3x3 convs
+                m.weight.normal_(0.0, (m.in_channels * 9) ** -0.5, generator=gen)
 
 
 def uint8_diff(a, b):
@@ -259,6 +270,278 @@ def k3_timings(shapes_by_model, dev, gen):
                      "library_ms": time_ms(library.step, iters=10),
                      "bound_ms": ms_bound, "bound_by": by}
         del a, ps, library
+    return out
+
+
+#: (N, K, M) of the K4 checks: the generator head at batch 128 and 1, the
+#: 16-byte weight path with ragged N, K and M, several row tiles, and the
+#: byte-wise weight path (M not a multiple of 16)
+K4_SHAPES = ((BATCH, 2048, 32768), (1, 2048, 32768), (37, 80, 272), (300, 64, 512), (5, 24, 270))
+
+
+def check_k4(dev, gen):
+    """K4 against its plain version, TF32 off for the plain version's matmul.
+    bf16(x) and the int8 weight are exact in float32 and so are their
+    products: only the order of the sums differs, within 1e-5 of max |out|."""
+    from rnagan_tpu_torch.kernels.quant_matmul import int8_matmul, int8_matmul_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    errs = {}
+    for n, k, m in K4_SHAPES:
+        x = torch.randn(n, k, generator=gen, device=dev) * 2
+        w = torch.randint(-127, 128, (k, m), generator=gen, device=dev, dtype=torch.int8)
+        scale = torch.rand(m, generator=gen, device=dev) * 1e-3 + 1e-4
+        bias = torch.randn(m, generator=gen, device=dev) * 0.1
+        got, ref = int8_matmul(x, w, scale, bias), int8_matmul_plain(x, w, scale, bias)
+        err = float((got - ref).abs().max())
+        errs[f"{n}x{k}x{m}"] = {"max_abs_err": err, "rel_to_max": err / float(ref.abs().max())}
+        check(got.shape == (n, m) and bool(torch.isfinite(got).all()), f"K4 {n}x{k}x{m} output")
+        check(errs[f"{n}x{k}x{m}"]["rel_to_max"] <= 1e-5, f"K4 {n}x{k}x{m} differs: {errs}")
+    print(f"K4 int8_matmul vs plain: {errs}")
+    return errs
+
+
+def head_weights(serve):
+    """The int8 head's (w_q, scale, bias) of a quantized-head serving fn."""
+    w = serve.weights
+    return w["model.0.0.weight_q"], w["model.0.0.w_scale"], w["model.0.0.bias"]
+
+
+def quantized_head_path(dev, cfg, vae_sd, g_sd, genes, z_pop, float_synth):
+    """The float main path's three requests through ``Synthesizer(quantized_head=True)``,
+    the K1, K4 and K2 counters set to 0 before them and read after; the
+    requests again through the three kernels' plain versions (at most one
+    uint8 level apart); the int8 head's deviation from the float head on the
+    same noise, in tanh space."""
+    from rnagan_tpu_torch.eval.generate import Synthesizer
+    from rnagan_tpu_torch.eval.serving import dcgan_apply
+    from rnagan_tpu_torch.kernels.infusion import infused_noise, infused_noise_plain
+    from rnagan_tpu_torch.kernels.quant_matmul import int8_matmul, int8_matmul_plain
+    from rnagan_tpu_torch.kernels.quantize import tanh_to_uint8, tanh_to_uint8_plain
+    from rnagan_tpu_torch.losses.rna_infusion import encode_z_mean
+
+    synth = Synthesizer(cfg, vae_sd, g_sd, quantized_head=True, device=dev)
+    torch.cuda.synchronize()
+    infused_noise.launches = int8_matmul.launches = tanh_to_uint8.launches = 0
+    t0 = time.perf_counter()
+    first = synth.synthesize(genes, seed=11)
+    one_patient = synth.synthesize(genes[:1], 64, seed=12, z_pop=z_pop)
+    repeat = synth.synthesize(genes, seed=11)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"infused_noise": infused_noise.launches, "int8_matmul": int8_matmul.launches,
+                "tanh_to_uint8": tanh_to_uint8.launches}
+    print(f"quantized-head path: 3 requests in {seconds:.3f} s; launches {launches}")
+    check(all(v > 0 for v in launches.values()), f"a kernel of the quantized path never launched: {launches}")
+    size = cfg.model.out_size
+    check(first.shape == (BATCH, size, size, 3) and first.dtype == torch.uint8, "quantized request 1")
+    check(one_patient.shape == (64, size, size, 3), "quantized request 2 shape")
+    check(torch.equal(first, repeat), "the repeated quantized request is not bit-identical")
+    check(float(first.float().std()) > 1.0, "quantized request 1 tiles are constant")
+
+    w_q, scale, bias = head_weights(synth.serve)
+    p = synth.serve.weights
+    gan_cfg = cfg.model
+
+    def plain(z, n, **kw):
+        noise = infused_noise_plain(z, n, **kw)
+        head = lambda x: int8_matmul_plain(x, w_q, scale, bias).view(n, -1, 4, 4)  # noqa: E731
+        return tanh_to_uint8_plain(dcgan_apply(gan_cfg, p, noise, head_fn=head, final_tanh=False))
+
+    with torch.inference_mode():
+        plain_first = plain(encode_z_mean(synth.vae, genes), BATCH, seed=11)
+        plain_pop = plain(encode_z_mean(synth.vae, genes[:1]), 64, seed=12, pop_mean=z_pop[0],
+                          pop_std=z_pop[1])
+        noise = infused_noise(encode_z_mean(synth.vae, genes), BATCH, seed=11)
+        q = torch.tanh(synth.serve.generator(noise))
+        f = torch.tanh(float_synth.serve.generator(noise))
+    path_diff = {"reference": uint8_diff(first, plain_first), "population": uint8_diff(one_patient, plain_pop)}
+    for k, (worst, share) in path_diff.items():
+        check(worst <= 1, f"quantized {k} request: kernel path vs plain path {worst} levels")
+    d = (q - f).abs()
+    deviation = {"mean_abs": float(d.mean()), "max_abs": float(d.max()),
+                 "corr": float(torch.corrcoef(torch.stack([q.flatten(), f.flatten()]))[0, 1])}
+    check(deviation["corr"] > 0.99, f"int8 head vs float head: {deviation}")
+    print(f"quantized-head kernel path vs plain: {path_diff}; int8 vs float head (tanh space): "
+          f"{deviation}")
+    return synth, {"seconds": seconds, "launches": launches, "kernel_vs_plain_path": path_diff,
+                   "int8_vs_float_head": deviation}
+
+
+#: the small configurations of the serving options, card against CPU, with the
+#: uint8 tolerance of their CPU tests (tests/test_torch_port_serving.py)
+SMALL_VARIANTS = (("dcgan", {"quantized_full": True}, 0.01),
+                  ("dcgan_up", {"exact_border": True}, 0.005),
+                  ("dcgan_up", {"exact_border": True, "small_exact": 4}, 0.005),
+                  ("dcgan_up", {"exact_border": False}, 0.005),
+                  ("dcgan_up", {"quantized_head": True}, 0.005),
+                  ("condgan", {}, 0.005))
+
+
+def serving_variants_match_cpu(dev):
+    """Each small configuration served on the card and on the CPU (whose paths
+    the CPU tests hold against the JAX package), from the same weights and
+    noise: uint8 at most one level apart on a small share, float32 reported.
+    W8A8 (TF32 integer convs on the card, float32 on the CPU) is held to its
+    CPU test's bound: within 0.05, and 1e-5 on 99 % of the values."""
+    from rnagan_tpu_torch.core.config import GANModelConfig
+    from rnagan_tpu_torch.eval.serving import make_serving_fn
+    from rnagan_tpu_torch.models.dcgan import make_generator
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    out = {}
+    for arch, kw, share_tol in SMALL_VARIANTS:
+        m = GANModelConfig(arch=arch, out_size=64, encoding_dims=64, step_channels=8,
+                           num_classes=3 if arch == "condgan" else 0, compute_dtype="float32")
+        g = make_generator(m, seed=4)
+        randomize(g, gen)
+        sd = g.state_dict()
+        noise = torch.randn(8, 64, generator=gen)
+        extra = (torch.tensor([0, 1, 2, 0, 1, 2, 2, 1]),) if arch == "condgan" else ()
+        u8 = [make_serving_fn(m, sd, device=d, **kw)(noise, *extra).cpu() for d in (dev, "cpu")]
+        fl = [make_serving_fn(m, sd, device=d, uint8_output=False, **kw)(noise, *extra).cpu()
+              for d in (dev, "cpu")]
+        worst, share = uint8_diff(*u8)
+        fd = (fl[0] - fl[1]).abs()
+        name = arch + "".join(f",{k}={v}" for k, v in kw.items())
+        out[name] = {"uint8_levels": worst, "uint8_share": share, "float_max_abs": float(fd.max())}
+        check(worst <= 1 and share < share_tol, f"{name}: card vs CPU {out[name]}")
+        check(float(u8[1].float().std()) > 5.0, f"{name}: the tiles are constant")
+        if kw.get("quantized_full"):
+            check(float(fd.max()) <= 0.05 and float((fd > 1e-5).float().mean()) <= 0.01,
+                  f"{name}: card vs CPU {out[name]}")
+    print(f"serving options, small configurations, card vs CPU: {out}")
+    return out
+
+
+def dcgan_up_stage_ms(model, up_sd, noise):
+    """The ``dcgan_up`` generator stage three ways: fused with the border left
+    as the transposed conv makes it, and unfused (the BN-folded
+    ``DCGANUpGenerator``: upsample, reflect pad, 3x3 conv)."""
+    from rnagan_tpu_torch.eval.serving import fold_generator, make_serving_fn
+    from rnagan_tpu_torch.models.dcgan import DCGANUpGenerator
+
+    no_fix = make_serving_fn(model, up_sd, exact_border=False, device=noise.device)
+    folded_cfg, folded = fold_generator(model, up_sd)
+    two_op = DCGANUpGenerator(folded_cfg, compat_no_tanh=True, device=noise.device)
+    two_op.load_state_dict(folded)
+    two_op.eval().requires_grad_(False)
+    with torch.inference_mode():
+        return {"generator_no_border_fix_ms": time_ms(lambda: no_fix.generator(noise), iters=5),
+                "two_op_generator_ms": time_ms(lambda: two_op(noise), iters=5)}
+
+
+#: cuDNN's algorithm choices the W8A8 layer check runs under; the first two gate
+W8A8_CUDNN_MODES = {"default": {"deterministic": False, "benchmark": False},
+                    "deterministic": {"deterministic": True, "benchmark": False},
+                    "autotuned": {"deterministic": False, "benchmark": True}}
+#: noise rows of a full-width option served on the card and on the CPU
+CPU_ROWS = 4
+
+
+def w8a8_layers_exact(model, q, noise):
+    """Every W8A8 layer at full width on the served batch: the integer-valued
+    float32 transposed conv as served (cuDNN, TF32 forced on) against the same
+    conv in float64, exact for these integers, under each of
+    ``W8A8_CUDNN_MODES``. Per layer: the largest |sum| and how many outputs
+    differ in each mode; none may under cuDNN's default or deterministic
+    choice."""
+    import torch.nn.functional as F
+    from rnagan_tpu_torch.eval.serving import _int8_conv_transpose, exact_integer_convs
+
+    r = model.out_size.bit_length() - 4
+    x, layers = noise.float()[:, :, None, None], []
+    for b in range(r + 2):
+        stride, pad = (1, 0) if b == 0 else (2, 1)
+        w = q[f"model.{b}.0.weight_q"]
+        a = torch.clamp(x.abs().amax() / torch.tensor(127.0, device=x.device), min=1e-8)
+        xq = torch.clamp(torch.round(x / a), -127.0, 127.0)
+        ref = F.conv_transpose2d(xq.double(), w.double(), None, stride, pad)
+        check(torch.equal(ref, ref.round()), f"W8A8 layer {b}: the float64 sums are not integers")
+        layer = {"max_abs_sum": float(ref.abs().max()), "outputs": ref.numel()}
+        for mode, flags in W8A8_CUDNN_MODES.items():
+            with torch.backends.cudnn.flags(enabled=True, **flags), exact_integer_convs():
+                y = F.conv_transpose2d(xq, w, None, stride, pad)
+            layer[f"differ_{mode}"] = int((y.double() != ref).sum())
+        layers.append(layer)
+        check(layer["differ_default"] == 0 and layer["differ_deterministic"] == 0,
+              f"W8A8 layer {b} is not exact at full width: {layer}")
+        del ref, y
+        x = _int8_conv_transpose(x, q, b, stride, pad)
+        if b <= r:
+            x = F.leaky_relu(x, model.leaky_slope)
+    return layers
+
+
+def full_width_option_check(name, serve, model, sd, noise):
+    """A full-width serving option checked on the card, on the timed
+    Synthesizer's generator: finite tiles that vary; for W8A8 each layer exact
+    (``w8a8_layers_exact``) and its tiles against the float path's on the same
+    noise (tanh space; correlation gated as the int8 head's); and ``CPU_ROWS``
+    noise rows served on the card and on the CPU (W8A8 as a batch of its own:
+    its activation scales span the batch) within the small configurations'
+    tolerances (``SMALL_VARIANTS``)."""
+    from rnagan_tpu_torch.eval.serving import make_serving_fn
+
+    kw = {"quantized_full": True} if name == "quantized_full" else {}
+    out = {}
+    with torch.inference_mode():
+        t = torch.tanh(serve.generator(noise))
+        check(bool(torch.isfinite(t).all()) and float(t.std()) > 0.05, f"{name}: full-width tiles are constant")
+        if name == "quantized_full":
+            out["layers"] = w8a8_layers_exact(model, serve.weights, noise)
+            f = torch.tanh(make_serving_fn(model, sd, device=noise.device).generator(noise))
+            d = (t - f).abs()
+            out["vs_float"] = {"mean_abs": float(d.mean()), "max_abs": float(d.max()),
+                               "corr": float(torch.corrcoef(torch.stack([t.flatten(), f.flatten()]))[0, 1])}
+            check(out["vs_float"]["corr"] > 0.99, f"W8A8 vs float at full width: {out['vs_float']}")
+            del f, d
+        del t
+        rows = noise[:CPU_ROWS]
+        cpu = make_serving_fn(model, sd, device="cpu", **kw)
+        u8 = serve(rows).cpu(), cpu(rows.cpu())
+        fl = torch.tanh(serve.generator(rows)).cpu(), torch.tanh(cpu.generator(rows.cpu()))
+    worst, share = uint8_diff(*u8)
+    fd = (fl[0] - fl[1]).abs()
+    out["vs_cpu"] = {"rows": CPU_ROWS, "uint8_levels": worst, "uint8_share": share,
+                     "float_max_abs": float(fd.max()), "float_share_over_1e-5": float((fd > 1e-5).float().mean())}
+    tol = 0.01 if kw else 0.005  # SMALL_VARIANTS' shares for W8A8 and dcgan_up
+    check(worst <= 1 and share < tol,f"{name}: full-width rows, card vs CPU {out['vs_cpu']}")
+    if kw:
+        check(out["vs_cpu"]["float_max_abs"] <= 0.05 and out["vs_cpu"]["float_share_over_1e-5"] <= 0.01,
+              f"{name}: full-width rows, card vs CPU {out['vs_cpu']}")
+    print(f"{name} at full width, checked: {out}")
+    return out
+
+
+def serving_option_timings(cfg, vae_sd, g_sd, up_sd, genes):
+    """Tiles/s at batch 128 of the quantized-head, W8A8 and dcgan_up serving,
+    float32 and bfloat16, and the generator stage alone; W8A8 and dcgan_up
+    in float32 checked at that width (``full_width_option_check``)."""
+    from rnagan_tpu_torch.eval.generate import Synthesizer
+    from rnagan_tpu_torch.kernels.infusion import infused_noise
+    from rnagan_tpu_torch.losses.rna_infusion import encode_z_mean
+
+    out = {}
+    for name, kw in (("quantized_head", {"quantized_head": True}),
+                     ("quantized_full", {"quantized_full": True}), ("dcgan_up", {})):
+        for dtype in ("float32", "bfloat16"):
+            model = dataclasses.replace(cfg.model, compute_dtype=dtype,
+                                        arch="dcgan_up" if name == "dcgan_up" else "dcgan")
+            c = dataclasses.replace(cfg, model=model, vae=dataclasses.replace(cfg.vae, compute_dtype=dtype))
+            s = Synthesizer(c, vae_sd, up_sd if name == "dcgan_up" else g_sd, device=genes.device, **kw)
+            with torch.inference_mode():
+                noise = infused_noise(encode_z_mean(s.vae, genes), BATCH, seed=5)
+                gen_ms = time_ms(lambda: s.serve.generator(noise), iters=5)
+            req_ms = time_ms(lambda: s.synthesize(genes, seed=5), iters=5)
+            out[f"{name}_{dtype}"] = {"request_ms_b128": req_ms, "tiles_per_s": BATCH / req_ms * 1e3,
+                                      "generator_ms": gen_ms}
+            if name == "dcgan_up":  # what the fusion and the exact border cost on this card
+                out[f"{name}_{dtype}"].update(dcgan_up_stage_ms(model, up_sd, noise))
+            if name != "quantized_head" and dtype == "float32":
+                out[f"{name}_{dtype}"]["check"] = full_width_option_check(
+                    name, s.serve, model, up_sd if name == "dcgan_up" else g_sd, noise)
+            del s
     return out
 
 
@@ -597,10 +880,11 @@ def main():
     from rnagan_tpu_torch.eval.generate import Synthesizer
     from rnagan_tpu_torch.kernels import _build
     from rnagan_tpu_torch.kernels.infusion import infused_noise, infused_noise_plain
+    from rnagan_tpu_torch.kernels.quant_matmul import int8_matmul, int8_matmul_plain
     from rnagan_tpu_torch.kernels.quantize import tanh_to_uint8, tanh_to_uint8_plain
     from rnagan_tpu_torch.losses.rna_infusion import encode_z_mean, z_population_stats
     from rnagan_tpu_torch.models.betavae import BetaVAE
-    from rnagan_tpu_torch.models.dcgan import DCGANDiscriminator, DCGANGenerator
+    from rnagan_tpu_torch.models.dcgan import DCGANDiscriminator, DCGANGenerator, make_generator
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -625,6 +909,7 @@ def main():
     shapes = {name: [tuple(p.shape) for p in net(GANModelConfig(), device=dev).parameters()]
               for name, net in (("G", DCGANGenerator), ("D", DCGANDiscriminator))}
     k3_err = check_k3(dev, gen, shapes["G"])
+    k4_errs = check_k4(dev, gen)
 
     # ---- phase 4: the serving path at full width, float32, TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -674,6 +959,8 @@ def main():
     small = small_config_matches_cpu(dev)
     print(f"kernel path vs plain path (max level, share differing): {path_diff}; "
           f"small config card vs CPU: {small}")
+    qsynth, quantized = quantized_head_path(dev, cfg, vae_sd, g_sd, genes, z_pop, synth)
+    variants = serving_variants_match_cpu(dev)
 
     # ---- phase 5: training checks, float32, TF32 off, cuDNN deterministic
     train_check = train_kernel_vs_plain(dev, gen, vae_sd)
@@ -705,6 +992,11 @@ def main():
     k1_bound, k1_by = bound_ms(2 * n * d * 4, 10 * n * d)  # z in, out; ~10 flops an element
     k2_elems = x.numel()
     k2_bound, k2_by = bound_ms(k2_elems * 4 + k2_elems, 6 * k2_elems)  # tanh + 5 flops
+    # K4 on the quantized head's own weights and a serving batch of noise
+    w_q, w_scale, w_bias = head_weights(qsynth.serve)
+    k4_args = (zt, w_q, w_scale, w_bias)
+    w_bf16 = w_q.to(torch.bfloat16)  # what an unquantized bf16 head would hold
+    k4_bound_ms, k4_by, k4_bytes = k4_bound(n, d, w_q.shape[1])
     kernels = [
         {"name": "infused_noise", "route": "cuda", "source": "rnagan_tpu_torch/csrc/infusion.cu",
          "replaces": "rnagan_tpu/ops/infusion.py:46",
@@ -727,11 +1019,22 @@ def main():
          **{key: k3["G"][key] + k3["D"][key]  # one training step: G's launch and D's
             for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
          "bound_by": k3["G"]["bound_by"]},
+        {"name": "int8_matmul", "route": "cuda", "source": "rnagan_tpu_torch/csrc/quant_matmul.cu",
+         "replaces": "rnagan_tpu/ops/quant_matmul.py:48", "launches": quantized["launches"]["int8_matmul"],
+         "max_abs_err": next(iter(k4_errs.values()))["max_abs_err"],  # the head's shape
+         "ms": time_ms(lambda: int8_matmul(*k4_args), iters=50),
+         "device_ms": graph_ms(lambda: int8_matmul(*k4_args)),
+         "plain_ms": time_ms(lambda: int8_matmul_plain(*k4_args), iters=10),
+         "bound_ms": k4_bound_ms, "bound_by": k4_by,
+         "library_ms": time_ms(lambda: torch.matmul(zt.to(torch.bfloat16), w_bf16), iters=50)},
     ]
+    for i, k in enumerate(("infused_noise", "tanh_to_uint8")):  # the quantized path launched them too
+        kernels[i]["launches"] += quantized["launches"][k]
+    del w_bf16
 
     g_flops, v_flops = generator_flops(gan_cfg, BATCH), vae_encode_flops(vae_cfg, BATCH)
     serving = {"generator_gflop": g_flops / 1e9, "vae_encode_gflop": v_flops / 1e9,
-               "generator_params": sum(t.numel() for t in synth.serve.generator.parameters())}
+               "generator_params": sum(t.numel() for t in synth.serve.weights.values())}
     generators = {}
     for dtype in ("float32", "bfloat16"):
         s = synth if dtype == "float32" else Synthesizer(
@@ -752,6 +1055,11 @@ def main():
         serving[dtype] = {"request_ms_b128": req_ms, "tiles_per_s": BATCH / req_ms * 1e3, **stages,
                           "generator_tflop_per_s": g_flops / stages["generator_ms"] / 1e9,
                           "vae_encode_tflop_per_s": v_flops / stages["vae_encode_ms"] / 1e9}
+        w0, b0 = s.serve.weights["model.0.0.weight"], s.serve.weights["model.0.0.bias"]
+        with torch.inference_mode():
+            serving[dtype]["float_head_convt_ms"] = time_ms(
+                lambda: torch.nn.functional.conv_transpose2d(noise.to(w0.dtype)[:, :, None, None], w0, b0),
+                iters=20)
         generators[dtype] = (s.serve.generator, noise)
     # the same generator with cuDNN free to autotune and to pick nondeterministic algorithms
     torch.backends.cudnn.deterministic = False
@@ -762,12 +1070,23 @@ def main():
             serving[dtype]["generator_autotuned_ms"] = ms
             serving[dtype]["generator_autotuned_tflop_per_s"] = g_flops / ms / 1e9
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del generators, qsynth
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    up = make_generator(dataclasses.replace(gan_cfg, arch="dcgan_up"), seed=6, device=dev)
+    randomize(up, gen)
+    up_sd = up.state_dict()
+    del up
+    serving_options = serving_option_timings(cfg, vae_sd, g_sd, up_sd, genes)
+    print("serving options: " + json.dumps(serving_options))
 
     details = {"card": smi, "build_s": kb.seconds, "k2_share_differing": k2_share,
                "main_path_s": main_s, "kernel_vs_plain_path": path_diff, "small_vs_cpu": small,
                "serving_b128": serving, "peak_mem_gib_timings": peak_gib,
                "training_f32_k3_vs_plain": train_check, "training_small_vs_cpu": train_small,
-               "training": training, "fused_adam_by_model": k3, "k4_bound": k4_bound(),
+               "training": training, "fused_adam_by_model": k3,
+               "k4_check": k4_errs, "k4_bytes": k4_bytes, "quantized_head_path": quantized,
+               "serving_variants_vs_cpu": variants, "serving_options_b128": serving_options,
                "total_s": time.perf_counter() - t_start}
     print("details: " + json.dumps(details))
     print(json.dumps({"kernels": kernels}))

@@ -84,17 +84,24 @@ def convt_kernel_to_torch(k) -> torch.Tensor:
 
 def generator_state_dict_from_jax(cfg: GANModelConfig, params: Dict[str, Any],
                                   stats: Dict[str, Any]) -> StateDict:
-    """JAX ``DCGANGenerator`` params/batch_stats -> torchgan ``model.<b>.0|1`` keys.
+    """JAX generator params/batch_stats -> the port's ``model.<b>.0|1`` keys.
 
-    Blocks 0..r carry ``_BN_b`` when ``cfg.batchnorm``; the last ConvTranspose
-    carries a bias."""
-    if cfg.arch != "dcgan":
-        raise NotImplementedError(f"arch={cfg.arch!r}: the torchgan layout covers 'dcgan' only")
+    ``dcgan`` and ``condgan`` (whose head reads ``encoding_dims + num_classes``
+    channels) take torchgan's layout: ``ConvTranspose_b`` is block b, with
+    ``_BN_b`` for b <= r when ``cfg.batchnorm``. ``dcgan_up`` takes the port's
+    own (``models/dcgan.py``): block 0 is ``ConvTranspose_0`` with ``_BN_0``,
+    block b >= 1 is the 3x3 ``Conv_{b-1}`` (with its bias) and ``_BN_b``."""
+    if cfg.arch not in ("dcgan", "condgan", "dcgan_up"):
+        raise NotImplementedError(f"arch={cfg.arch!r}: no generator layout in the port")
     r = num_repeats(cfg.out_size)
     sd: StateDict = {}
     for b in range(r + 2):
-        leaf = params[f"ConvTranspose_{b}"]
-        sd[f"model.{b}.0.weight"] = convt_kernel_to_torch(leaf["kernel"])
+        if cfg.arch == "dcgan_up" and b > 0:
+            leaf = params[f"Conv_{b - 1}"]
+            sd[f"model.{b}.0.weight"] = conv_kernel_to_torch(leaf["kernel"])
+        else:
+            leaf = params[f"ConvTranspose_{b}"]
+            sd[f"model.{b}.0.weight"] = convt_kernel_to_torch(leaf["kernel"])
         if "bias" in leaf:
             sd[f"model.{b}.0.bias"] = _t(leaf["bias"])
         if cfg.batchnorm and b <= r:
@@ -112,9 +119,10 @@ def discriminator_state_dict_from_jax(cfg: GANModelConfig, params: Dict[str, Any
                                       stats: Dict[str, Any]) -> StateDict:
     """JAX ``DCGANDiscriminator`` params/batch_stats -> torchgan ``model.<b>.0|1``
     keys (blocks 1..r carry ``_BN_{b-1}`` when ``cfg.batchnorm``), plus
-    ``cond_proj.weight`` for the projection critic."""
-    if cfg.arch != "dcgan":
-        raise NotImplementedError(f"arch={cfg.arch!r}: the torchgan layout covers 'dcgan' only")
+    ``cond_proj.weight`` for the projection critic. ``dcgan_up`` shares the
+    layout; ``condgan``'s block 0 reads ``out_channels + num_classes`` channels."""
+    if cfg.arch not in ("dcgan", "dcgan_up", "condgan"):
+        raise NotImplementedError(f"arch={cfg.arch!r}: no discriminator layout in the port")
     r = num_repeats(cfg.out_size)
     sd: StateDict = {}
     for b in range(r + 2):
@@ -147,6 +155,8 @@ def param_paths(cfg: GANModelConfig, net: str):
     if net not in ("generator", "discriminator"):
         raise ValueError(f"net must be 'generator' or 'discriminator', not {net!r}")
     gen = net == "generator"
+    if gen and cfg.arch == "dcgan_up":
+        raise NotImplementedError("dcgan_up training state is not ported yet (ROADMAP A17)")
     r = num_repeats(cfg.out_size)
     conv, kind = ("ConvTranspose", "convt") if gen else ("Conv", "conv")
     order = []

@@ -1,9 +1,12 @@
 """Tile synthesis (port of ``rnagan_tpu/eval/generate.py`` and ``GANTrainer.sample``).
 
 :class:`Synthesizer` serves RNA-GAN tiles: frozen beta-VAE encode -> infused
-noise (CUDA kernel ``kernels/infusion``) -> BN-folded DCGAN generator ->
-tanh->uint8 NHWC (CUDA kernel ``kernels/quantize``). It is the counterpart of
-``GANTrainer._sample_impl`` followed by ``make_serving_fn``.
+noise (CUDA kernel ``kernels/infusion``) -> BN-folded generator (with
+``quantized_head``, its head through the int8 CUDA kernel
+``kernels/quant_matmul``) -> tanh->uint8 NHWC (CUDA kernel
+``kernels/quantize``). It is the counterpart of ``GANTrainer._sample_impl``
+followed by ``make_serving_fn``, for every arch that serves (``condgan``
+takes labels).
 """
 
 from __future__ import annotations
@@ -40,23 +43,26 @@ class Synthesizer:
 
     ``vae_state_dict`` and ``g_state_dict`` are torch state_dicts in the
     reference layouts (``convert.py`` makes them from JAX weights or loads
-    them from ``.pt`` / ``.model`` files)."""
+    them from ``.pt`` / ``.model`` files). ``quantized_head`` and
+    ``quantized_full`` go to ``make_serving_fn``."""
 
     def __init__(self, cfg: GANConfig, vae_state_dict: Dict[str, torch.Tensor],
                  g_state_dict: Dict[str, torch.Tensor], *, uint8_output: bool = True,
-                 device="cuda"):
+                 quantized_head: bool = False, quantized_full: bool = False, device="cuda"):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.vae = BetaVAE(cfg.vae, device=self.device)
         self.vae.load_state_dict(vae_state_dict)
         self.vae.eval().requires_grad_(False)
         self.serve = make_serving_fn(cfg.model, g_state_dict, uint8_output=uint8_output,
+                                     quantized_head=quantized_head, quantized_full=quantized_full,
                                      device=self.device)
 
     @torch.inference_mode()
     def synthesize(self, gene, n: Optional[int] = None, *, seed: Optional[int] = None,
                    u: Optional[torch.Tensor] = None,
-                   z_pop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+                   z_pop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Tiles (n, H, W, C) for ``gene`` (B, F) normalized expression rows;
         a (1, F) row is one patient broadcast over ``n`` samples (default B).
 
@@ -64,7 +70,10 @@ class Synthesizer:
         ((n, encoding_dims) uniforms in [-noise_range, noise_range]). Without
         ``z_pop`` the noise is standardized over the batch, as the reference
         does; with ``z_pop = (mean, std)`` of z over the training population
-        (``z_population_stats``) it keeps the patient signal."""
+        (``z_population_stats``) it keeps the patient signal. ``labels`` (n,)
+        int classes are required by ``condgan`` and refused by the others."""
+        if (labels is None) == (self.cfg.model.arch == "condgan"):
+            raise ValueError("labels go with arch='condgan', and only with it")
         gene = torch.as_tensor(gene, dtype=torch.float32).to(self.device)
         if gene.ndim != 2:
             raise ValueError(f"gene must be (B, F); got {tuple(gene.shape)}")
@@ -79,4 +88,6 @@ class Synthesizer:
             pop_mean, pop_std = (torch.as_tensor(t, dtype=torch.float32).to(self.device).contiguous()
                                  for t in z_pop)
             noise = infused_noise_population(z, pop_mean, pop_std, n, seed=seed, u=u, noise_range=r)
+        if labels is not None:
+            return self.serve(noise, torch.as_tensor(labels).to(self.device))
         return self.serve(noise)

@@ -38,6 +38,8 @@ SIGNATURES = {
     "rnagan_tanh_to_uint8": [_P, _P, _I, _I, _P],
     # table, count, mu_bf16, lr, b1, b2, 1-b1, 1-b2, eps, c1, c2, stream
     "rnagan_fused_adam": [_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    # x, xb scratch, w_q, scale, bias, out, n, k, m, stream
+    "rnagan_int8_matmul": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 

@@ -1,15 +1,30 @@
-"""DCGAN generator and discriminator (port of ``rnagan_tpu/models/dcgan.py``).
+"""DCGAN-family generators and discriminators (port of ``rnagan_tpu/models/dcgan.py``).
 
 torchgan's ``nn.Sequential`` layout, so ``model.<block>.0|1`` keys match the
 ``.model`` bundles the JAX package exports (``models/dcgan_torch.py``).
 
-Generator:
+:class:`DCGANGenerator` (arch ``dcgan``):
 
 * block 0: ``ConvTranspose2d(z, d, 4, 1, 0)`` on the 1x1 noise map, BN, LeakyReLU;
 * blocks 1..r: ``ConvTranspose2d(c, c/2, 4, 2, 1)``, BN, LeakyReLU;
 * block r+1: ``ConvTranspose2d(step, out_channels, 4, 2, 1)`` with a bias.
 
-Discriminator (the mirror):
+:class:`DCGANUpGenerator` (arch ``dcgan_up``, the resize-convolution
+generator) has no torchgan layout (``dcgan_torch.py:79-83``); the port's own
+keeps the block numbering of ``dcgan``:
+
+* block 0: the same ConvTranspose2d head, BN, LeakyReLU;
+* blocks 1..r: 2x bilinear upsample (align_corners=False), reflection pad 1,
+  ``Conv2d(c, c/2, 3, 1, 0)`` with a bias (flax ``nn.Conv``'s default), BN,
+  LeakyReLU;
+* block r+1: upsample, pad, ``Conv2d(step, out_channels, 3, 1, 0)``, then tanh
+  unless ``compat_no_tanh`` (the reference's final block omits it).
+
+:class:`ConditionalDCGANGenerator` (arch ``condgan``) is ``dcgan`` with the
+labels' one-hot concatenated to z, so its head has ``encoding_dims +
+num_classes`` input channels.
+
+Discriminator (the mirror; ``dcgan`` and ``dcgan_up`` share it):
 
 * block 0: ``Conv2d(in, step, 4, 2, 1)`` with a bias, LeakyReLU;
 * blocks 1..r: ``Conv2d(c, 2c, 4, 2, 1)``, BN, LeakyReLU;
@@ -17,6 +32,10 @@ Discriminator (the mirror):
   then LeakyReLU when ``disc_last_leaky``;
 * ``critic="projection"`` adds ``<cond_proj(z_mean), sum_hw h>`` to the score,
   ``h`` the last 4x4 feature map and ``cond_proj`` a bias-free Linear.
+
+:class:`ConditionalDCGANDiscriminator` (``condgan``) appends the one-hot as
+constant maps after the image channels, so block 0 reads ``out_channels +
+num_classes`` channels.
 
 ``r = out_size.bit_length() - 4`` (5 at 256x256). Without BatchNorm
 (``cfg.batchnorm=False``; for the generator also the BN-folded serving form)
@@ -27,7 +46,7 @@ equals flax's ``padding="SAME"`` once the kernel is flipped in transit; a
 BatchNorm has flax's semantics (``models/batchnorm.py``). ``forward_stats`` /
 the discriminator's ``forward`` take the running statistics as an argument
 and return the updated ones, so each training stage decides which to keep;
-the generator's ``forward`` keeps them in its BatchNorm buffers.
+a generator's ``forward`` keeps them in its BatchNorm buffers.
 
 Parameters stay float32; ``cfg.compute_dtype`` names the compute type (cast
 copies of the weights, float32 output), as the JAX modules do.
@@ -46,7 +65,7 @@ from rnagan_tpu_torch.core.device import compute_dtype
 from rnagan_tpu_torch.models.batchnorm import Stats, batch_norm
 
 #: architectures of ``make_generator`` that later slices port, by ROADMAP item
-_LATER = {"dcgan_up": "A4", "condgan": "A4", "sagan": "A13", "biggan": "A13"}
+_LATER = {"sagan": "A13", "biggan": "A13"}
 
 
 def num_repeats(size: int) -> int:
@@ -55,18 +74,52 @@ def num_repeats(size: int) -> int:
     return size.bit_length() - 4
 
 
-def _require_dcgan(cfg: GANModelConfig) -> None:
+def check_arch(cfg: GANModelConfig, archs: Sequence[str]) -> None:
+    """Raise unless ``cfg.arch`` is one of ``archs``: NotImplementedError
+    naming the ROADMAP item for an architecture not ported yet."""
     if cfg.arch in _LATER:
         raise NotImplementedError(
-            f"arch={cfg.arch!r} is not ported yet (ROADMAP {_LATER[cfg.arch]}); only 'dcgan' is")
-    if cfg.arch != "dcgan":
-        raise ValueError(f"unknown gan arch: {cfg.arch}")
+            f"arch={cfg.arch!r} is not ported yet (ROADMAP {_LATER[cfg.arch]})")
+    if cfg.arch not in archs:
+        raise ValueError(f"unknown gan arch {cfg.arch!r} here; expected one of {tuple(archs)}")
+
+
+def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
+    """2x bilinear upsample of (N, C, H, W), align_corners=False. Equals
+    ``jax.image.resize(..., "bilinear")``: at the border JAX drops the
+    out-of-range tap and renormalizes, torch clamps the source coordinate,
+    and both give the edge pixel."""
+    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+
+def reflect_pad_hw(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
+    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+
+
+def up_block(x: torch.Tensor, weight3: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``dcgan_up``'s up-block convolution: 2x bilinear upsample -> reflect
+    pad 1 -> 3x3 VALID conv with a bias; (N, Cin, H, W) -> (N, Cout, 2H, 2W)."""
+    return F.conv2d(reflect_pad_hw(upsample2x_bilinear(x), 1), weight3, bias)
+
+
+def join_onehot(x: torch.Tensor, labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """``x`` with the labels' one-hot joined on the channel axis (1): after a
+    generator's (N, z) noise, or after a discriminator's image channels as
+    constant maps."""
+    onehot = F.one_hot(labels.to(x.device).long(), num_classes).to(x.dtype)
+    if x.ndim == 4:
+        onehot = onehot[:, :, None, None].expand(-1, -1, x.shape[2], x.shape[3])
+    return torch.cat([x, onehot], dim=1)
 
 
 class _DCGAN(nn.Module):
-    """What the two nets share: seeded init and the BN buffers as ``Stats``."""
+    """What the nets share: seeded init and the BN buffers as ``Stats``."""
 
     cfg: GANModelConfig
+    #: the ``cfg.arch`` values the class builds
+    ARCHS: Tuple[str, ...] = ()
+    #: one-hot labels join the input (the ``condgan`` variants)
+    conditional = False
 
     @torch.no_grad()
     def _init_weights(self, seed: int) -> None:
@@ -100,47 +153,68 @@ class _DCGAN(nn.Module):
         new.append((mean, var))
         return x
 
+    def _labelled(self, x: torch.Tensor, labels: Optional[torch.Tensor]) -> torch.Tensor:
+        """The input, with the labels' one-hot joined for a conditional net."""
+        if not self.conditional:
+            return x
+        if labels is None:
+            raise ValueError(f"arch={self.cfg.arch!r} requires labels")
+        return join_onehot(x, labels, self.cfg.num_classes)
 
-class DCGANGenerator(_DCGAN):
+
+class _Generator(_DCGAN):
+    """Module mode over ``forward_stats``."""
+
+    def forward(self, z: torch.Tensor, labels: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Module mode: BatchNorm reads its buffers; train mode also writes the
+        updated statistics back to them, as flax's mutable ``batch_stats``."""
+        out, new = self.forward_stats(z, self.bn_stats(), self.training, labels=labels)
+        if self.training:
+            self.load_bn_stats(new)
+        return out
+
+    def _head(self, cin: int, cout: int, device) -> nn.Sequential:
+        """The ConvTranspose2d head on the 1x1 noise map, BN, LeakyReLU."""
+        return self._block(nn.ConvTranspose2d(cin, cout, 4, 1, 0, bias=not self.cfg.batchnorm,
+                                              device=device), cout, device)
+
+    def _block(self, conv: nn.Module, cout: int, device) -> nn.Sequential:
+        layers = [conv]
+        if self.cfg.batchnorm:
+            layers.append(nn.BatchNorm2d(cout, eps=1e-5, device=device))
+        layers.append(nn.LeakyReLU(self.cfg.leaky_slope))
+        return nn.Sequential(*layers)
+
+
+class DCGANGenerator(_Generator):
     """z (N, encoding_dims) -> images (N, out_channels, out_size, out_size).
 
     Weights are drawn from ``seed``. ``final_tanh=False`` returns the
     pre-tanh map, for the fused uint8 egress."""
 
+    ARCHS = ("dcgan",)
+
     def __init__(self, cfg: GANModelConfig, *, final_tanh: bool = True, seed: int = 0, device=None):
         super().__init__()
-        _require_dcgan(cfg)
+        check_arch(cfg, self.ARCHS)
         self.cfg = cfg
         self.final_tanh = final_tanh
         r = num_repeats(cfg.out_size)
         d = cfg.step_channels * 2**r
-        blocks = [self._block(cfg.encoding_dims, d, 1, 0, device)]
+        zdim = cfg.encoding_dims + (cfg.num_classes if self.conditional else 0)
+        blocks = [self._head(zdim, d, device)]
         for _ in range(r):
-            blocks.append(self._block(d, d // 2, 2, 1, device))
+            blocks.append(self._block(nn.ConvTranspose2d(d, d // 2, 4, 2, 1, bias=not cfg.batchnorm,
+                                                         device=device), d // 2, device))
             d //= 2
         blocks.append(nn.Sequential(
             nn.ConvTranspose2d(d, cfg.out_channels, 4, 2, 1, bias=True, device=device)))
         self.model = nn.Sequential(*blocks)
         self._init_weights(seed)
 
-    def _block(self, cin: int, cout: int, stride: int, pad: int, device) -> nn.Sequential:
-        bn = self.cfg.batchnorm
-        layers = [nn.ConvTranspose2d(cin, cout, 4, stride, pad, bias=not bn, device=device)]
-        if bn:
-            layers.append(nn.BatchNorm2d(cout, eps=1e-5, device=device))
-        layers.append(nn.LeakyReLU(self.cfg.leaky_slope))
-        return nn.Sequential(*layers)
-
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        """Module mode: BatchNorm reads its buffers; train mode also writes the
-        updated statistics back to them, as flax's mutable ``batch_stats``."""
-        out, new = self.forward_stats(z, self.bn_stats(), self.training)
-        if self.training:
-            self.load_bn_stats(new)
-        return out
-
     def forward_stats(self, z: torch.Tensor, stats: Stats, train: bool,
-                      params: Optional[Sequence[torch.Tensor]] = None) -> Tuple[torch.Tensor, Stats]:
+                      params: Optional[Sequence[torch.Tensor]] = None,
+                      labels: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Stats]:
         """``(images, new_stats)`` with the BatchNorm statistics ``stats`` and,
         when given, ``params`` in place of the module's parameters (the EMA
         generator samples this way)."""
@@ -148,7 +222,7 @@ class DCGANGenerator(_DCGAN):
         p = dict(self.named_parameters())
         if params is not None:
             p = dict(zip(p, params, strict=True))
-        x = z.to(dt)[:, :, None, None]
+        x = self._labelled(z, labels).to(dt)[:, :, None, None]
         new: Stats = []
         last = len(self.model) - 1
         for i, block in enumerate(self.model):
@@ -165,22 +239,82 @@ class DCGANGenerator(_DCGAN):
         return (torch.tanh(x) if self.final_tanh else x), new
 
 
+class ConditionalDCGANGenerator(DCGANGenerator):
+    """``dcgan`` conditioned on labels: ``forward(z, labels)`` with (N,) int
+    labels in [0, num_classes)."""
+
+    ARCHS = ("condgan",)
+    conditional = True
+
+
+class DCGANUpGenerator(_Generator):
+    """The resize-convolution generator (arch ``dcgan_up``): z (N,
+    encoding_dims) -> images (N, out_channels, out_size, out_size), tanh
+    unless ``compat_no_tanh``. Weights are drawn from ``seed``."""
+
+    ARCHS = ("dcgan_up",)
+
+    def __init__(self, cfg: GANModelConfig, *, compat_no_tanh: bool = False, seed: int = 0,
+                 device=None):
+        super().__init__()
+        check_arch(cfg, self.ARCHS)
+        self.cfg = cfg
+        self.compat_no_tanh = compat_no_tanh
+        r = num_repeats(cfg.out_size)
+        d = cfg.step_channels * 2**r
+        blocks = [self._head(cfg.encoding_dims, d, device)]
+        for _ in range(r):
+            blocks.append(self._block(nn.Conv2d(d, d // 2, 3, 1, 0, bias=True, device=device),
+                                      d // 2, device))
+            d //= 2
+        blocks.append(nn.Sequential(nn.Conv2d(d, cfg.out_channels, 3, 1, 0, bias=True, device=device)))
+        self.model = nn.Sequential(*blocks)
+        self._init_weights(seed)
+
+    def forward_stats(self, z: torch.Tensor, stats: Stats, train: bool,
+                      params: Optional[Sequence[torch.Tensor]] = None,
+                      labels: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Stats]:
+        """``(images, new_stats)``, as :meth:`DCGANGenerator.forward_stats`."""
+        dt = compute_dtype(self.cfg.compute_dtype)
+        p = dict(self.named_parameters())
+        if params is not None:
+            p = dict(zip(p, params, strict=True))
+        new: Stats = []
+        last = len(self.model) - 1
+        bias = p.get("model.0.0.bias")
+        x = F.conv_transpose2d(z.to(dt)[:, :, None, None], p["model.0.0.weight"].to(dt),
+                               None if bias is None else bias.to(dt))
+        for i in range(last + 1):
+            if i > 0:
+                x = up_block(x, p[f"model.{i}.0.weight"].to(dt), p[f"model.{i}.0.bias"].to(dt))
+            if i == last:
+                break
+            if self.cfg.batchnorm:
+                x = self._bn(x, p, i, stats, i, train, new)
+            x = F.leaky_relu(x, self.cfg.leaky_slope)
+        x = x.float()
+        return (x if self.compat_no_tanh else torch.tanh(x)), new
+
+
 class DCGANDiscriminator(_DCGAN):
     """images (N, out_channels, out_size, out_size) -> (N,) critic scores.
 
     Weights are drawn from ``seed``; ``critic="projection"`` adds the
     ``cond_proj`` Linear (encoding_dims -> the last feature width)."""
 
+    ARCHS = ("dcgan", "dcgan_up")
+
     def __init__(self, cfg: GANModelConfig, *, seed: int = 0, device=None):
         super().__init__()
-        _require_dcgan(cfg)
+        check_arch(cfg, self.ARCHS)
         if cfg.critic not in ("unconditional", "projection"):
             raise ValueError(f"unknown critic: {cfg.critic}")
         self.cfg = cfg
         r = num_repeats(cfg.out_size)
         d = cfg.step_channels
         slope = cfg.leaky_slope
-        blocks = [nn.Sequential(nn.Conv2d(cfg.out_channels, d, 4, 2, 1, bias=True, device=device),
+        cin = cfg.out_channels + (cfg.num_classes if self.conditional else 0)
+        blocks = [nn.Sequential(nn.Conv2d(cin, d, 4, 2, 1, bias=True, device=device),
                                 nn.LeakyReLU(slope))]
         for _ in range(r):
             layers = [nn.Conv2d(d, 2 * d, 4, 2, 1, bias=not cfg.batchnorm, device=device)]
@@ -195,14 +329,16 @@ class DCGANDiscriminator(_DCGAN):
         self._init_weights(seed)
 
     def forward(self, x: torch.Tensor, stats: Stats, train: bool,
-                cond: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Stats]:
+                cond: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Stats]:
         """``(scores, new_stats)``. ``cond`` (N, encoding_dims) is the frozen
-        VAE's z_mean, required by the projection critic."""
+        VAE's z_mean, required by the projection critic; ``labels`` (N,) the
+        conditional critic's classes."""
         cfg = self.cfg
         dt = compute_dtype(cfg.compute_dtype)
         p = dict(self.named_parameters())
         new: Stats = []
-        x = x.to(dt)
+        x = self._labelled(x, labels).to(dt)
         last = len(self.model) - 1
         for i, block in enumerate(self.model):
             conv = block[0]
@@ -225,3 +361,30 @@ class DCGANDiscriminator(_DCGAN):
         if cfg.disc_last_leaky:
             score = F.leaky_relu(score, cfg.leaky_slope)
         return score, new
+
+
+class ConditionalDCGANDiscriminator(DCGANDiscriminator):
+    """The discriminator of ``condgan``: ``forward(x, stats, train,
+    labels=labels)`` with the one-hot of (N,) int labels as constant maps after
+    the image channels."""
+
+    ARCHS = ("condgan",)
+    conditional = True
+
+
+def make_generator(cfg: GANModelConfig, **kwargs) -> _Generator:
+    """Architecture registry (``rnagan_tpu/models/dcgan.py:262-281``);
+    ``kwargs`` go to the class (``seed``, ``device``, ...)."""
+    classes = {"dcgan": DCGANGenerator, "dcgan_up": DCGANUpGenerator,
+               "condgan": ConditionalDCGANGenerator}
+    check_arch(cfg, tuple(classes))
+    return classes[cfg.arch](cfg, **kwargs)
+
+
+def make_discriminator(cfg: GANModelConfig, **kwargs) -> DCGANDiscriminator:
+    """``dcgan`` and ``dcgan_up`` share the plain discriminator
+    (``rnagan_tpu/models/dcgan.py:284-297``)."""
+    classes = {"dcgan": DCGANDiscriminator, "dcgan_up": DCGANDiscriminator,
+               "condgan": ConditionalDCGANDiscriminator}
+    check_arch(cfg, tuple(classes))
+    return classes[cfg.arch](cfg, **kwargs)

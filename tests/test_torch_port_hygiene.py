@@ -1,4 +1,4 @@
-"""The port's package rules: no JAX, CUDA by default, unported options named."""
+"""The port's package rules: no JAX, CUDA by default, no library optimizer."""
 
 import ast
 import subprocess
@@ -41,7 +41,7 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 25  # every module of slices 1 and 2 was imported
+    assert int(res.stdout.split()[-1]) >= 26  # every module of slices 1 to 3 was imported
 
 
 def test_entry_points_default_to_cuda():
@@ -71,13 +71,6 @@ def test_training_path_uses_no_library_optimizer():
                 assert not any(a.name.startswith("torch.optim") for a in node.names), path
             elif isinstance(node, ast.keyword):
                 assert node.arg != "fused", path
-
-
-@pytest.mark.parametrize("option,item", [("quantized_head", "B4"), ("quantized_full", "A5")])
-def test_unported_serving_options_name_their_roadmap_item(option, item):
-    g_sd = DCGANGenerator(SMALL.model).state_dict()
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        make_serving_fn(SMALL.model, g_sd, device="cpu", **{option: True})
 
 
 def test_synthesize_needs_exactly_one_noise_source():

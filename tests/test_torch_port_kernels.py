@@ -19,6 +19,7 @@ from rnagan_tpu.losses.rna_infusion import infused_noise_population, standardize
 from rnagan_tpu.ops.quantize import pallas_tanh_to_uint8
 from rnagan_tpu_torch.kernels import _build
 from rnagan_tpu_torch.kernels.infusion import infused_noise, philox4x32, philox_uniform
+from rnagan_tpu_torch.kernels.quant_matmul import int8_matmul
 from rnagan_tpu_torch.kernels.quantize import tanh_to_uint8
 
 _FF = 0xFFFFFFFF
@@ -131,6 +132,9 @@ def test_quantize_writes_nhwc():
 @pytest.mark.parametrize("fn,arg", [
     (lambda t: infused_noise(t, 4, seed=0), torch.empty(4, 8, device="meta")),
     (tanh_to_uint8, torch.empty(1, 3, 4, 4, device="meta")),
+    (lambda t: int8_matmul(t, torch.empty(8, 16, dtype=torch.int8, device="meta"),
+                           torch.empty(16, device="meta"), torch.empty(16, device="meta")),
+     torch.empty(4, 8, device="meta")),
 ])
 def test_wrappers_take_cpu_or_cuda_only(fn, arg):
     with pytest.raises(ValueError, match="CUDA or CPU"):
@@ -146,4 +150,5 @@ def test_c_entry_points_match_their_bindings():
         m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", text)
         assert m, name
         assert len(m.group(1).split(",")) == len(argtypes), name
-    assert {p.name for p in _build.sources()} == {"infusion.cu", "quantize.cu", "fused_adam.cu"}
+    assert {p.name for p in _build.sources()} == {"infusion.cu", "quantize.cu", "fused_adam.cu",
+                                                  "quant_matmul.cu"}

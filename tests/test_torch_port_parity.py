@@ -164,9 +164,9 @@ def test_folded_generator_matches_lax_apply(weights, rng):
     np.testing.assert_allclose(got, np.asarray(ref), atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ["dcgan_up", "condgan", "sagan", "biggan"])
+@pytest.mark.parametrize("arch", ["sagan", "biggan"])
 def test_later_archs_name_their_roadmap_item(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
         DCGANGenerator(tcfg.GANModelConfig(arch=arch, **GAN_KW))
 
 
