@@ -6,19 +6,23 @@
 Phases (any failure raises and exits non-zero; no result line is printed):
 
 1. the card, its power limit, and the kernels built from ``rnagan_tpu_torch/csrc``;
-2. K1 (infused noise) against its plain PyTorch version at (128, 2048);
+2. K1 (infused noise) against its plain PyTorch version in its four modes at
+   ``K1_SHAPES`` (each instance of its one-pass kernel and the loop kernel);
 3. K2 (tanh -> uint8, NCHW -> NHWC) against its plain version at (128, 3, 256, 256);
    K3 (Adam) against its plain version on the training generator's
    parameters, float32 and bfloat16 mu: bit-equal; K4 (int8 matmul) against
-   its plain version (TF32 off) at the head's (128, 2048) x (2048, 32768),
-   N = 1, and ragged shapes: within 1e-5 of max |out|;
+   its plain version (TF32 off) at ``K4_SHAPES`` (the head's (N, 2048) x
+   (2048, 32768) at N = 128, 64 and 1, ragged shapes) and a misaligned
+   weight, on both of its kernels (TMA + wgmma, byte-wise): within 1e-5 of
+   max |out|;
 4. the serving path at full width (``VAEModelConfig()`` and ``GANModelConfig()``
    widths, float32, TF32 off): a ``Synthesizer`` on the card serves a batch of
    128 patients (reference mode), one patient x 64 (population mode) and a
    repeat of the first request, with the launch counters read around them;
    the kernel path is held against the plain-op path, and a small
    configuration against the same Synthesizer on the CPU. Then the same
-   three requests through ``Synthesizer(quantized_head=True)`` (K1, K4, K2),
+   three requests through ``Synthesizer(quantized_head=True)`` (K1, K4 on its
+   wgmma kernel, as its route counter must show, K2),
    held against K1, K4 and K2's plain versions, with the int8 head's
    deviation from the float head on the same noise; and small
    configurations of ``quantized_full``, ``dcgan_up`` (exact border on and
@@ -33,8 +37,10 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    under ``torch.profiler`` (device time by kernel category, idle share);
 7. timings with CUDA events: each kernel (through its wrapper, and replayed
    from a CUDA graph for its device time), its plain version and a PyTorch
-   yardstick; the serving stages and tiles/s at batch 128 in float32 and
-   bfloat16; the generator again with cuDNN autotuning; the float head's
+   yardstick; K4 also at N = 64 and 1, K1 with ``u`` given and beside a
+   graph-replayed launch of a one-element fill (the floor of any launch); the
+   serving stages and tiles/s at batch 128 in float32 and bfloat16; the
+   generator again with cuDNN autotuning; the float head's
    ConvTranspose alone; tiles/s of ``quantized_head``, ``quantized_full`` and
    ``dcgan_up`` serving in float32 and bfloat16, and in float32 the last two
    checked at that width: every W8A8 layer exact against float64, W8A8
@@ -152,24 +158,43 @@ def uint8_diff(a, b):
     return int(d.max()), float((d > 0).float().mean())
 
 
-def check_k1(dev, gen):
-    from rnagan_tpu_torch.kernels.infusion import infused_noise, infused_noise_plain
+#: (N, D) of the K1 checks: each one-pass instance (rows a thread 1, 2, 4, 8),
+#: the loop kernel (N = 300), a D that is no multiple of 32
+K1_SHAPES = tuple((n, d) for n in (2, 64, 128, 256, 300) for d in (2048, 2000))
+MODES = ("u", "seed", "seed_broadcast", "population")
 
+
+def check_k1(dev, gen):
+    """K1 against its plain version in all four modes at each of ``K1_SHAPES``
+    (1e-5), and at the main path's (128, 2048): column means 0 and stds 1, the
+    same seed the same output, another seed another."""
+    from rnagan_tpu_torch.kernels.infusion import (infused_noise, infused_noise_plain, philox_uniform,
+                                                   rows_per_thread)
+
+    errs = {}
+    for n, d in K1_SHAPES:
+        z = torch.randn(n, d, generator=gen, device=dev) * 3
+        u = (torch.rand(n, d, generator=gen, device=dev) * 2 - 1) * 0.3
+        pm = torch.randn(d, generator=gen, device=dev)
+        ps = torch.rand(d, generator=gen, device=dev) + 0.5
+        modes = {
+            "u": infused_noise(z, n, u=u) - infused_noise_plain(z, n, u=u),
+            "seed": infused_noise(z, n, seed=7) - infused_noise_plain(z, n, seed=7),
+            "seed_broadcast": infused_noise(z[:1], n, seed=7) - infused_noise_plain(z[:1], n, seed=7),
+            "population": (infused_noise(z[:1], n, seed=7, pop_mean=pm, pop_std=ps)
+                           - infused_noise_plain(z[:1], n, seed=7, pop_mean=pm, pop_std=ps)),
+        }
+        errs[f"{n}x{d},rows{rows_per_thread(n)}"] = {k: float(v.abs().max()) for k, v in modes.items()}
+        # both against float64 statistics of the same float32 x (reported, not gated)
+        x = (philox_uniform(7, n, d, 0.3, dev) + z[:1]).double()
+        ref = (x - x.mean(0)) / torch.sqrt(x.var(0, correction=1) + 1e-12)
+        errs[f"{n}x{d},rows{rows_per_thread(n)}"]["seed_broadcast_vs_f64"] = {
+            "kernel": float((infused_noise(z[:1], n, seed=7).double() - ref).abs().max()),
+            "plain": float((infused_noise_plain(z[:1], n, seed=7).double() - ref).abs().max())}
+    worst = max(e for per in errs.values() for k, e in per.items() if k in MODES)
+    check(worst <= 1e-5, f"K1 differs from its plain version: {errs}")
     n, d = BATCH, 2048
     z = torch.randn(n, d, generator=gen, device=dev) * 3
-    u = (torch.rand(n, d, generator=gen, device=dev) * 2 - 1) * 0.3
-    pm = torch.randn(d, generator=gen, device=dev)
-    ps = torch.rand(d, generator=gen, device=dev) + 0.5
-    errs = {
-        "u": infused_noise(z, n, u=u) - infused_noise_plain(z, n, u=u),
-        "seed": infused_noise(z, n, seed=7) - infused_noise_plain(z, n, seed=7),
-        "seed_broadcast": infused_noise(z[:1], n, seed=7) - infused_noise_plain(z[:1], n, seed=7),
-        "population": (infused_noise(z[:1], n, seed=7, pop_mean=pm, pop_std=ps)
-                       - infused_noise_plain(z[:1], n, seed=7, pop_mean=pm, pop_std=ps)),
-    }
-    errs = {k: float(v.abs().max()) for k, v in errs.items()}
-    for k, e in errs.items():
-        check(e <= 1e-5, f"K1 {k} mode differs from its plain version by {e}")
     out = infused_noise(z, n, seed=7)
     check(float(out.mean(0).abs().max()) <= 1e-5, "K1 column means are not 0")
     check(float((out.std(0, correction=1) - 1).abs().max()) <= 1e-4, "K1 column stds are not 1")
@@ -177,8 +202,8 @@ def check_k1(dev, gen):
     check(corr > 0.9, f"K1 corr(z, out) = {corr}")
     check(torch.equal(out, infused_noise(z, n, seed=7)), "K1 same seed, different output")
     check(float((out - infused_noise(z, n, seed=8)).abs().max()) > 1e-2, "K1 seeds 7 and 8 agree")
-    print(f"K1 infused_noise vs plain, max abs err by mode: {errs}; corr(z, out) {corr:.4f}")
-    return max(errs.values())
+    print(f"K1 infused_noise vs plain, max abs err by shape and mode: {errs}; corr(z, out) {corr:.4f}")
+    return worst
 
 
 def check_k2(dev, gen):
@@ -273,32 +298,59 @@ def k3_timings(shapes_by_model, dev, gen):
     return out
 
 
-#: (N, K, M) of the K4 checks: the generator head at batch 128 and 1, the
-#: 16-byte weight path with ragged N, K and M, several row tiles, and the
-#: byte-wise weight path (M not a multiple of 16)
-K4_SHAPES = ((BATCH, 2048, 32768), (1, 2048, 32768), (37, 80, 272), (300, 64, 512), (5, 24, 270))
+#: (N, K, M) of the K4 checks: the generator head at batch 128, 64 and 1 (the
+#: wgmma kernel's three N tiles), ragged N, K and M on the wgmma route (two N
+#: tiles, K not a multiple of 8, M not of 256), several row tiles, and the
+#: byte-wise route (M not a multiple of 16)
+K4_SHAPES = ((BATCH, 2048, 32768), (64, 2048, 32768), (1, 2048, 32768), (129, 2048, 512),
+             (65, 2051, 272), (37, 80, 272), (300, 64, 512), (5, 24, 270))
+#: a weight whose pointer is not 16-byte aligned takes the byte-wise route too
+K4_MISALIGNED = (64, 128, 512)
 
 
 def check_k4(dev, gen):
-    """K4 against its plain version, TF32 off for the plain version's matmul.
-    bf16(x) and the int8 weight are exact in float32 and so are their
-    products: only the order of the sums differs, within 1e-5 of max |out|."""
-    from rnagan_tpu_torch.kernels.quant_matmul import int8_matmul, int8_matmul_plain
+    """K4 against its plain version, TF32 off for the plain version's matmul,
+    on each route. bf16(x) and the int8 weight are exact in float32 and so are
+    their products: only the order of the sums differs, within 1e-5 of max
+    |out|."""
+    from rnagan_tpu_torch.kernels.quant_matmul import int8_matmul, int8_matmul_plain, plan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     errs = {}
-    for n, k, m in K4_SHAPES:
+    for (n, k, m), offset in [(s, 0) for s in K4_SHAPES] + [(K4_MISALIGNED, 1)]:
         x = torch.randn(n, k, generator=gen, device=dev) * 2
-        w = torch.randint(-127, 128, (k, m), generator=gen, device=dev, dtype=torch.int8)
+        w = torch.randint(-128, 128, (k * m + offset,), generator=gen, device=dev, dtype=torch.int8)
+        w = w[offset:].view(k, m)
         scale = torch.rand(m, generator=gen, device=dev) * 1e-3 + 1e-4
         bias = torch.randn(m, generator=gen, device=dev) * 0.1
+        route = plan(n, k, m, w.data_ptr()).route
+        before = int8_matmul.launches_by_route[route]
         got, ref = int8_matmul(x, w, scale, bias), int8_matmul_plain(x, w, scale, bias)
         err = float((got - ref).abs().max())
-        errs[f"{n}x{k}x{m}"] = {"max_abs_err": err, "rel_to_max": err / float(ref.abs().max())}
-        check(got.shape == (n, m) and bool(torch.isfinite(got).all()), f"K4 {n}x{k}x{m} output")
-        check(errs[f"{n}x{k}x{m}"]["rel_to_max"] <= 1e-5, f"K4 {n}x{k}x{m} differs: {errs}")
+        key = f"{n}x{k}x{m}" + (f"+{offset}" if offset else "")
+        errs[key] = {"route": route, "max_abs_err": err, "rel_to_max": err / float(ref.abs().max())}
+        check(int8_matmul.launches_by_route[route] == before + 1, f"K4 {key} did not take the {route} route")
+        check(got.shape == (n, m) and bool(torch.isfinite(got).all()), f"K4 {key} output")
+        check(errs[key]["rel_to_max"] <= 1e-5, f"K4 {key} differs: {errs}")
+    check({e["route"] for e in errs.values()} == {"wgmma", "bytewise"}, f"K4 routes checked: {errs}")
     print(f"K4 int8_matmul vs plain: {errs}")
     return errs
+
+
+def k4_small_batches(x, k4_args, w_bf16):
+    """K4's device time (graph replay) on the head's weights at N = 64 and
+    N = 1, with its bound and the bf16 library product's device time."""
+    from rnagan_tpu_torch.kernels.quant_matmul import int8_matmul
+
+    _, w_q, scale, bias = k4_args
+    out = {}
+    for n in (64, 1):
+        xn = x[:n].contiguous()
+        xb = xn.to(torch.bfloat16)
+        out[f"device_ms_n{n}"] = graph_ms(lambda: int8_matmul(xn, w_q, scale, bias))
+        out[f"bound_ms_n{n}"] = k4_bound(n, *w_q.shape)[0]
+        out[f"library_device_ms_n{n}"] = graph_ms(lambda: torch.matmul(xb, w_bf16))
+    return out
 
 
 def head_weights(serve):
@@ -323,6 +375,7 @@ def quantized_head_path(dev, cfg, vae_sd, g_sd, genes, z_pop, float_synth):
     synth = Synthesizer(cfg, vae_sd, g_sd, quantized_head=True, device=dev)
     torch.cuda.synchronize()
     infused_noise.launches = int8_matmul.launches = tanh_to_uint8.launches = 0
+    int8_matmul.launches_by_route = dict.fromkeys(int8_matmul.launches_by_route, 0)
     t0 = time.perf_counter()
     first = synth.synthesize(genes, seed=11)
     one_patient = synth.synthesize(genes[:1], 64, seed=12, z_pop=z_pop)
@@ -331,8 +384,11 @@ def quantized_head_path(dev, cfg, vae_sd, g_sd, genes, z_pop, float_synth):
     seconds = time.perf_counter() - t0
     launches = {"infused_noise": infused_noise.launches, "int8_matmul": int8_matmul.launches,
                 "tanh_to_uint8": tanh_to_uint8.launches}
-    print(f"quantized-head path: 3 requests in {seconds:.3f} s; launches {launches}")
+    by_route = dict(int8_matmul.launches_by_route)
+    print(f"quantized-head path: 3 requests in {seconds:.3f} s; launches {launches}, K4 by route {by_route}")
     check(all(v > 0 for v in launches.values()), f"a kernel of the quantized path never launched: {launches}")
+    check(by_route == {"wgmma": launches["int8_matmul"], "bytewise": 0},
+          f"the int8 head did not go through the wgmma kernel: {by_route}")
     size = cfg.model.out_size
     check(first.shape == (BATCH, size, size, 3) and first.dtype == torch.uint8, "quantized request 1")
     check(one_patient.shape == (64, size, size, 3), "quantized request 2 shape")
@@ -364,7 +420,8 @@ def quantized_head_path(dev, cfg, vae_sd, g_sd, genes, z_pop, float_synth):
     check(deviation["corr"] > 0.99, f"int8 head vs float head: {deviation}")
     print(f"quantized-head kernel path vs plain: {path_diff}; int8 vs float head (tanh space): "
           f"{deviation}")
-    return synth, {"seconds": seconds, "launches": launches, "kernel_vs_plain_path": path_diff,
+    return synth, {"seconds": seconds, "launches": launches, "k4_launches_by_route": by_route,
+                   "kernel_vs_plain_path": path_diff,
                    "int8_vs_float_head": deviation}
 
 
@@ -990,6 +1047,8 @@ def main():
                 .permute(0, 2, 3, 1).to(torch.uint8, memory_format=torch.contiguous_format))
 
     k1_bound, k1_by = bound_ms(2 * n * d * 4, 10 * n * d)  # z in, out; ~10 flops an element
+    tiny = torch.zeros(1, device=dev)  # a launch that does next to nothing: the floor under K1
+    ut = (torch.rand(n, d, generator=gen, device=dev) * 2 - 1) * 0.3
     k2_elems = x.numel()
     k2_bound, k2_by = bound_ms(k2_elems * 4 + k2_elems, 6 * k2_elems)  # tanh + 5 flops
     # K4 on the quantized head's own weights and a serving batch of noise
@@ -1005,7 +1064,9 @@ def main():
          "ms": time_ms(lambda: infused_noise(zt, n, seed=3), iters=200),
          "device_ms": graph_ms(lambda: infused_noise(zt, n, seed=3)),
          "plain_ms": time_ms(lambda: infused_noise_plain(zt, n, seed=3), iters=50),
-         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None},
+         "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None,
+         "launch_floor_ms": graph_ms(tiny.zero_),
+         "device_ms_given_u": graph_ms(lambda: infused_noise(zt, n, u=ut))},  # no Philox work
         {"name": "tanh_to_uint8", "route": "cuda", "source": "rnagan_tpu_torch/csrc/quantize.cu",
          "replaces": "rnagan_tpu/ops/quantize.py:45", "launches": launches["tanh_to_uint8"],
          "max_abs_err": float(k2_worst),
@@ -1026,7 +1087,8 @@ def main():
          "device_ms": graph_ms(lambda: int8_matmul(*k4_args)),
          "plain_ms": time_ms(lambda: int8_matmul_plain(*k4_args), iters=10),
          "bound_ms": k4_bound_ms, "bound_by": k4_by,
-         "library_ms": time_ms(lambda: torch.matmul(zt.to(torch.bfloat16), w_bf16), iters=50)},
+         "library_ms": time_ms(lambda: torch.matmul(zt.to(torch.bfloat16), w_bf16), iters=50),
+         "launches_by_route": quantized["k4_launches_by_route"], **k4_small_batches(zt, k4_args, w_bf16)},
     ]
     for i, k in enumerate(("infused_noise", "tanh_to_uint8")):  # the quantized path launched them too
         kernels[i]["launches"] += quantized["launches"][k]

@@ -15,8 +15,10 @@ a seed gives the kernel and the plain version the same uniforms. Neither
 reproduces the TPU's bits.
 
 Bound on the H100 (N=128, D=2048): 1 MiB in, 1 MiB out, 0.6 us at
-3.35 TB/s: the kernel is launch-bound; ``csrc/infusion.cu`` says how its
-design meets that.
+3.35 TB/s: the kernel is bound by latency; ``csrc/infusion.cu`` has a
+one-pass kernel (each thread keeps its rows in registers) for N up to
+``ROW_GROUPS * REGISTER_ROWS[-1]`` and a three-pass loop kernel above, and
+:func:`rows_per_thread` picks one by N.
 """
 
 from __future__ import annotations
@@ -29,6 +31,10 @@ from rnagan_tpu_torch.kernels import _build
 
 _MASK = 0xFFFFFFFF
 _M0, _M1, _W0, _W1 = 0xD2511F53, 0xCD9E8D57, 0x9E3779B9, 0xBB67AE85
+#: threads that share a column in the one-pass kernel (``kStripGroups``)
+ROW_GROUPS = 32
+#: rows each of them keeps in registers: one instance of the kernel each
+REGISTER_ROWS = (1, 2, 4, 8)
 
 
 def _mulhilo(m: int, c: torch.Tensor):
@@ -63,6 +69,12 @@ def philox_uniform(seed: int, n: int, d: int, noise_range: float, device) -> tor
     w0 = philox4x32((row, col, zero, zero), (int(seed), 0))[0]
     u01 = (w0 >> 8).to(torch.float32) * (1.0 / (1 << 24))
     return (u01 * 2.0 - 1.0) * noise_range
+
+
+def rows_per_thread(n: int) -> int:
+    """The one-pass kernel's rows a thread for a batch of ``n`` rows: the
+    fewest that cover it, or 0 (the loop kernel) above the largest."""
+    return next((r for r in REGISTER_ROWS if n <= ROW_GROUPS * r), 0)
 
 
 def _var_u(noise_range: float) -> float:
@@ -123,7 +135,7 @@ def infused_noise(z: torch.Tensor, n: int, *, seed: Optional[int] = None,
         err = _build.library().rnagan_infused_noise(
             z.data_ptr(), 0 if z.shape[0] == 1 else d, ptr(u), ptr(pop_mean), ptr(pop_std),
             out.data_ptr(), n, d, 0 if seed is None else int(seed) & _MASK, noise_range,
-            _var_u(noise_range), torch.cuda.current_stream().cuda_stream)
+            _var_u(noise_range), rows_per_thread(n), torch.cuda.current_stream().cuda_stream)
     _build.check("rnagan_infused_noise", err)
     infused_noise.launches += 1
     return out

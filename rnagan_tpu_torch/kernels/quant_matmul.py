@@ -1,4 +1,4 @@
-"""int8-weight matmul kernel (CUDA, tensor cores) and its plain PyTorch version.
+"""int8-weight matmul kernels (CUDA, tensor cores) and their plain PyTorch version.
 
 Replaces ``rnagan_tpu/ops/quant_matmul.py::pallas_int8_matmul`` (body
 ``_kernel``)::
@@ -9,13 +9,16 @@ with a float32 sum. ``quantize_per_channel`` is a copy of the JAX package's:
 symmetric max-abs int8 per output column, in numpy float32, bit-equal to it.
 
 Bound on the H100 (N=128, K=2048, M=32768): 85.2 MB moved, 25.4 us at
-3.35 TB/s; the 17.2 GFLOP take 17.4 us on the bf16 tensor cores and 257 us
-at the float32 rate outside them. ``csrc/quant_matmul.cu`` says how its
-design meets that.
+3.35 TB/s; the 17.2 GFLOP take 17.4 us on the bf16 tensor cores.
+``csrc/quant_matmul.cu`` has two kernels, and :func:`plan` picks one by shape:
+the TMA + ``wgmma`` kernel where TMA can read the weight (M a multiple of 16,
+a 16-byte aligned weight pointer), the byte-wise ``mma.sync`` kernel
+otherwise.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
@@ -23,9 +26,16 @@ import torch
 
 from rnagan_tpu_torch.kernels import _build
 
-#: the kernel's tile along N and step along K (``csrc/quant_matmul.cu``
-#: ``kBM``, ``kBK``): its bf16 copy of x is padded to whole tiles
-TILE_N, TILE_K = 128, 32
+#: the wgmma kernel's N tiles (the ``wgmma`` N width, ``csrc/quant_matmul.cu``
+#: ``int8_matmul_wgmma<BN>``); a larger N takes several tiles of the largest
+WGMMA_TILES_N = (32, 64, 128)
+#: its bf16 copy of x keeps N rows and pads K to this (``kKPitch``: TMA reads
+#: rows whose pitch is a multiple of 16 bytes)
+WGMMA_K_PITCH = 8
+#: the byte-wise kernel's tile along N and step along K (``kByteBM``,
+#: ``kByteBK``): its bf16 copy of x is padded to whole tiles
+BYTEWISE_TILE_N, BYTEWISE_TILE_K = 128, 32
+ROUTES = ("wgmma", "bytewise")
 
 
 def quantize_per_channel(w) -> Tuple[np.ndarray, np.ndarray]:
@@ -51,11 +61,29 @@ def _round_up(v: int, to: int) -> int:
     return (v + to - 1) // to * to
 
 
+@dataclass(frozen=True)
+class Plan:
+    route: str  # "wgmma" or "bytewise"
+    tile_n: int  # rows of x a block takes
+    scratch: Tuple[int, int]  # shape of the kernel's bf16 copy of x
+
+
+def plan(n: int, k: int, m: int, w_ptr: int) -> Plan:
+    """The kernel for x (n, k) and a (k, m) int8 weight at address ``w_ptr``,
+    by shape only: TMA reads the weight when its rows are whole 16-byte units
+    from a 16-byte aligned start."""
+    if m % 16 == 0 and w_ptr % 16 == 0:
+        tile = next((t for t in WGMMA_TILES_N if n <= t), WGMMA_TILES_N[-1])
+        return Plan("wgmma", tile, (n, _round_up(k, WGMMA_K_PITCH)))
+    return Plan("bytewise", BYTEWISE_TILE_N,
+                (_round_up(n, BYTEWISE_TILE_N), _round_up(k, BYTEWISE_TILE_K)))
+
+
 def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
                 bias: torch.Tensor) -> torch.Tensor:
     """x (N, K) float32; w_q (K, M) int8; scale, bias (M,) float32 -> (N, M)
-    float32. Any N >= 1, K and M."""
-    if x.ndim != 2 or w_q.ndim != 2 or x.shape[1] != w_q.shape[0] or x.shape[0] < 1:
+    float32. Any N, K, M >= 1."""
+    if x.ndim != 2 or w_q.ndim != 2 or x.shape[1] != w_q.shape[0] or 0 in (*x.shape, w_q.shape[1]):
         raise ValueError(f"expected x (N, K) and w_q (K, M); got {tuple(x.shape)}, {tuple(w_q.shape)}")
     n, k = x.shape
     m = w_q.shape[1]
@@ -68,16 +96,21 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
                                   ("bias", bias, torch.float32, (m,))):
         if t.dtype != dtype or t.device != x.device or not t.is_contiguous() or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be a contiguous {dtype} tensor of shape {shape} on {x.device}")
-    xb = torch.empty((_round_up(n, TILE_N), _round_up(k, TILE_K)), dtype=torch.bfloat16,
-                     device=x.device)
+    p = plan(n, k, m, w_q.data_ptr())
+    xb = torch.empty(p.scratch, dtype=torch.bfloat16, device=x.device)
     out = torch.empty((n, m), dtype=torch.float32, device=x.device)
+    args = (x.data_ptr(), xb.data_ptr(), w_q.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), n, k, m)
+    name = f"rnagan_int8_matmul_{p.route}"
     with torch.cuda.device(x.device):
-        err = _build.library().rnagan_int8_matmul(
-            x.data_ptr(), xb.data_ptr(), w_q.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), n, k, m, torch.cuda.current_stream().cuda_stream)
-    _build.check("rnagan_int8_matmul", err)
+        stream = torch.cuda.current_stream().cuda_stream
+        fn = getattr(_build.library(), name)
+        err = fn(*args, p.tile_n, stream) if p.route == "wgmma" else fn(*args, stream)
+    _build.check(name, err)
     int8_matmul.launches += 1
+    int8_matmul.launches_by_route[p.route] += 1
     return out
 
 
 int8_matmul.launches = 0
+int8_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -18,7 +18,9 @@ from jax.experimental.pallas import tpu as pltpu
 from rnagan_tpu.losses.rna_infusion import infused_noise_population, standardize_batch
 from rnagan_tpu.ops.quantize import pallas_tanh_to_uint8
 from rnagan_tpu_torch.kernels import _build
-from rnagan_tpu_torch.kernels.infusion import infused_noise, philox4x32, philox_uniform
+from rnagan_tpu_torch.kernels import infusion as tinfusion
+from rnagan_tpu_torch.kernels import quant_matmul as tquant
+from rnagan_tpu_torch.kernels.infusion import infused_noise, philox4x32, philox_uniform, rows_per_thread
 from rnagan_tpu_torch.kernels.quant_matmul import int8_matmul
 from rnagan_tpu_torch.kernels.quantize import tanh_to_uint8
 
@@ -86,6 +88,61 @@ def test_philox_uniforms_cover_the_range():
     assert -0.3 <= float(u.min()) < -0.29 and 0.29 < float(u.max()) < 0.3
     assert abs(float(u.mean())) < 0.01
     assert abs(float(u.var()) - 0.6**2 / 12) < 1e-3
+
+
+@pytest.mark.parametrize("n,rows", [(2, 1), (8, 1), (32, 1), (33, 2), (64, 2), (128, 4), (256, 8),
+                                    (257, 0), (300, 0)])
+def test_infusion_rows_per_thread(n, rows):
+    """The one-pass kernel takes the fewest rows a thread that cover the batch
+    (32 threads a column); above 256 rows the loop kernel (0) runs."""
+    assert rows_per_thread(n) == rows
+    if rows:
+        assert n <= tinfusion.ROW_GROUPS * rows and rows in tinfusion.REGISTER_ROWS
+
+
+@pytest.mark.parametrize("n", [2, 8, 32, 64, 128, 256, 300])
+def test_infusion_plain_matches_jax_at_each_kernel_size(rng, n):
+    """The plain version (given u) against JAX's ``standardize_batch`` at a
+    batch for each kernel instance the wrapper picks, the loop kernel's 300
+    rows included, with a ragged D: within 1e-5."""
+    d = 200
+    z = (rng.randn(n, d) * 3).astype(np.float32)
+    u = rng.uniform(-0.3, 0.3, (n, d)).astype(np.float32)
+    ref = np.asarray(standardize_batch(jnp.asarray(u) + jnp.asarray(z)))
+    got = infused_noise(torch.from_numpy(z), n, u=torch.from_numpy(u), noise_range=0.3)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+
+
+def test_infusion_population_matches_jax_at_300_rows(rng):
+    n, d = 300, 200
+    z = (rng.randn(1, d) * 2).astype(np.float32)
+    pop_mean = rng.randn(d).astype(np.float32)
+    pop_std = (0.5 + rng.rand(d)).astype(np.float32)
+    key = jax.random.key(9)
+    ref = infused_noise_population(key, jnp.asarray(z), jnp.asarray(pop_mean),
+                                   jnp.asarray(pop_std), n, 0.3)
+    u = np.array(jax.random.uniform(key, (n, d), jnp.float32, -0.3, 0.3))
+    got = infused_noise(torch.from_numpy(z), n, u=torch.from_numpy(u), noise_range=0.3,
+                        pop_mean=torch.from_numpy(pop_mean), pop_std=torch.from_numpy(pop_std))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+
+
+def _cu_constant(source, name):
+    return int(re.search(r"constexpr int " + name + r" = (\d+);", (_build.CSRC / source).read_text()).group(1))
+
+
+def test_wrapper_constants_match_the_kernels():
+    """The Python side sizes scratch buffers and picks kernel instances from
+    constants that must equal the CUDA sources' own."""
+    assert tinfusion.ROW_GROUPS == _cu_constant("infusion.cu", "kStripGroups")
+    onepass = re.findall(r"ONEPASS\((\d+)\)", (_build.CSRC / "infusion.cu").read_text())
+    assert tuple(int(r) for r in onepass) == tinfusion.REGISTER_ROWS
+    assert tquant.WGMMA_K_PITCH == _cu_constant("quant_matmul.cu", "kKPitch")
+    assert tquant.BYTEWISE_TILE_N == _cu_constant("quant_matmul.cu", "kByteBM")
+    assert tquant.BYTEWISE_TILE_K == _cu_constant("quant_matmul.cu", "kByteBK")
+    cases = re.findall(r"case (\d+): err = launch_wgmma<(\d+)>", (_build.CSRC / "quant_matmul.cu").read_text())
+    assert all(a == b for a, b in cases)
+    assert tuple(int(a) for a, _ in cases) == tquant.WGMMA_TILES_N
 
 
 @pytest.mark.parametrize("kwargs", [{}, {"seed": 1, "u": torch.zeros(4, 8)},

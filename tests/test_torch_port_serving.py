@@ -31,7 +31,7 @@ from rnagan_tpu_torch import convert
 from rnagan_tpu_torch.core import config as tcfg
 from rnagan_tpu_torch.eval import serving as tserving
 from rnagan_tpu_torch.eval.generate import Synthesizer
-from rnagan_tpu_torch.kernels.quant_matmul import int8_matmul, int8_matmul_plain, quantize_per_channel
+from rnagan_tpu_torch.kernels.quant_matmul import int8_matmul, int8_matmul_plain, plan, quantize_per_channel
 from rnagan_tpu_torch.models import dcgan as tdcgan
 
 F32 = np.float32
@@ -140,6 +140,55 @@ def test_int8_matmul_plain_matches_pallas_and_xla(rng, n):
     assert torch.equal(got, int8_matmul_plain(*(torch.from_numpy(a) for a in (x, q, s, bias))))
 
 
+@pytest.mark.parametrize("n", [1, 64, 65, 129])
+@pytest.mark.parametrize("m", [270, 272])
+def test_int8_matmul_plain_matches_pallas_and_xla_at_edge_shapes(rng, n, m):
+    """The same at the wgmma kernel's edges: N of one row, of a whole and a
+    ragged N tile, over two N tiles; K = 2051 (no multiple of 8, the TMA row
+    pitch, nor of 64, the K step); M on the wgmma route (272) and off it
+    (270). Within 1e-5 of max |out|."""
+    k = 2051
+    x = rng.randn(n, k).astype(F32)
+    q, s = quantize_per_channel(rng.randn(k, m).astype(F32))
+    bias = rng.randn(m).astype(F32)
+    args = tuple(map(jnp.asarray, (x, q, s, bias)))
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(pallas_int8_matmul(*args, block_m=m))
+    xla = np.asarray(xla_int8_matmul(*args))
+    got = int8_matmul(*(torch.from_numpy(a) for a in (x, q, s, bias))).numpy()
+    assert got.shape == (n, m)
+    for ref in (pallas, xla):
+        assert _max_rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("n,m,offset,route,tile_n", [
+    (128, 32768, 0, "wgmma", 128), (64, 32768, 0, "wgmma", 64), (1, 32768, 0, "wgmma", 32),
+    (32, 512, 0, "wgmma", 32), (33, 512, 0, "wgmma", 64), (65, 512, 0, "wgmma", 128),
+    (129, 512, 0, "wgmma", 128), (300, 272, 0, "wgmma", 128), (8, 272, 16, "wgmma", 32),
+    (8, 270, 0, "bytewise", 128), (8, 272, 1, "bytewise", 128), (8, 272, 8, "bytewise", 128)])
+def test_int8_matmul_route_by_shape(n, m, offset, route, tile_n):
+    """K4's kernel is chosen by shape alone: the TMA/wgmma kernel when M is a
+    multiple of 16 and the weight starts on 16 bytes (a slice of a larger
+    buffer may not), with an N tile of 32, 64 or 128 rows; the byte-wise
+    kernel otherwise."""
+    k = 64
+    w = torch.empty(k * m + offset + 16, dtype=torch.int8)
+    base = (-w.data_ptr()) % 16  # the allocation's first 16-byte boundary
+    w_q = w[base + offset:base + offset + k * m].view(k, m)
+    p = plan(n, k, m, w_q.data_ptr())
+    assert (p.route, p.tile_n) == (route, tile_n)
+
+
+@pytest.mark.parametrize("n,k,m,scratch", [
+    (128, 2048, 32768, (128, 2048)), (65, 2051, 272, (65, 2056)), (1, 3, 16, (1, 8)),
+    (5, 24, 270, (128, 32)), (129, 33, 270, (256, 64))])
+def test_int8_matmul_scratch_sizes(n, k, m, scratch):
+    """The bf16 copy of x: N rows and a K pitch of a multiple of 8 for the
+    wgmma kernel (TMA zero-fills the rest of each tile); whole 128 x 32
+    tiles for the byte-wise kernel."""
+    assert plan(n, k, m, 0).scratch == scratch
+
+
 def test_head_weight_matrix_and_int8_bit_equal(rng):
     """The port's (o, i, j)-column head matrix is JAX's (i, j, o) matrix with
     its columns permuted, bit for bit; so are its int8 values and scales. The
@@ -183,10 +232,10 @@ def test_quantized_head_serving_matches_jax(rng, arch, uint8):
 def test_quantized_head_launches_only_on_cuda(rng):
     """A CPU head runs the plain version: the launch counter stays put."""
     _, tc, _, _, sd = _weights("dcgan")
-    before = int8_matmul.launches
+    before = int8_matmul.launches, dict(int8_matmul.launches_by_route)
     fn = tserving.make_serving_fn(tc, sd, device="cpu", quantized_head=True)
     assert fn(torch.from_numpy(_noise(rng))).shape == (4, 32, 32, 3)
-    assert int8_matmul.launches == before
+    assert (int8_matmul.launches, int8_matmul.launches_by_route) == before
     assert fn.weights["model.0.0.weight_q"].dtype == torch.int8
 
 
