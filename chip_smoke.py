@@ -29,13 +29,24 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    off, and with the int8 head) and ``condgan`` on the card against the CPU;
 5. training checks (float32, TF32 off, cuDNN deterministic): one full-width
    ``GANTrainer`` step through K3 against the same step through the plain
-   Adam, and a small configuration's step on the card against the CPU;
+   Adam; a small configuration's step of each arch (``dcgan``, ``dcgan_up``,
+   ``condgan`` with labels) on the card against the CPU, K1 and K3 launched
+   twice each on the card; a small ``VAEConfig``'s 3 steps with given draws
+   on the card against the CPU;
 6. the training path: ``GANConfig()`` (wganvae, bfloat16, batch 8) at full
    width takes 3 warm-up and 10 timed steps, with the K1 and K3 launch
    counters read around the timed ones (2 launches a step each); the step
    again at batch 64, the step's stages timed one by one, and three steps
    under ``torch.profiler`` (device time by kernel category, idle share);
-7. timings with CUDA events: each kernel (through its wrapper, and replayed
+7. the VAE training path: ``VAEConfig()`` at full width (float32, batch 128,
+   Adam through K3 at the warmup+cosine rates) fits one epoch of random rows
+   with the K3 counter read around it (one launch a train step, none in
+   validation); its best ``.pt`` reloads strictly and feeds a ``GANTrainer``
+   step through ``GANConfig(vae_checkpoint=...)``; then the step timed (CUDA
+   events), its forward and backward, peak memory, K3 bit-equal to its plain
+   version on one step's gradients, and K3's times at the VAE's 26 tensors
+   beside its bound and ``torch.optim.Adam(fused=True)``;
+8. timings with CUDA events: each kernel (through its wrapper, and replayed
    from a CUDA graph for its device time), its plain version and a PyTorch
    yardstick; K4 also at N = 64 and 1, K1 with ``u`` given and beside a
    graph-replayed launch of a one-element fill (the floor of any launch); the
@@ -54,8 +65,10 @@ Weights and data are random, from fixed seeds. Needs no JAX and no network.
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -720,16 +733,21 @@ def train_kernel_vs_plain(dev, gen, vae_sd):
             "metrics": {k: float(v) for k, v in ma.items()}}
 
 
-def train_small_matches_cpu(dev, gen):
-    """A small configuration's step on the card against the same step on the
-    CPU (whose plain versions the CPU tests hold against the JAX package).
-    cuDNN and the CPU sum convolutions in other orders: the state within the
-    CPU tests' bounds (``STATE_TOL``), metrics within 1e-3 relative + 1e-5."""
+def train_small_matches_cpu(dev, gen, arch="dcgan"):
+    """A small configuration's step of ``arch`` on the card against the same
+    step on the CPU (whose plain versions the CPU tests hold against the JAX
+    package); ``condgan`` with labels. cuDNN and the CPU sum convolutions in
+    other orders: the state within the CPU tests' bounds (``STATE_TOL``),
+    metrics within 1e-3 relative + 1e-5. The card's step launches K1 and K3
+    twice each (the D and G stages), as ``dcgan``'s does."""
     from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig, VAEModelConfig
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.kernels.infusion import infused_noise
     from rnagan_tpu_torch.models.betavae import BetaVAE
     from rnagan_tpu_torch.train.gan_trainer import GANTrainer
 
-    cfg = GANConfig(model=GANModelConfig(out_size=32, encoding_dims=64, step_channels=8,
+    cfg = GANConfig(model=GANModelConfig(arch=arch, out_size=32, encoding_dims=64, step_channels=8,
+                                         num_classes=3 if arch == "condgan" else 0,
                                          compute_dtype="float32"),
                     vae=VAEModelConfig(rna_features=256, z_dim=64, encoder_dims=(128, 96, 64),
                                        decoder_dims=(96, 128)))
@@ -742,15 +760,20 @@ def train_small_matches_cpu(dev, gen):
     warm_adam(s_cpu, cpu_gen)
     s_card = state_to(s_cpu, dev)
     batch = random_batch(cpu_gen, cfg.batch_size, cfg, "cpu", size=32)
+    if arch == "condgan":
+        batch["labels"] = torch.randint(0, 3, (cfg.batch_size,), generator=cpu_gen)
     draws = training_draws(cpu_gen, cfg.batch_size, cfg, "cpu")
     _, m_cpu = cpu.train_step(s_cpu, batch, draws)
+    before = (fused_adam.launches, infused_noise.launches)
     _, m_card = card.train_step(s_card, batch, draws)
+    launches = {"fused_adam": fused_adam.launches - before[0], "infused_noise": infused_noise.launches - before[1]}
+    check(launches == {"fused_adam": 2, "infused_noise": 2}, f"small {arch} step launches {launches}")
     excess = state_excess(s_card, s_cpu)
     for k in m_cpu:
         a, b = float(m_cpu[k]), float(m_card[k])
-        check(abs(a - b) <= 1e-3 * abs(a) + 1e-5, f"small training step {k}: CPU {a}, card {b}")
-    check(excess <= 1.0, f"small training step: card vs CPU state at {excess} x its tolerance")
-    return {"state_excess": excess, "state_max_abs_diff": state_diff(s_card, s_cpu)}
+        check(abs(a - b) <= 1e-3 * abs(a) + 1e-5, f"small {arch} training step {k}: CPU {a}, card {b}")
+    check(excess <= 1.0, f"small {arch} training step: card vs CPU state at {excess} x its tolerance")
+    return {"state_excess": excess, "state_max_abs_diff": state_diff(s_card, s_cpu), "launches": launches}
 
 
 def train_main_path(dev, gen, vae_sd):
@@ -865,8 +888,7 @@ def training_stage_ms(tr, st, batch):
 def kernel_category(name):
     n = name.lower()
     for cat, keys in (("K3 fused_adam", ("fused_adam",)), ("K1 infused_noise", ("infused_noise",)),
-                      ("convolution (cuDNN)", ("conv", "xmma", "dgrad", "wgrad", "fprop", "cudnn",
-                                               "implicit")),
+                      ("convolution (cuDNN)", ("conv", "dgrad", "wgrad", "fprop", "cudnn", "implicit")),
                       ("matmul (cuBLAS)", ("gemm", "cublas", "cutlass")),
                       ("reduction", ("reduce",))):
         if any(k in n for k in keys):
@@ -874,19 +896,19 @@ def kernel_category(name):
     return "elementwise and other"
 
 
-def profile_training(tr, st, batch, steps=3):
-    """``steps`` training steps under ``torch.profiler``: device time by
-    kernel category and the heaviest kernels, and the device's idle share
-    of the window (the profiler's own host cost inflates the window)."""
+def profile_training(step, steps=3):
+    """``steps`` calls of ``step()`` (a training step) under ``torch.profiler``:
+    device time by kernel category and the heaviest kernels, and the device's
+    idle share of the window (the profiler's own host cost inflates the window)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    tr.train_step(st, batch)
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            tr.train_step(st, batch)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
@@ -902,6 +924,237 @@ def profile_training(tr, st, batch, steps=3):
             "device_idle_share": 1.0 - busy * steps / wall_ms,
             "by_category_ms": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
             "top_kernels": [(e.key[:90], dev_ms(e), e.count // steps) for e in top]}
+
+
+# ------------------------------------------------------------ VAE training
+
+#: the CPU tests' bounds (tests/test_torch_port_vae.py): rtol, share of the
+#: tensor's largest value
+VAE_TOL = {"params": (1e-5, 1e-6), "stats": (1e-5, 1e-6), "moments": (1e-5, 1e-5)}
+#: rows of random "normalized expression" the full-width fit trains and validates on
+VAE_ROWS = (1024, 256)
+
+
+def vae_state_to(state, dev):
+    """A copy of a ``VAETrainState`` on ``dev``."""
+    st = copy.deepcopy(state)
+    st.model.to(dev)
+    rule = st.opt.rule
+    rule.mu, rule.nu = [t.to(dev) for t in rule.mu], [t.to(dev) for t in rule.nu]
+    return st
+
+
+def vae_state_groups(state):
+    """(group, tensor) over a VAE state's parameters, BN statistics and moments."""
+    model = state.model
+    yield from (("params", p) for p in model.parameters())
+    yield from (("stats", b) for name, b in model.named_buffers() if "running" in name)
+    yield from (("moments", t) for t in (*state.opt.rule.mu, *state.opt.rule.nu))
+
+
+def vae_state_excess(a, b):
+    """The largest ratio of a difference to its allowance under VAE_TOL (1 passes)."""
+    worst = 0.0
+    for (group, x), (_, y) in zip(vae_state_groups(a), vae_state_groups(b), strict=True):
+        x, y = x.detach().float().cpu(), y.detach().float().cpu()
+        rtol, share = VAE_TOL[group]
+        allow = rtol * y.abs() + share * float(y.abs().max()) + 1e-30
+        worst = max(worst, float(((x - y).abs() / allow).max()))
+    return worst
+
+
+def vae_small_matches_cpu(dev):
+    """A small ``VAEConfig`` (the CPU tests' widths) takes 3 steps with given
+    dropout masks and eps on the card and on the CPU from one state at count 5
+    (warmup 6, cosine 3: the steps cross the warmup's end): losses within
+    1e-5 relative, the state within the CPU tests' bounds (``VAE_TOL``)."""
+    from rnagan_tpu_torch.core.config import VAEConfig, VAEModelConfig
+    from rnagan_tpu_torch.train.vae_trainer import VAETrainer
+
+    cfg = VAEConfig(model=VAEModelConfig(rna_features=64, z_dim=16, encoder_dims=(48, 32, 16),
+                                         decoder_dims=(32, 48)),
+                    lr=1e-3, batch_size=8, warmup_steps=6, cosine_steps=3)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    cpu, card = VAETrainer(cfg, device="cpu"), VAETrainer(cfg, device=dev)
+    s_cpu = cpu.init_state()
+    for mu, nu in zip(s_cpu.opt.rule.mu, s_cpu.opt.rule.nu):
+        mu.copy_(torch.randn(mu.shape, generator=gen) * 1e-3)
+        nu.copy_((torch.rand(nu.shape, generator=gen) + 0.5) * 1e-2)
+    s_cpu.opt.count = s_cpu.opt.rule.count = s_cpu.step = 5
+    s_card = vae_state_to(s_cpu, dev)
+    worst_loss = 0.0
+    for _ in range(3):
+        x = torch.randn(8, 64, generator=gen)
+        mask = torch.tensor([1.0] * 6 + [0.0] * 2)
+        draws = {"keep": torch.rand(8, 64, generator=gen) < 0.5, "eps": torch.randn(8, 16, generator=gen)}
+        _, l_cpu = cpu.train_step(s_cpu, x, mask, draws)
+        _, l_card = card.train_step(s_card, x.to(dev), mask.to(dev), draws)
+        for k in l_cpu:
+            a, b = float(l_cpu[k]), float(l_card[k])
+            worst_loss = max(worst_loss, abs(a - b) / abs(a))
+    excess = vae_state_excess(s_card, s_cpu)
+    check(worst_loss <= 1e-5, f"small VAE steps: card vs CPU losses {worst_loss} relative")
+    check(excess <= 1.0, f"small VAE steps: card vs CPU state at {excess} x its tolerance")
+    return {"loss_max_rel_diff": worst_loss, "state_excess": excess}
+
+
+def vae_fwd_bwd_flops(m, batch):
+    """Multiply-adds x 2 of one forward and backward of the VAE's GEMMs: the
+    forward, then twice it for the backward (input and weight gradients)
+    less the first layer's input gradient, which nothing needs."""
+    dims = [(m.rna_features, m.encoder_dims[0]), *zip(m.encoder_dims, m.encoder_dims[1:]),
+            (m.encoder_dims[-1], m.z_dim), (m.encoder_dims[-1], m.z_dim),
+            (m.z_dim, m.decoder_dims[0]), *zip(m.decoder_dims, m.decoder_dims[1:]),
+            (m.decoder_dims[-1], m.rna_features)]
+    fwd = 2 * batch * sum(a * b for a, b in dims)
+    return 3 * fwd - 2 * batch * m.rna_features * m.encoder_dims[0]
+
+
+def vae_k3_bit_equal(tr, st, x, mask):
+    """One full-width step's gradients applied through K3 and through its
+    plain version, each from clones of one state, at the step's rate and bias
+    corrections: parameters and moments bit-equal."""
+    from rnagan_tpu_torch.kernels.fused_adam import adam_update_plain, fused_adam
+    from rnagan_tpu_torch.losses.vae import masked_beta_vae_loss
+    from rnagan_tpu_torch.optim.adam import bias_corrections
+
+    model, rule = st.model.train(), st.opt.rule
+    gen = torch.Generator(device=x.device).manual_seed(SEED)
+    out, z_mean, z_logvar = model(x, gen)
+    loss = masked_beta_vae_loss(x, out, z_mean, z_logvar, mask, tr.cfg.model.beta)["total_loss"]
+    params = [p.detach() for p in model.parameters()]
+    grads = list(torch.autograd.grad(loss, list(model.parameters())))
+    del out, z_mean, z_logvar, loss
+    c1, c2 = bias_corrections(rule.count + 1, rule.b1, rule.b2)
+    hp = dict(lr=st.opt.lr(), b1=rule.b1, b2=rule.b2, eps=rule.eps)
+    a = [[t.clone() for t in ts] for ts in (params, rule.mu, rule.nu)]
+    before = fused_adam.launches
+    fused_adam(a[0], grads, a[1], a[2], c1=c1, c2=c2, **hp)
+    check(fused_adam.launches == before + 1, "K3 at the VAE's shapes: one launch for 26 tensors")
+    b = [[t.clone() for t in ts] for ts in (params, rule.mu, rule.nu)]
+    adam_update_plain(b[0], grads, b[1], b[2], c1, c2, **hp)
+    torch.cuda.synchronize()
+    worst = {name: max(ulps(u, v) for u, v in zip(xs, ys))
+             for name, xs, ys in zip(("p", "mu", "nu"), a, b)}
+    moved = sum(not torch.equal(u, v) for u, v in zip(a[0], params))
+    check(max(worst.values()) == 0, f"K3 at the VAE's shapes differs from its plain version: {worst} ulp")
+    check(moved == len(params), f"K3 at the VAE's shapes moved {moved} of {len(params)} tensors")
+    err = max(float((u - v).abs().max()) for xs, ys in zip(a, b) for u, v in zip(xs, ys))
+    return {"ulps": worst, "max_abs_err": err, "tensors": len(params),
+            "params": sum(p.numel() for p in params), "lr": hp["lr"]}
+
+
+def vae_training(dev, gen):
+    """``VAEConfig()`` at full width (19198 -> 6000 -> 4000 -> 2048, z 2048,
+    float32, batch 128, Adam through K3 at the warmup+cosine rates).
+
+    The main path: ``fit`` for one epoch on ``VAE_ROWS`` random rows into a
+    temporary directory, the K3 counter set to 0 before and read after (one
+    launch a train step, none in validation); the best ``.pt`` reloaded
+    strictly into a fresh ``BetaVAE`` and handed to a ``GANTrainer`` through
+    ``GANConfig(vae_checkpoint=...)`` for one step at batch 8. Then, on a
+    state of its own: 10 steps after 3 of warm-up (CUDA events, one K3 launch
+    each, none in an eval step), the forward and backward alone, peak memory,
+    K3 against its plain version on one step's gradients, and K3's times at
+    the VAE's 26 tensors (``k3_timings``)."""
+    import tempfile
+
+    from rnagan_tpu_torch import convert
+    from rnagan_tpu_torch.core.config import GANConfig, VAEConfig
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.losses.vae import masked_beta_vae_loss
+    from rnagan_tpu_torch.models.betavae import BetaVAE
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+    from rnagan_tpu_torch.train.vae_trainer import VAETrainer
+
+    cfg = VAEConfig(num_epochs=1)
+    m, feats = cfg.model, cfg.model.rna_features
+    tr = VAETrainer(cfg, device=dev)
+    train = torch.randn(VAE_ROWS[0], feats, generator=gen, device=dev)
+    val = torch.randn(VAE_ROWS[1], feats, generator=gen, device=dev)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        fused_adam.launches = 0
+        t0 = time.perf_counter()
+        best, res = tr.fit(train, val, save_dir=tmp)
+        torch.cuda.synchronize()
+        out["fit_s"] = time.perf_counter() - t0
+        launches = fused_adam.launches
+        steps = VAE_ROWS[0] // cfg.batch_size
+        print(f"VAE training path: fit, 1 epoch ({steps} steps + {VAE_ROWS[1] // cfg.batch_size} validation "
+              f"batches) in {out['fit_s']:.3f} s; K3 launches {launches}")
+        check(launches == steps, f"VAE fit launched K3 {launches} times for {steps} train steps")
+        losses = [*res["history"]["train"], *res["history"]["val"]]
+        check(all(math.isfinite(v) for ls in losses for v in ls.values()), f"VAE losses not finite: {res}")
+        val_means = res["history"]["val"][0]
+        check(val_means["total_loss"] == val_means["reconstruction_loss"], "VAE validation total != recons")
+        check(res["best_epoch"] == 0 and best.step == steps, f"VAE best epoch {res['best_epoch']}")
+        path = os.path.join(tmp, "model_dict_best.pt")
+        sd = convert.load_betavae_state_dict(path)
+        fresh = BetaVAE(m)
+        fresh.load_state_dict(sd, strict=True)
+        check(all(torch.equal(sd[k], v.cpu()) for k, v in best.model.state_dict().items()),
+              "the best .pt is not the best state")
+        gcfg = GANConfig(vae_checkpoint=path)
+        gtr = GANTrainer(gcfg, device=dev)
+        check(all(torch.equal(v, sd[k].to(dev)) for k, v in gtr.vae.state_dict().items()),
+              "GANTrainer's frozen VAE is not the .pt")
+        met = gtr.train_step(gtr.init_state(), random_batch(gen, gcfg.batch_size, gcfg, dev))[1]
+        gan_metrics = {k: float(v) for k, v in met.items()}  # the GAN state is freed here
+        check(all(math.isfinite(v) for v in gan_metrics.values()), f"GAN step on the trained VAE: {gan_metrics}")
+        out.update(main_path_launches=launches, history=res["history"], handoff_gan_metrics=gan_metrics)
+        del best, gtr, fresh, sd
+    del train, val
+
+    gc.collect()
+    torch.cuda.synchronize()
+    baseline = torch.cuda.memory_allocated()  # what earlier phases still hold
+    st = tr.init_state()
+    x = torch.randn(cfg.batch_size, feats, generator=gen, device=dev)
+    mask = torch.ones(cfg.batch_size, device=dev)
+    for _ in range(3):  # the first at the warmup's lr 0
+        tr.train_step(st, x, mask)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = fused_adam.launches
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        _, last = tr.train_step(st, x, mask)
+    end.record()
+    end.synchronize()
+    out["step_ms_b128"] = start.elapsed_time(end) / 10
+    # the training state's own peak: p, g, mu, nu and the step's activations
+    out["peak_mem_gib_steps"] = (torch.cuda.max_memory_allocated() - baseline) / 2**30
+    check(fused_adam.launches - before == 10, f"10 VAE steps launched K3 {fused_adam.launches - before} times")
+    check(all(math.isfinite(float(v)) for v in last.values()), f"VAE step losses {last}")
+    before = fused_adam.launches
+    eval_losses, _ = tr.eval_step(st, x, mask, torch.Generator(device=dev).manual_seed(1))
+    check(fused_adam.launches == before, "an eval step launched K3")
+    check(float(eval_losses["total_loss"]) == float(eval_losses["reconstruction_loss"]), "VAE eval total")
+
+    def fwd_bwd():
+        out_, zm, zl = st.model.train()(x, torch.Generator(device=dev).manual_seed(2))
+        loss = masked_beta_vae_loss(x, out_, zm, zl, mask, m.beta)["total_loss"]
+        torch.autograd.grad(loss, list(st.model.parameters()))
+
+    flops = vae_fwd_bwd_flops(m, cfg.batch_size)
+    out["fwd_bwd_ms"] = time_ms(fwd_bwd, iters=5, warmup=1)
+    out["fwd_bwd_gflop"] = flops / 1e9
+    out["fwd_bwd_tflop_per_s"] = flops / out["fwd_bwd_ms"] / 1e9
+    out["profile_b128"] = profile_training(lambda: tr.train_step(st, x, mask))
+    out["k3_vs_plain"] = vae_k3_bit_equal(tr, st, x, mask)
+    shapes = [tuple(p.shape) for p in st.model.parameters()]
+    del st
+    torch.cuda.empty_cache()
+    out["k3"] = k3_timings({"VAE": shapes}, dev, gen)["VAE"]
+    out["k3"]["share_of_step"] = out["k3"]["device_ms"] / out["step_ms_b128"]
+    print(f"VAE training: step {out['step_ms_b128']:.3f} ms at batch 128 (forward+backward "
+          f"{out['fwd_bwd_ms']:.3f} ms, {out['fwd_bwd_tflop_per_s']:.2f} TFLOP/s), K3 device "
+          f"{out['k3']['device_ms']:.4f} ms against its {out['k3']['bound_ms']:.4f} ms bound, "
+          f"torch.optim.Adam(fused=True) {out['k3']['library_ms']:.4f} ms; peak {out['peak_mem_gib_steps']:.2f} GiB")
+    return out
 
 
 def small_config_matches_cpu(dev):
@@ -1021,20 +1274,26 @@ def main():
 
     # ---- phase 5: training checks, float32, TF32 off, cuDNN deterministic
     train_check = train_kernel_vs_plain(dev, gen, vae_sd)
-    train_small = train_small_matches_cpu(dev, gen)
-    print(f"full-width f32 step, K3 vs plain Adam: {train_check}; small config step card vs CPU: "
-          f"{train_small}")
+    train_small = {arch: train_small_matches_cpu(dev, gen, arch) for arch in ("dcgan", "dcgan_up", "condgan")}
+    vae_small = vae_small_matches_cpu(dev)
+    print(f"full-width f32 step, K3 vs plain Adam: {train_check}; small config steps card vs CPU: "
+          f"{train_small}; small VAE steps card vs CPU: {vae_small}")
 
     # ---- phase 6: the training path, GANConfig() (bfloat16), cuDNN as PyTorch defaults it
     torch.backends.cudnn.deterministic = False
     trainer, train_state, train_batches, training = train_main_path(dev, gen, vae_sd)
     training["stages_b8"] = training_stage_ms(trainer, train_state, train_batches[0])
-    training["profile_b8"] = profile_training(trainer, train_state, train_batches[0])
+    training["profile_b8"] = profile_training(lambda: trainer.train_step(train_state, train_batches[0]))
     del trainer, train_state, train_batches
     training.update(train_step_ms_b64(dev, gen, vae_sd))
     print("training: " + json.dumps(training))
 
-    # ---- phase 7: timings (serving as in its first measurement: cuDNN deterministic)
+    # ---- phase 7: the VAE training path, VAEConfig() (float32, TF32 off), and the handoff to the GAN
+    torch.cuda.empty_cache()
+    vae_train = vae_training(dev, gen)
+    print(f"VAE training on {smi}: " + json.dumps({k: v for k, v in vae_train.items() if k != "history"}))
+
+    # ---- phase 8: timings (serving as in its first measurement: cuDNN deterministic)
     torch.backends.cudnn.deterministic = True
     torch.cuda.reset_peak_memory_stats()
     k3 = k3_timings(shapes, dev, gen)
@@ -1075,11 +1334,16 @@ def main():
          "plain_ms": time_ms(lambda: tanh_to_uint8_plain(x), iters=20),
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": time_ms(k2_library, iters=20)},
         {"name": "fused_adam", "route": "cuda", "source": "rnagan_tpu_torch/csrc/fused_adam.cu",
-         "replaces": "rnagan_tpu/ops/fused_adam.py:66", "launches": training["launches"]["fused_adam"],
-         "max_abs_err": k3_err,
-         **{key: k3["G"][key] + k3["D"][key]  # one training step: G's launch and D's
+         "replaces": "rnagan_tpu/ops/fused_adam.py:66",
+         "launches": training["launches"]["fused_adam"] + vae_train["main_path_launches"],
+         "max_abs_err": max(k3_err, vae_train["k3_vs_plain"]["max_abs_err"]),
+         **{key: k3["G"][key] + k3["D"][key]  # one GAN training step: G's launch and D's
             for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
-         "bound_by": k3["G"]["bound_by"]},
+         "bound_by": k3["G"]["bound_by"],
+         # one VAE training step: one launch over its 26 tensors
+         **{f"vae_{key}": vae_train["k3"][key]
+            for key in ("params", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+         "vae_launches": vae_train["main_path_launches"]},
         {"name": "int8_matmul", "route": "cuda", "source": "rnagan_tpu_torch/csrc/quant_matmul.cu",
          "replaces": "rnagan_tpu/ops/quant_matmul.py:48", "launches": quantized["launches"]["int8_matmul"],
          "max_abs_err": next(iter(k4_errs.values()))["max_abs_err"],  # the head's shape
@@ -1146,7 +1410,8 @@ def main():
                "main_path_s": main_s, "kernel_vs_plain_path": path_diff, "small_vs_cpu": small,
                "serving_b128": serving, "peak_mem_gib_timings": peak_gib,
                "training_f32_k3_vs_plain": train_check, "training_small_vs_cpu": train_small,
-               "training": training, "fused_adam_by_model": k3,
+               "training": training, "fused_adam_by_model": k3, "vae_training": vae_train,
+               "vae_small_vs_cpu": vae_small,
                "k4_check": k4_errs, "k4_bytes": k4_bytes, "quantized_head_path": quantized,
                "serving_variants_vs_cpu": variants, "serving_options_b128": serving_options,
                "total_s": time.perf_counter() - t_start}

@@ -16,7 +16,10 @@ the port's state_dicts. They copy the logic of
   ``weight``/``bias``/``running_mean``/``running_var`` (+ ``num_batches_tracked``).
 
 Adam moments (optax ``mu``/``nu`` trees) move by the same layout transforms,
-in the order of the port's ``parameters()``, which is torchgan's.
+in the order of the port's ``parameters()``, which is torchgan's. A JAX
+``VAETrainState`` moves both ways in flax's state-dict form
+(``serialization.to_state_dict``): params, ``batch_stats`` and the optax
+chain of ``make_optimizer``.
 
 The loaders read:
 
@@ -60,20 +63,12 @@ def betavae_state_dict_from_jax(cfg: VAEModelConfig, variables: Dict[str, Any]) 
     reference's) torch state_dict."""
     p, s = variables["params"], variables["batch_stats"]
     sd: StateDict = {}
-
-    def put_linear(prefix, leaf):
-        sd[prefix + ".weight"] = _t(np.asarray(leaf["kernel"]).T)
-        sd[prefix + ".bias"] = _t(leaf["bias"])
-
-    for i in range(len(cfg.encoder_dims)):
-        put_linear(f"encoder.encoder.{i + 1}.0", p["encoder"][f"dense_{i}"])
-        _put_bn(sd, f"encoder.encoder.{i + 1}.1", p["encoder"][f"bn_{i}"], s["encoder"][f"bn_{i}"])
-    put_linear("z_mu", p["z_mu"])
-    put_linear("z_logvar", p["z_logvar"])
-    for i in range(len(cfg.decoder_dims)):
-        put_linear(f"decoder.{i}.0", p["decoder"][f"dense_{i}"])
-        _put_bn(sd, f"decoder.{i}.1", p["decoder"][f"bn_{i}"], s["decoder"][f"bn_{i}"])
-    put_linear(f"decoder.{len(cfg.decoder_dims)}.0", p["decoder"]["dense_out"])
+    for lin, dense, bn, bn_path in _vae_layers(cfg):
+        leaf = _get(p, dense)
+        sd[lin + ".weight"] = _t(np.asarray(leaf["kernel"]).T)
+        sd[lin + ".bias"] = _t(leaf["bias"])
+        if bn:
+            _put_bn(sd, bn, _get(p, bn_path), _get(s, bn_path))
     return sd
 
 
@@ -151,23 +146,25 @@ def param_paths(cfg: GANModelConfig, net: str):
     """``[(flax_path, kind)]`` of the ``"generator"`` or ``"discriminator"`` in
     the port's ``parameters()`` order (torchgan's, ``dcgan_torch.py:159-170``):
     per block the conv kernel, its bias or the BN scale and bias; then the
-    projection critic's ``cond_proj``."""
+    projection critic's ``cond_proj``. ``dcgan_up``'s generator blocks b >= 1
+    are ``Conv_{b-1}``'s kernel and bias, then ``_BN_b``'s scale and bias."""
     if net not in ("generator", "discriminator"):
         raise ValueError(f"net must be 'generator' or 'discriminator', not {net!r}")
     gen = net == "generator"
-    if gen and cfg.arch == "dcgan_up":
-        raise NotImplementedError("dcgan_up training state is not ported yet (ROADMAP A17)")
     r = num_repeats(cfg.out_size)
     conv, kind = ("ConvTranspose", "convt") if gen else ("Conv", "conv")
     order = []
     for b in range(r + 2):
-        order.append(((f"{conv}_{b}", "kernel"), kind))
         has_bn = cfg.batchnorm and (b <= r if gen else 1 <= b <= r)
-        if has_bn:
-            bn = f"_BN_{b if gen else b - 1}"
-            order += [((bn, "BatchNorm_0", "scale"), "vec"), ((bn, "BatchNorm_0", "bias"), "vec")]
-        else:
-            order.append(((f"{conv}_{b}", "bias"), "vec"))
+        bn = f"_BN_{b if gen else b - 1}"
+        bn_paths = [((bn, "BatchNorm_0", "scale"), "vec"), ((bn, "BatchNorm_0", "bias"), "vec")]
+        if gen and cfg.arch == "dcgan_up" and b > 0:
+            # the resize-conv blocks: a 3x3 Conv_{b-1} that always has a bias
+            order += [((f"Conv_{b - 1}", "kernel"), "conv"), ((f"Conv_{b - 1}", "bias"), "vec")]
+            order += bn_paths if has_bn else []
+            continue
+        order.append(((f"{conv}_{b}", "kernel"), kind))
+        order += bn_paths if has_bn else [((f"{conv}_{b}", "bias"), "vec")]
     if not gen and cfg.critic == "projection":
         order.append((("cond_proj", "kernel"), "dense"))
     return order
@@ -209,6 +206,110 @@ def adam_moments_from_jax(cfg: GANModelConfig, net: str, mu_tree, nu_tree):
 def adam_moments_to_jax(cfg: GANModelConfig, net: str, mus, nus):
     """``(mu_tree, nu_tree)``, float32 numpy trees in the flax layout."""
     return param_list_to_jax(cfg, net, mus), param_list_to_jax(cfg, net, nus)
+
+
+# ------------------------------------------------------ betaVAE training state
+
+
+def _vae_layers(cfg: VAEModelConfig):
+    """``(torch Linear, flax Dense path, torch BatchNorm or None, flax BN
+    path)`` of each layer of ``BetaVAE``, in module order."""
+    n_enc, n_dec = len(cfg.encoder_dims), len(cfg.decoder_dims)
+    layers = [(f"encoder.encoder.{i + 1}.0", ("encoder", f"dense_{i}"), f"encoder.encoder.{i + 1}.1",
+               ("encoder", f"bn_{i}")) for i in range(n_enc)]
+    layers += [("z_mu", ("z_mu",), None, None), ("z_logvar", ("z_logvar",), None, None)]
+    layers += [(f"decoder.{i}.0", ("decoder", f"dense_{i}"), f"decoder.{i}.1", ("decoder", f"bn_{i}"))
+               for i in range(n_dec)]
+    return layers + [(f"decoder.{n_dec}.0", ("decoder", "dense_out"), None, None)]
+
+
+def vae_param_paths(cfg: VAEModelConfig):
+    """``[(torch name, flax path, kind)]`` of ``BetaVAE``'s parameters in the
+    port's ``parameters()`` order: per layer the Dense kernel and bias, then
+    its BN scale and bias where it has one."""
+    order = []
+    for lin, dense, bn, bn_path in _vae_layers(cfg):
+        order += [(lin + ".weight", (*dense, "kernel"), "dense"), (lin + ".bias", (*dense, "bias"), "vec")]
+        if bn:
+            order += [(bn + ".weight", (*bn_path, "scale"), "vec"), (bn + ".bias", (*bn_path, "bias"), "vec")]
+    return order
+
+
+def vae_param_list_from_jax(cfg: VAEModelConfig, tree) -> list:
+    """A flax-layout tree shaped like ``BetaVAE``'s ``params`` (the parameters
+    or an optax moment of them) -> float32 tensors in ``parameters()`` order."""
+    return [_TO_TORCH[kind](np.asarray(_get(tree, path), np.float32)) for _, path, kind in vae_param_paths(cfg)]
+
+
+def vae_param_list_to_jax(cfg: VAEModelConfig, tensors) -> Dict[str, Any]:
+    """The inverse of :func:`vae_param_list_from_jax`: a float32 numpy tree."""
+    tree: Dict[str, Any] = {}
+    for (_, path, kind), t in zip(vae_param_paths(cfg), tensors, strict=True):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(_FROM_TORCH[kind](t.detach().float().cpu().numpy()))
+    return tree
+
+
+def betavae_variables_to_jax(cfg: VAEModelConfig, sd: StateDict) -> Dict[str, Any]:
+    """The inverse of :func:`betavae_state_dict_from_jax`: ``{'params',
+    'batch_stats'}`` numpy trees in the flax layout."""
+    stats: Dict[str, Any] = {}
+    for _, _, bn, bn_path in _vae_layers(cfg):
+        if bn is None:
+            continue
+        side, name = bn_path
+        stats.setdefault(side, {})[name] = {
+            "mean": sd[bn + ".running_mean"].detach().cpu().numpy().copy(),
+            "var": sd[bn + ".running_var"].detach().cpu().numpy().copy()}
+    params = vae_param_list_to_jax(cfg, [sd[name] for name, _, _ in vae_param_paths(cfg)])
+    return {"params": params, "batch_stats": stats}
+
+
+def vae_optimizer_state_from_jax(cfg, opt_tree) -> Dict[str, Any]:
+    """The optax state of the JAX ``make_optimizer(cfg)`` (``cfg`` a
+    ``VAEConfig``), in flax's state-dict form (``serialization.to_state_dict``:
+    a tuple is ``{'0': ..., '1': ...}``), -> the state of the port's
+    :class:`~rnagan_tpu_torch.optim.scheduled.ScheduledOptimizer`:
+    ``{"count", "rule_count", "mu", "nu"}``. The chain is
+    ``(ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count))`` for
+    adam and radam, ``(EmptyState(), ScaleByScheduleState(count))`` for sgd,
+    behind ``add_decayed_weights``' empty state when ``weight_decay > 0``."""
+    inner = opt_tree["1"] if cfg.weight_decay else opt_tree
+    rule = inner["0"]
+    out = {"count": int(np.asarray(inner["1"]["count"])), "rule_count": 0, "mu": [], "nu": []}
+    if "mu" in rule:
+        out.update(rule_count=int(np.asarray(rule["count"])),
+                   mu=vae_param_list_from_jax(cfg.model, rule["mu"]),
+                   nu=vae_param_list_from_jax(cfg.model, rule["nu"]))
+    return out
+
+
+def vae_optimizer_state_to_jax(cfg, state: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`vae_optimizer_state_from_jax` (numpy leaves)."""
+    rule: Dict[str, Any] = {}
+    if state["mu"]:
+        rule = {"count": np.asarray(state["rule_count"], np.int32),
+                "mu": vae_param_list_to_jax(cfg.model, state["mu"]),
+                "nu": vae_param_list_to_jax(cfg.model, state["nu"])}
+    inner = {"0": rule, "1": {"count": np.asarray(state["count"], np.int32)}}
+    return {"0": {}, "1": inner} if cfg.weight_decay else inner
+
+
+def vae_train_state_from_jax(cfg, tree) -> Dict[str, Any]:
+    """A JAX ``VAETrainState`` in flax's state-dict form -> ``{"step",
+    "model" (the ``BetaVAE`` state_dict), "optimizer"}``."""
+    return {"step": int(np.asarray(tree["step"])),
+            "model": betavae_state_dict_from_jax(cfg.model, tree),
+            "optimizer": vae_optimizer_state_from_jax(cfg, tree["opt_state"])}
+
+
+def vae_train_state_to_jax(cfg, step: int, model: StateDict, optimizer: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`vae_train_state_from_jax`: a ``VAETrainState``
+    in flax's state-dict form, for ``serialization.from_state_dict``."""
+    return {"step": np.asarray(step, np.int32), **betavae_variables_to_jax(cfg.model, model),
+            "opt_state": vae_optimizer_state_to_jax(cfg, optimizer)}
 
 
 # ------------------------------------------------------- training bundles

@@ -3,7 +3,8 @@
 Field names and defaults are the JAX package's, so a configuration moves
 between the two packages field for field. Knobs that only choose a TPU
 compute schedule with the same math (``GANModelConfig.convt_impl``,
-``remat``) and the device mesh (``GANConfig.mesh``, ROADMAP A15) are not copied.
+``remat``) and the device mesh (``GANConfig.mesh``, ``VAEConfig.mesh``,
+ROADMAP A15) are not copied.
 """
 
 from __future__ import annotations
@@ -29,10 +30,29 @@ class VAEModelConfig:
 
 
 @dataclass(frozen=True)
+class VAEConfig:
+    """betaVAE training run (reference ``configs/betavae_tissues.json`` +
+    ``betaVAE_training.py``)."""
+
+    model: VAEModelConfig = field(default_factory=VAEModelConfig)
+    lr: float = 5e-5
+    weight_decay: float = 0.0
+    optimizer: str = "adam"  # adam | sgd | radam (betaVAE_training.py:157-162)
+    batch_size: int = 128
+    num_epochs: int = 500
+    #: GradualWarmupScheduler(total_epoch=1000) wrapping CosineAnnealingLR(500),
+    #: stepped per *batch* (reference betaVAE.py:234-235, betaVAE_training.py:165-166).
+    warmup_steps: int = 1000
+    cosine_steps: int = 500
+    log_interval: int = 100
+    seed: int = 99
+
+
+@dataclass(frozen=True)
 class GANModelConfig:
     """DCGAN-family architecture (reference ``histopathology_gan.py:175-246``)."""
 
-    #: dcgan | dcgan_up | condgan | sagan | biggan (only dcgan is ported yet).
+    #: dcgan | dcgan_up | condgan | sagan | biggan (sagan and biggan are not ported yet).
     arch: str = "dcgan"
     encoding_dims: int = 2048
     out_size: int = 256
@@ -85,8 +105,58 @@ class GANConfig:
     seed: int = 99
 
 
+@dataclass(frozen=True)
+class DataConfig:
+    """Data-layer knobs shared by the training CLIs (the reference's JSON keys)."""
+
+    path_csv: Tuple[str, ...] = ()
+    patch_data_path: Tuple[str, ...] = ()
+    img_size: int = 256
+    max_patch_per_wsi: int = 400
+    rna_features: int = 19198
+    bag_size: int = 40
+    n_workers: int = 4
+    quick: bool = False
+    normalizer: str = "standard"  # standard | minmax (read_data.py:488-495)
+
+
 def load_reference_json(path: str) -> Dict[str, Any]:
     """Load one of the reference's JSON config files verbatim
     (``configs/betavae_tissues.json``, ``configs/gan_run*.json``)."""
     with open(path) as f:
         return json.load(f)
+
+
+def vae_config_from_json(raw: Dict[str, Any]) -> VAEConfig:
+    """A :class:`VAEConfig` from a reference-format JSON dict (the reads at
+    reference ``betaVAE_training.py:53-59``; the architecture keys are
+    extensions, absent from the reference's files)."""
+    model = VAEModelConfig(
+        rna_features=int(raw.get("rna_features", 19198)),
+        beta=float(raw.get("beta", 0.0005)),
+        z_dim=int(raw.get("z_dim", 2048)),
+        encoder_dims=tuple(raw.get("encoder_dims", (6000, 4000, 2048))),
+        decoder_dims=tuple(raw.get("decoder_dims", (4000, 6000))),
+    )
+    return VAEConfig(
+        model=model,
+        lr=float(raw.get("lr", 5e-5)),
+        weight_decay=float(raw.get("weights_decay", 0.0)),
+        optimizer=str(raw.get("optimizer", "adam")),
+        batch_size=int(raw.get("batch_size", 128)),
+        num_epochs=int(raw.get("num_epochs", 500)),
+        log_interval=int(raw.get("log_interval", 100)),
+    )
+
+
+def data_config_from_json(raw: Dict[str, Any], num_patches: Optional[int] = None) -> DataConfig:
+    return DataConfig(
+        path_csv=tuple(raw.get("path_csv", ())),
+        patch_data_path=tuple(raw.get("patch_data_path", ())),
+        img_size=int(raw.get("img_size", 256)),
+        max_patch_per_wsi=int(num_patches if num_patches is not None else raw.get("max_patch_per_wsi", 400)),
+        rna_features=int(raw.get("rna_features", 19198)),
+        bag_size=int(raw.get("bag_size", 40)),
+        n_workers=int(raw.get("n_workers", 4)),
+        quick=bool(raw.get("quick", False)),
+    )

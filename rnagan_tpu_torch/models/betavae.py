@@ -9,8 +9,20 @@ Module tree and state_dict keys are the reference torch model's
 * ``decoder.{i}`` = (Linear, BatchNorm1d, LeakyReLU) per decoder width, then
   ``decoder.{n}`` = (Linear, Tanh).
 
-So reference ``.pt`` checkpoints load unchanged. BatchNorm eps is 1e-5 and
-torch momentum 0.1 (flax momentum 0.9); LeakyReLU slope 0.01.
+So reference ``.pt`` checkpoints load unchanged. LeakyReLU slope 0.01.
+
+Train mode has the JAX model's semantics (flax ``nn.BatchNorm(momentum=0.9,
+use_fast_variance=True)`` and ``nn.Dropout``):
+
+* BatchNorm normalizes with the biased batch statistics, reduced in float32
+  (``models/batchnorm.py``), and writes the new running statistics
+  (``0.9 * old + 0.1 * batch``, the variance the biased one) into the
+  ``BatchNorm1d`` buffers in place;
+* dropout is :func:`dropout`: ``where(keep, x / keep_prob, 0)``, its mask
+  drawn from a given ``torch.Generator`` or given outright.
+
+Eval mode normalizes with the running statistics (``F.batch_norm``). The
+forward reparametrizes in both modes, as the reference does.
 
 Parameters stay float32; ``cfg.compute_dtype="bfloat16"`` runs the layers in
 bfloat16 on cast copies of the weights and returns float32 latents, as the
@@ -28,6 +40,38 @@ from torch import nn
 
 from rnagan_tpu_torch.core.config import VAEModelConfig
 from rnagan_tpu_torch.core.device import compute_dtype
+from rnagan_tpu_torch.models.batchnorm import batch_norm
+
+
+def dropout(x: torch.Tensor, rate: float, keep: Optional[torch.Tensor] = None,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax ``nn.Dropout``'s arithmetic: ``where(keep, x / keep_prob, 0)``
+    with ``keep_prob = 1 - rate`` in ``x``'s dtype, divided as a tensor on
+    ``x``'s device (so the division is IEEE on the card too; ``torch.full``
+    fills it there, where ``torch.tensor`` would copy it from the host and
+    wait for the stream). ``keep`` (bool, ``x``'s shape) is the mask; without
+    it, ``keep = U[0, 1) < keep_prob`` from ``generator``."""
+    if rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    if keep is None:
+        if generator is None:
+            raise ValueError("dropout needs a keep mask or a torch.Generator to draw one")
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    scale = torch.full((), keep_prob, dtype=x.dtype, device=x.device)
+    return torch.where(keep.to(x.device, torch.bool), x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class Dropout(nn.Module):
+    """The encoder's input dropout (no parameters: ``encoder.encoder.0``)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return dropout(x, self.rate, keep, generator) if self.training else x
 
 
 def _block(fan_in: int, width: int, slope: float, device) -> nn.Sequential:
@@ -39,19 +83,21 @@ def _block(fan_in: int, width: int, slope: float, device) -> nn.Sequential:
 def _apply_block(block: nn.Sequential, x: torch.Tensor, dt: torch.dtype, slope: float) -> torch.Tensor:
     lin, bn = block[0], block[1]
     x = F.linear(x, lin.weight.to(dt), lin.bias.to(dt))
-    if bn.training and dt != torch.float32:
-        raise NotImplementedError("bfloat16 BatchNorm training waits for VAE training (ROADMAP A9)")
-    # .to() of a float32 buffer at float32 is the buffer itself, so training
-    # mode updates the running statistics in place
-    x = F.batch_norm(x, bn.running_mean.to(dt), bn.running_var.to(dt), bn.weight.to(dt),
-                     bn.bias.to(dt), bn.training, bn.momentum, bn.eps)
+    if bn.training:
+        x, mean, var = batch_norm(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, train=True)
+        with torch.no_grad():
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var)
+    else:
+        x = F.batch_norm(x, bn.running_mean.to(dt), bn.running_var.to(dt), bn.weight.to(dt),
+                         bn.bias.to(dt), False, bn.momentum, bn.eps)
     return F.leaky_relu(x, slope)
 
 
 class RNAEncoder(nn.Module):
     def __init__(self, cfg: VAEModelConfig, device=None):
         super().__init__()
-        layers = [nn.Dropout(cfg.dropout_rate)]
+        layers = [Dropout(cfg.dropout_rate)]
         fan_in = cfg.rna_features
         for width in cfg.encoder_dims:
             layers.append(_block(fan_in, width, cfg.leaky_slope, device))
@@ -59,8 +105,10 @@ class RNAEncoder(nn.Module):
         self.encoder = nn.Sequential(*layers)
         self.slope = cfg.leaky_slope
 
-    def forward(self, x: torch.Tensor, dt: torch.dtype = torch.float32) -> torch.Tensor:
-        x = self.encoder[0](x.to(dt))
+    def forward(self, x: torch.Tensor, dt: torch.dtype = torch.float32,
+                keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.encoder[0](x.to(dt), keep, generator)
         for block in self.encoder[1:]:
             x = _apply_block(block, x, dt, self.slope)
         return x
@@ -102,10 +150,13 @@ class BetaVAE(nn.Module):
     def _dt(self) -> torch.dtype:
         return compute_dtype(self.cfg.compute_dtype)
 
-    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Returns ``(z_mean, z_logvar, x_encoded)`` (reference ``betaVAE.py:102-107``)."""
+    def encode(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Returns ``(z_mean, z_logvar, x_encoded)`` (reference ``betaVAE.py:102-107``).
+        In train mode the input dropout takes ``keep`` or draws it from ``generator``."""
         dt = self._dt
-        x_encoded = self.encoder(x, dt)
+        x_encoded = self.encoder(x, dt, keep, generator)
         z_mean = F.linear(x_encoded, self.z_mu.weight.to(dt), self.z_mu.bias.to(dt)).float()
         z_logvar = F.linear(x_encoded, self.z_logvar.weight.to(dt), self.z_logvar.bias.to(dt)).float()
         return z_mean, z_logvar, x_encoded
@@ -120,15 +171,22 @@ class BetaVAE(nn.Module):
 
     @staticmethod
     def reparametrize(z_mean: torch.Tensor, z_logvar: torch.Tensor,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``z_mean + eps * exp(0.5 * z_logvar)``, ``eps`` given or drawn
+        standard normal from ``generator``."""
         std = torch.exp(0.5 * z_logvar)
-        eps = torch.randn(std.shape, generator=generator, device=std.device, dtype=std.dtype)
-        return z_mean + eps * std
+        if eps is None:
+            eps = torch.randn(std.shape, generator=generator, device=std.device, dtype=std.dtype)
+        return z_mean + eps.to(std.device, std.dtype) * std
 
-    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
-        """The reference reparametrizes in eval mode too (``betaVAE.py:109-115``)."""
-        z_mean, z_logvar, _ = self.encode(x)
-        z = self.reparametrize(z_mean, z_logvar, generator)
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None, *,
+                keep: Optional[torch.Tensor] = None, eps: Optional[torch.Tensor] = None):
+        """``(x_recons, z_mean, z_logvar)``. The reference reparametrizes in
+        eval mode too (``betaVAE.py:109-115``). ``generator`` draws what is not
+        given: the dropout mask (train mode) first, then ``eps``."""
+        z_mean, z_logvar, _ = self.encode(x, keep, generator)
+        z = self.reparametrize(z_mean, z_logvar, generator, eps)
         return self.decode(z), z_mean, z_logvar
 
     def sample(self, z: torch.Tensor, interpolation: Optional[torch.Tensor] = None,

@@ -39,16 +39,18 @@ class Adam:
         self.nu = [torch.zeros_like(p, dtype=torch.float32) for p in params]
         self.count = 0
 
-    def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor]) -> None:
-        """One update of ``params`` in place (one K3 launch on the card). A
-        gradient whose strides differ from its contiguous parameter's (the
+    def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+             lr: Optional[float] = None) -> None:
+        """One update of ``params`` in place (one K3 launch on the card), at
+        ``lr`` when given (a schedule's rate for this step) or at ``self.lr``.
+        A gradient whose strides differ from its contiguous parameter's (the
         CPU's convolution backward may return one in channels-last order) is
         made contiguous first, so element i of each buffer is one weight."""
         c1, c2 = bias_corrections(self.count + 1, self.b1, self.b2)
         with torch.no_grad():
             fused_adam([p.detach() for p in params], [g.contiguous() for g in grads],
-                       self.mu, self.nu,
-                       c1=c1, c2=c2, lr=self.lr, b1=self.b1, b2=self.b2, eps=self.eps)
+                       self.mu, self.nu, c1=c1, c2=c2, lr=self.lr if lr is None else float(lr),
+                       b1=self.b1, b2=self.b2, eps=self.eps)
         self.count += 1
 
     def state_dict(self) -> Dict[str, Any]:

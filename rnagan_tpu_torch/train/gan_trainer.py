@@ -19,6 +19,10 @@ One :meth:`GANTrainer.train_step` is the JAX package's ``_train_step_impl``
   of G. With ``n_critic > 1`` only every ``n_critic``-th step runs it;
 * the EMA of G's weights, on steps that updated G.
 
+G and D come from the model registry: ``dcgan``, ``dcgan_up`` (the
+resize-conv generator with the plain discriminator) and ``condgan``, whose
+batch ``labels`` go into G and D at every stage, the GP's included.
+
 Every Adam step is one launch of the K3 kernel (``optim/adam.py``); every
 stage's noise is one launch of the K1 kernel (``kernels/infusion.py``), its
 uniforms drawn from a seed of ``core/rng.py`` or given in ``draws``. The
@@ -53,7 +57,7 @@ from rnagan_tpu_torch.losses.rna_infusion import (encode_z_mean, infused_noise,
                                                   infused_noise_population, z_population_stats)
 from rnagan_tpu_torch.models.batchnorm import Stats
 from rnagan_tpu_torch.models.betavae import BetaVAE
-from rnagan_tpu_torch.models.dcgan import DCGANDiscriminator, DCGANGenerator
+from rnagan_tpu_torch.models.dcgan import DCGANDiscriminator, make_discriminator, make_generator
 from rnagan_tpu_torch.optim.adam import Adam
 from rnagan_tpu_torch.utils.images import save_image_grid
 
@@ -71,7 +75,7 @@ class GANTrainState:
     parameters in ``parameters()`` order, or None when it is off."""
 
     step: int
-    generator: DCGANGenerator
+    generator: torch.nn.Module
     discriminator: DCGANDiscriminator
     g_stats: Stats
     d_stats: Stats
@@ -99,11 +103,6 @@ class GANTrainer:
 
     def __init__(self, cfg: GANConfig, vae_state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  device="cuda", image_dir: Optional[str] = None, model_dir: Optional[str] = None):
-        if cfg.model.arch in ("dcgan_up", "condgan"):
-            # the models and their serving are ported; the step is not (the
-            # label stream of condgan, gan_trainer.py:185-187,412)
-            raise NotImplementedError(f"training arch={cfg.model.arch!r} is not ported yet "
-                                      "(ROADMAP A17); GANTrainer trains 'dcgan'")
         if cfg.loss_type not in gan_losses.DISCRIMINATOR_LOSSES:
             raise ValueError(f"unknown loss_type {cfg.loss_type}")
         if cfg.model.critic == "projection" and cfg.loss_type != "wganvae":
@@ -133,8 +132,8 @@ class GANTrainer:
     # ------------------------------------------------------------------ state
     def init_state(self) -> GANTrainState:
         cfg, dev = self.cfg, self.device
-        g = DCGANGenerator(cfg.model, seed=self.seeds.seed("init", stage=0), device=dev)
-        d = DCGANDiscriminator(cfg.model, seed=self.seeds.seed("init", stage=1), device=dev)
+        g = make_generator(cfg.model, seed=self.seeds.seed("init", stage=0), device=dev)
+        d = make_discriminator(cfg.model, seed=self.seeds.seed("init", stage=1), device=dev)
         betas = dict(b1=cfg.adam_b1, b2=cfg.adam_b2, mu_dtype=self._mu_dtype)
         return GANTrainState(
             step=0, generator=g, discriminator=d,
@@ -172,11 +171,21 @@ class GANTrainer:
         gen = self.seeds.generator("train", step, _STAGES["eps"], self.device)
         return torch.rand(shape, generator=gen, device=self.device)
 
+    def _labels(self, batch) -> Optional[torch.Tensor]:
+        """``condgan``'s class labels, the batch's ``"labels"`` (JAX's
+        ``_labels``, ``gan_trainer.py:184-189``); None for the other archs."""
+        if self.cfg.model.arch != "condgan":
+            return None
+        if batch.get("labels") is None:
+            raise ValueError("arch='condgan' trains on batches with 'labels'")
+        return torch.as_tensor(batch["labels"]).to(self.device, torch.long)
+
     # ------------------------------------------------------------- train step
     def train_step(self, state: GANTrainState, batch: Dict[str, Any],
                    draws: Optional[Dict[str, Any]] = None):
         """One step on ``batch`` (``"image"`` (N, H, W, C) uint8 or float in
-        [-1, 1]; ``"rna_data"`` (N, F) for wganvae). ``draws`` optionally
+        [-1, 1]; ``"rna_data"`` (N, F) for wganvae; ``"labels"`` (N,) int for
+        condgan, into G and D at every stage, the GP's included). ``draws`` optionally
         gives the stage noise ``u_d``, ``u_gp``, ``u_g`` (uniforms in
         [-noise_range, noise_range] for wganvae, else normals) and ``eps``.
         Returns ``(state, metrics)``, the state updated in place; the metrics
@@ -195,6 +204,7 @@ class GANTrainer:
                 z_mean = encode_z_mean(
                     self.vae, torch.as_tensor(batch["rna_data"], dtype=torch.float32).to(dev))
         cond = z_mean if cfg.model.critic == "projection" else None
+        labels = self._labels(batch)
         wgan_family = cfg.loss_type in ("wgan", "wganvae")
         fused_gp = wgan_family and not cfg.compat_reference_gp
         metrics: Dict[str, torch.Tensor] = {}
@@ -205,15 +215,15 @@ class GANTrainer:
         # ---------------- D stage (critic loss, fused with the GP by default)
         with torch.no_grad():
             fake, state.g_stats = G.forward_stats(self._noise(step, "d", n, z_mean, draws),
-                                                  state.g_stats, True)
-        dx, s1 = D(real, state.d_stats, True, cond)
-        dgz, s2 = D(fake, s1, True, cond)
+                                                  state.g_stats, True, labels=labels)
+        dx, s1 = D(real, state.d_stats, True, cond, labels)
+        dgz, s2 = D(fake, s1, True, cond, labels)
         loss = gan_losses.DISCRIMINATOR_LOSSES[cfg.loss_type](dx, dgz)
         metrics.update(d_loss=loss.detach(), dx=dx.detach().mean(), dgz=dgz.detach().mean())
         if fused_gp:
             eps = self._eps(step, (n, 1, 1, 1), draws)
             interp = eps * real + (1.0 - eps) * fake
-            gp = gan_losses.gradient_penalty(lambda x: D(x, s2, True, cond)[0], interp,
+            gp = gan_losses.gradient_penalty(lambda x: D(x, s2, True, cond, labels)[0], interp,
                                              per_sample=True)
             metrics["gp"] = gp.detach()
             loss = loss + cfg.gp_lambda * gp
@@ -224,13 +234,13 @@ class GANTrainer:
         if wgan_family and not fused_gp:
             with torch.no_grad():
                 fake_gp, state.g_stats = G.forward_stats(
-                    self._noise(step, "gp", n, z_mean, draws), state.g_stats, True)
+                    self._noise(step, "gp", n, z_mean, draws), state.g_stats, True, labels=labels)
             eps = self._eps(step, (), draws)
             interp = eps * real + (1.0 - eps) * fake_gp
             kept: List[Stats] = []
 
             def critic(x):
-                out, s = D(x, state.d_stats, True, cond)
+                out, s = D(x, state.d_stats, True, cond, labels)
                 kept.append(s)
                 return out
 
@@ -242,8 +252,9 @@ class GANTrainer:
 
         # ---------------- G stage
         if cfg.n_critic <= 1 or step % cfg.n_critic == cfg.n_critic - 1:
-            fake, gs = G.forward_stats(self._noise(step, "g", n, z_mean, draws), state.g_stats, True)
-            dgz, ds = D(fake, state.d_stats, True, cond)
+            fake, gs = G.forward_stats(self._noise(step, "g", n, z_mean, draws), state.g_stats, True,
+                                       labels=labels)
+            dgz, ds = D(fake, state.d_stats, True, cond, labels)
             g_loss = gan_losses.GENERATOR_LOSSES[cfg.loss_type](dgz)
             state.g_opt.step(g_params, torch.autograd.grad(g_loss, g_params))
             state.g_stats, state.d_stats = gs, ds
@@ -267,6 +278,8 @@ class GANTrainer:
         patients' z_mean ((B, F) rows, B = n or 1), standardized over the batch,
         or with ``z_pop = (mean, std)`` by population statistics; both through
         K1 with Philox ``seed``. Without ``gene`` it is standard normal.
+        ``condgan`` draws the labels uniformly from its ``num_classes`` with a
+        generator of ``seed``.
         ``use_ema=None`` picks the EMA generator whenever the state has one."""
         if use_ema is None:
             use_ema = state.g_ema is not None
@@ -286,8 +299,12 @@ class GANTrainer:
         else:
             gen = self.seeds.generator("sample", seed, device=dev)
             noise = torch.randn((n, self.cfg.model.encoding_dims), generator=gen, device=dev)
+        labels = None
+        if self.cfg.model.arch == "condgan":
+            gen = self.seeds.generator("sample_labels", seed, device=dev)
+            labels = torch.randint(0, self.cfg.model.num_classes, (n,), generator=gen, device=dev)
         imgs, _ = state.generator.forward_stats(noise, state.g_stats, False,
-                                                params=state.g_ema if use_ema else None)
+                                                params=state.g_ema if use_ema else None, labels=labels)
         return imgs.permute(0, 2, 3, 1)
 
     def set_z_population(self, rna_matrix) -> None:

@@ -1,4 +1,4 @@
-"""The port's package rules: no JAX, CUDA by default, no library optimizer."""
+"""The port's package rules: no JAX or pandas, CUDA by default, no library optimizer."""
 
 import ast
 import subprocess
@@ -10,12 +10,14 @@ import pytest
 import torch
 
 from rnagan_tpu.eval import generate as jgen
-from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig, VAEModelConfig
+from rnagan_tpu_torch.cli import betavae_train
+from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig, VAEConfig, VAEModelConfig
 from rnagan_tpu_torch.eval import generate as tgen
 from rnagan_tpu_torch.eval.serving import make_serving_fn
 from rnagan_tpu_torch.models.betavae import BetaVAE
 from rnagan_tpu_torch.models.dcgan import DCGANGenerator
 from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+from rnagan_tpu_torch.train.vae_trainer import VAETrainer
 
 REPO = Path(__file__).resolve().parent.parent
 SMALL = GANConfig(
@@ -28,20 +30,47 @@ import rnagan_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(rnagan_tpu_torch.__path__, "rnagan_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax") or m.split(".")[0] == "rnagan_tpu")
-print(len(names))
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "pandas", "rnagan_tpu"))
+print(" ".join(names))
 assert not bad, bad
 """
+
+#: the same, with the forbidden packages made unimportable first: a module
+#: that imports one of them (even lazily, at import time) fails here
+_IMPORT_ALL_BLOCKED = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "pandas", "rnagan_tpu"):
+    sys.modules[name] = None
+""" + _IMPORT_ALL
+
+#: subpackages of the port and a module each that must be among the imported
+SUBPACKAGES = {"core": "checkpoint", "data": "rna", "cli": "betavae_train", "eval": "interpolate",
+               "losses": "vae", "models": "betavae", "optim": "scheduled", "train": "vae_trainer",
+               "kernels": "fused_adam", "utils": "images"}
+
+
+def _import_all(code):
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    names = set(res.stdout.split())
+    assert len(names) >= 40  # every module of slices 1 to 5
+    for sub, module in SUBPACKAGES.items():
+        assert f"rnagan_tpu_torch.{sub}.{module}" in names, sub
 
 
 def test_port_imports_no_jax():
     """In a fresh interpreter (this one has JAX loaded by the conftest):
-    importing every module of the port loads no jax/flax/optax/rnagan_tpu module."""
-    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
-                         text=True, timeout=120)
-    assert res.returncode == 0, res.stderr
-    assert int(res.stdout.split()[-1]) >= 26  # every module of slices 1 to 3 was imported
+    importing every module of the port loads no jax/flax/optax/pandas/
+    rnagan_tpu module."""
+    _import_all(_IMPORT_ALL)
+
+
+def test_port_imports_with_forbidden_packages_blocked():
+    """Every module of the port imports with jax, flax, optax, pandas and
+    rnagan_tpu made unimportable (``sys.modules[name] = None``)."""
+    _import_all(_IMPORT_ALL_BLOCKED)
 
 
 def test_entry_points_default_to_cuda():
@@ -55,6 +84,10 @@ def test_entry_points_default_to_cuda():
         make_serving_fn(SMALL.model, g_sd)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         GANTrainer(SMALL, vae_sd)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        VAETrainer(VAEConfig(model=SMALL.vae))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        betavae_train.main(["--config", str(REPO / "configs" / "betavae_tissues.json")])
 
 
 def test_training_path_uses_no_library_optimizer():

@@ -193,10 +193,10 @@ def test_discriminator_matches_jax(rng, batchnorm, critic, train):
 
 
 def test_discriminator_later_archs_and_projection_cond():
-    for arch in ("dcgan_up", "condgan"):  # their models are ported, their training is not
-        with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-            GANTrainer(tcfg.GANConfig(model=tcfg.GANModelConfig(**{**MODEL_KW, "arch": arch})),
-                       device="cpu")
+    for arch in ("dcgan_up", "condgan"):  # trained too (tests/test_torch_port_train_archs.py)
+        model = tcfg.GANModelConfig(**{**MODEL_KW, "arch": arch, "num_classes": 2})
+        st = GANTrainer(tcfg.GANConfig(model=model, loss_type="wgan"), device="cpu").init_state()
+        assert st.discriminator.cfg.arch == st.generator.cfg.arch == arch
     for arch in ("sagan", "biggan"):
         with pytest.raises(NotImplementedError, match="ROADMAP A13"):
             DCGANDiscriminator(tcfg.GANModelConfig(**{**MODEL_KW, "arch": arch}))
