@@ -46,7 +46,19 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    events), its forward and backward, peak memory, K3 bit-equal to its plain
    version on one step's gradients, and K3's times at the VAE's 26 tensors
    beside its bound and ``torch.optim.Adam(fused=True)``;
-8. timings with CUDA events: each kernel (through its wrapper, and replayed
+8. the data plane, FID and the JAX package's checkpoints: the tile-store
+   library built (``native/tilestore.cc``); a corpus of 4 slides x 64 tiles
+   (256x256) written by the port's ``LMDBTileWriter``, with a 19,198-gene
+   expression CSV and a reference-layout JSON config; the full-width VAE as
+   a JAX-format ``model_best.ckpt`` (``load_frozen_vae`` bit-equal to the
+   ``.pt`` route, z_mean on the card too); ``cli.gan_train.main`` for one
+   epoch (32 steps of ``GANConfig()``, FID probe on 128 images), the K1 and
+   K3 counters read around it (2 launches a step each); both bundles
+   reloaded; InceptionV3 at full width, float32 on the card against the CPU
+   and bfloat16 against float32, images/s at batch 64; the FID distance's
+   float64 eigh on the card against scipy on 256 images' statistics; and
+   ``compute_representations`` for 2 patients (one K1 launch each);
+9. timings with CUDA events: each kernel (through its wrapper, and replayed
    from a CUDA graph for its device time), its plain version and a PyTorch
    yardstick; K4 also at N = 64 and 1, K1 with ``u`` given and beside a
    graph-replayed launch of a one-element fill (the floor of any launch); the
@@ -1157,6 +1169,278 @@ def vae_training(dev, gen):
     return out
 
 
+# ------------------------------------------- data plane, FID, JAX checkpoints
+
+#: the corpus of the gan_train phase: slides, tiles a slide, tile size, genes
+DATA_SLIDES, DATA_TILES, DATA_TILE, DATA_GENES = 4, 64, 256, 19198
+#: reference-layout config keys beside path_csv and patch_data_path: none, so
+#: gan_train builds GANConfig()'s and VAEModelConfig()'s full widths
+DATA_CONFIG_KEYS = {}
+#: images of the Inception checks: card vs CPU, the timed batch, each FID set
+INCEPTION_CPU_IMAGES, INCEPTION_BATCH, FID_IMAGES = 4, 64, 256
+
+
+def write_corpus(root, rng):
+    """``DATA_SLIDES`` slide databases of ``DATA_TILES`` random uint8 tiles
+    through the port's ``LMDBTileWriter``, an expression CSV (``rna_*``
+    columns and ``wsi_file_name``) and a reference-layout JSON config."""
+    import numpy as np
+
+    from rnagan_tpu_torch.data.patches import slide_db_path
+    from rnagan_tpu_torch.data.store import LMDBTileWriter
+
+    names = [f"GTEX-S{i}.svs" for i in range(DATA_SLIDES)]
+    for name in names:
+        db = slide_db_path(root, name)
+        os.makedirs(os.path.dirname(db))
+        with LMDBTileWriter(db) as w:
+            for t, tile in enumerate(rng.randint(0, 256, (DATA_TILES, DATA_TILE, DATA_TILE, 3), dtype=np.uint8)):
+                w.put_tile(f"{name}_{t}", tile)
+    csv = os.path.join(root, "expression.csv")
+    with open(csv, "w") as f:
+        f.write(",".join([f"rna_{g}" for g in range(DATA_GENES)] + ["wsi_file_name"]) + "\n")
+        for name in names:
+            f.write(",".join(map(repr, rng.gamma(0.5, 40.0, DATA_GENES).round(3).tolist())) + f",{name}\n")
+    config = os.path.join(root, "config.json")
+    with open(config, "w") as f:
+        json.dump({"path_csv": [csv], "patch_data_path": [root], **DATA_CONFIG_KEYS}, f)
+    return config, names
+
+
+def jax_format_vae(tmp, vae_cfg, vae_sd, genes):
+    """The VAE written as a JAX ``model_best.ckpt`` (the port's msgpack
+    writer) and as a ``.pt``: ``load_frozen_vae`` of the two bit-equal, and
+    their z_mean on the card bit-equal."""
+    from rnagan_tpu_torch import convert
+    from rnagan_tpu_torch.core.checkpoint import save_bundle, save_state_dict
+    from rnagan_tpu_torch.losses.rna_infusion import encode_z_mean
+    from rnagan_tpu_torch.models.betavae import BetaVAE
+    from rnagan_tpu_torch.train.gan_trainer import load_frozen_vae
+
+    ckpt, pt = os.path.join(tmp, "model_best.ckpt"), os.path.join(tmp, "model_dict_best.pt")
+    t0 = time.perf_counter()
+    save_bundle(ckpt, convert.betavae_variables_to_jax(vae_cfg, vae_sd), {"config": "betavae"})
+    write_s = time.perf_counter() - t0
+    save_state_dict(pt, vae_sd)
+    t0 = time.perf_counter()
+    from_ckpt = load_frozen_vae(ckpt, vae_cfg)
+    read_s = time.perf_counter() - t0
+    from_pt = load_frozen_vae(pt, vae_cfg)
+    os.remove(pt)  # the phase's temporary directory holds ~5 GB of bundles at its peak
+    check(set(from_ckpt) == set(from_pt) and all(torch.equal(from_ckpt[k], v) for k, v in from_pt.items()),
+          "load_frozen_vae: the JAX bundle's state_dict differs from the .pt's")
+    z = []
+    for sd in (from_ckpt, from_pt):
+        vae = BetaVAE(vae_cfg, device=genes.device)
+        vae.load_state_dict(sd)
+        with torch.inference_mode():
+            z.append(encode_z_mean(vae.eval(), genes))
+    check(torch.equal(*z), "encode_z_mean on the card differs between the JAX bundle and the .pt")
+    print(f"JAX-format VAE: {os.path.getsize(ckpt) / 2**30:.3f} GiB bundle written in {write_s:.2f} s, "
+          f"read by load_frozen_vae in {read_s:.2f} s; bit-equal to the .pt, z_mean on the card too")
+    return ckpt, {"bundle_bytes": os.path.getsize(ckpt), "write_s": write_s, "read_s": read_s}
+
+
+def gan_train_main_path(config, vae_ckpt, tmp, dev):
+    """``cli.gan_train.main`` for one epoch on the corpus (the config's
+    models, the JAX-format VAE, an FID probe on 128 images), the K1 and K3
+    counters set to 0 just before it and read just after: 2 launches each a
+    step; the probe's fid finite."""
+    from rnagan_tpu_torch.cli import gan_train
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.kernels.infusion import infused_noise
+
+    model_dir = os.path.join(tmp, "models")
+    steps = -(-DATA_SLIDES * DATA_TILES // 8)
+    torch.cuda.synchronize()
+    fused_adam.launches = infused_noise.launches = 0
+    t0 = time.perf_counter()
+    res = gan_train.main(["--config", config, "--device", str(dev), "--num_epochs", "1",
+                          "--num_patches", str(DATA_TILES), "--vae_checkpoint", vae_ckpt,
+                          "--fid_every", "1", "--fid_images", "128", "--model_dir", model_dir,
+                          "--image_dir", os.path.join(tmp, "images")])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {"fused_adam": fused_adam.launches, "infused_noise": infused_noise.launches}
+    epoch, data = res["history"][-1], res["data"]
+    print(f"gan_train main path: {steps} steps in {main_s:.3f} s, {epoch['step_ms_mean']:.2f} ms a step, "
+          f"fid {epoch['fid']:.6g}; load_patch_data {data['tiles']} tiles in {data['load_s']:.3f} s; "
+          f"launches {launches}")
+    check(launches == {"fused_adam": 2 * steps, "infused_noise": 2 * steps},
+          f"gan_train launched {launches} in {steps} steps, expected 2 a step each")
+    check(all(math.isfinite(v) for v in epoch.values()), f"gan_train epoch metrics {epoch}")
+    check((data["tiles"], data["slides"]) == (DATA_SLIDES * DATA_TILES, DATA_SLIDES), f"gan_train loaded {data}")
+    return model_dir, steps, {"main_s": main_s, "launches": launches, "epoch": epoch,
+                              "step_ms_mean": epoch["step_ms_mean"], "load_patch_data_s": data["load_s"],
+                              "load_patch_data_tiles_per_s": data["tiles"] / data["load_s"]}
+
+
+def randomize_inception(model, gen):
+    """He-scaled kernels and BN away from (1, 0, 0, 1), so features keep their
+    scale through the 94 layers (the default init shrinks them to ~1e-4)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * (2.0 / m.weight[0].numel()) ** 0.5)
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                for t in (m.weight, m.running_var):
+                    t.copy_(torch.rand(t.shape, generator=gen) * 0.6 + 0.7)
+                for t in (m.bias, m.running_mean):
+                    t.copy_(torch.randn(t.shape, generator=gen) * 0.1)
+
+
+def inception_flops(model):
+    """2 x multiply-adds of one 299x299 image's convolutions, from their
+    output shapes (pools and BatchNorm not counted)."""
+    from rnagan_tpu_torch.models.inception import BasicConv2d
+
+    total = []
+
+    def count(mod, inp, out):
+        total.append(2 * out[0].numel() * mod.conv.weight[0].numel())
+
+    hooks = [m.register_forward_hook(count) for m in model.modules() if isinstance(m, BasicConv2d)]
+    with torch.inference_mode():
+        model(torch.zeros(1, 299, 299, 3))
+    for h in hooks:
+        h.remove()
+    return sum(total)
+
+
+def inception_checks(dev, gen):
+    """InceptionV3 at full width on randomized weights, through
+    ``InceptionExtractor``: float32 on the card (TF32 off) against the CPU
+    on 4 images, within 1e-3 of max |feature|; bfloat16 against float32,
+    correlation > 0.999; images/s at batch 64 in both (CUDA events) beside
+    the FLOP count, and a profiled bfloat16 batch. Returns the weights."""
+    from rnagan_tpu_torch.eval.fid import InceptionExtractor
+    from rnagan_tpu_torch.models.inception import InceptionV3Features
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = InceptionV3Features(dtype="float32")
+    randomize_inception(cpu, gen)
+    sd = cpu.state_dict()
+    flops = inception_flops(cpu)
+    exts = {dt: InceptionExtractor(sd, dtype=dt, device=dev) for dt in ("float32", "bfloat16")}
+    x = torch.rand(INCEPTION_CPU_IMAGES, 299, 299, 3, generator=gen)
+    with torch.inference_mode():
+        ref = cpu(x)
+    f32, bf16 = (exts[dt].features(x.to(dev)).cpu() for dt in ("float32", "bfloat16"))
+    err, scale = float((f32 - ref).abs().max()), float(ref.abs().max())
+    corr = float(torch.corrcoef(torch.stack([bf16.flatten(), f32.flatten()]))[0, 1])
+    check(err <= 1e-3 * scale, f"Inception float32 card vs CPU: {err} against max |feature| {scale}")
+    check(corr > 0.999, f"Inception bfloat16 vs float32 correlation {corr}")
+    out = {"gflop_per_image": flops / 1e9, "f32_vs_cpu_max_abs_err": err, "max_abs_feature": scale,
+           "bf16_vs_f32_corr": corr}
+    xb = torch.rand(INCEPTION_BATCH, 299, 299, 3, generator=gen).to(dev)
+    for dt, ext in exts.items():
+        ms = time_ms(lambda: ext.features(xb), iters=5, warmup=2)
+        out[dt] = {"batch_ms": ms, "images_per_s": INCEPTION_BATCH / ms * 1e3,
+                   "tflop_per_s": flops * INCEPTION_BATCH / ms / 1e9}
+    out["profile_bf16_batch"] = profile_training(lambda: exts["bfloat16"].features(xb))
+    print(f"Inception: card f32 vs CPU max abs {err:.3e} (max |feature| {scale:.3e}), bf16 vs f32 corr "
+          f"{corr:.7f}; batch {INCEPTION_BATCH}: " + ", ".join(
+              f"{dt} {out[dt]['images_per_s']:.1f} images/s ({out[dt]['tflop_per_s']:.1f} TFLOP/s)"
+              for dt in exts) + f"; {flops / 1e9:.4f} GFLOP an image; a profiled bf16 batch: "
+          + json.dumps({k: v for k, v in out["profile_bf16_batch"].items() if k != "top_kernels"}))
+    return exts["bfloat16"], out
+
+
+def fid_distance_check(ext, real01, gen):
+    """FID of the corpus tiles against as many dark uniform images (in [0,
+    0.5]: a distance well away from 0, so the relative gate is not set by
+    the rounding of the statistics' null space) through the randomized
+    bfloat16 extractor: 2048-d statistics on the card, the float64 eigh
+    route there against the scipy route, within 1e-6 relative."""
+    from rnagan_tpu_torch.eval.fid import calculate_activation_statistics, calculate_frechet_distance
+
+    fake = torch.rand(real01.shape, generator=gen) * 0.5
+    stats = [calculate_activation_statistics(imgs, INCEPTION_BATCH, ext) for imgs in (real01, fake)]
+    out = {"images": len(real01)}
+    for method in ("eigh", "scipy"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[method] = calculate_frechet_distance(*stats[0], *stats[1], method=method)
+        out[f"{method}_s"] = time.perf_counter() - t0
+    out["rel_diff"] = abs(out["eigh"] - out["scipy"]) / abs(out["scipy"])
+    print(f"FID distance on {len(real01)} images' 2048-d statistics: eigh (card, float64) {out['eigh']:.10g} "
+          f"in {out['eigh_s']:.3f} s, scipy {out['scipy']:.10g} in {out['scipy_s']:.3f} s, "
+          f"relative difference {out['rel_diff']:.3e}")
+    check(math.isfinite(out["eigh"]) and out["rel_diff"] <= 1e-6,
+          f"FID eigh vs scipy: {out['eigh']} vs {out['scipy']}")
+    return out
+
+
+def data_fid_checkpoints(dev, vae_cfg, vae_sd):
+    """The data plane, FID and the JAX package's checkpoints: the tile-store
+    library built; a corpus written; the VAE as a JAX-format bundle; the
+    ``gan_train`` epoch (the training CLI's main path); both bundles reloaded;
+    InceptionV3 and the FID distance checked; ``compute_representations``
+    for 2 patients, K1 launched once for each conditioned generation."""
+    import tempfile
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from rnagan_tpu_torch.cli.common import load_gan_dataframe
+    from rnagan_tpu_torch.cli.generate import _load_trainer
+    from rnagan_tpu_torch.core.config import load_reference_json
+    from rnagan_tpu_torch.data import store
+    from rnagan_tpu_torch.data.patches import patient_tiles
+    from rnagan_tpu_torch.data.rna import Scaler, log_transform
+    from rnagan_tpu_torch.eval.fid import InceptionExtractor
+    from rnagan_tpu_torch.eval.representation import compute_representations
+    from rnagan_tpu_torch.kernels.infusion import infused_noise
+
+    out = {}
+    _, out["tilestore_build_s"] = store.build()
+    store.native_lib()
+    print(f"tile-store library built in {out['tilestore_build_s']:.1f} s")
+    rng, gen = np.random.RandomState(SEED), torch.Generator().manual_seed(SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        config, names = write_corpus(tmp, rng)
+        out["corpus_write_s"] = time.perf_counter() - t0
+        genes = torch.randn(8, vae_cfg.rna_features, generator=gen).to(dev)
+        vae_ckpt, out["vae_bundle"] = jax_format_vae(tmp, vae_cfg, vae_sd, genes)
+        model_dir, steps, out["gan_train"] = gan_train_main_path(config, vae_ckpt, tmp, dev)
+
+        cfg_json = load_reference_json(config)
+        args = SimpleNamespace(gan_type=None, seed=99, device=str(dev))
+        t0 = time.perf_counter()
+        for name in ("gan_best.model", "gan_last.model"):  # the last one stays loaded
+            tr, state = _load_trainer(cfg_json, os.path.join(model_dir, name), vae_ckpt, args)
+            check(state.step == steps and tr.z_pop is not None, f"{name} reloaded at step {state.step}")
+        out["bundles_reload_s"] = time.perf_counter() - t0
+
+        ext_bf16, out["inception"] = inception_checks(dev, gen)
+        slides = load_gan_dataframe(cfg_json)
+        real = np.concatenate([patient_tiles(slides, p, DATA_TILES, seed=0)[0] for p in names])
+        out["fid_distance"] = fid_distance_check(ext_bf16, torch.from_numpy(real[:FID_IMAGES]).float() / 255.0,
+                                                 gen)
+
+        vals = log_transform(slides.rna.values)
+        slides = slides.with_rna_values(Scaler.fit(vals, "standard").transform(vals))
+        patients = names[:2]
+        torch.cuda.synchronize()
+        infused_noise.launches = 0
+        t0 = time.perf_counter()
+        reps = compute_representations(
+            patients, lambda p: patient_tiles(slides, p, DATA_TILES, seed=1)[0],
+            lambda p: patient_tiles(slides, p, 1, seed=1)[1], tr, state, tr, state, seed=5,
+            tiles_per_patient=DATA_TILES, extractor=InceptionExtractor(device=dev), condition_mode="population")
+        torch.cuda.synchronize()
+        out["representations"] = {"s": time.perf_counter() - t0, "k1_launches": infused_noise.launches}
+        check(infused_noise.launches == len(patients),
+              f"compute_representations launched K1 {infused_noise.launches} times for {len(patients)} patients")
+        check(all(v.shape == (len(patients), 2048) and np.isfinite(v).all() for v in reps.values()),
+              "representations: shapes or values")
+    print(f"representations of {len(patients)} patients x {DATA_TILES} tiles in "
+          f"{out['representations']['s']:.3f} s, K1 launches {out['representations']['k1_launches']}")
+    return out
+
+
 def small_config_matches_cpu(dev):
     """A small configuration through the Synthesizer on the card and on the
     CPU (whose plain versions the CPU tests hold against the JAX package)."""
@@ -1293,7 +1577,12 @@ def main():
     vae_train = vae_training(dev, gen)
     print(f"VAE training on {smi}: " + json.dumps({k: v for k, v in vae_train.items() if k != "history"}))
 
-    # ---- phase 8: timings (serving as in its first measurement: cuDNN deterministic)
+    # ---- phase 8: the data plane, FID and the JAX package's checkpoints (gan_train on LMDB tiles)
+    torch.cuda.empty_cache()
+    data_phase = data_fid_checkpoints(dev, vae_cfg, vae_sd)
+    print(f"data plane, FID and JAX checkpoints on {smi}: " + json.dumps(data_phase))
+
+    # ---- phase 9: timings (serving as in its first measurement: cuDNN deterministic)
     torch.backends.cudnn.deterministic = True
     torch.cuda.reset_peak_memory_stats()
     k3 = k3_timings(shapes, dev, gen)
@@ -1356,6 +1645,9 @@ def main():
     ]
     for i, k in enumerate(("infused_noise", "tanh_to_uint8")):  # the quantized path launched them too
         kernels[i]["launches"] += quantized["launches"][k]
+    for i, k in ((0, "infused_noise"), (2, "fused_adam")):  # and gan_train's epoch K1 and K3
+        kernels[i]["launches"] += data_phase["gan_train"]["launches"][k]
+        kernels[i]["gan_train_launches"] = data_phase["gan_train"]["launches"][k]
     del w_bf16
 
     g_flops, v_flops = generator_flops(gan_cfg, BATCH), vae_encode_flops(vae_cfg, BATCH)
@@ -1411,7 +1703,7 @@ def main():
                "serving_b128": serving, "peak_mem_gib_timings": peak_gib,
                "training_f32_k3_vs_plain": train_check, "training_small_vs_cpu": train_small,
                "training": training, "fused_adam_by_model": k3, "vae_training": vae_train,
-               "vae_small_vs_cpu": vae_small,
+               "vae_small_vs_cpu": vae_small, "data_fid_checkpoints": data_phase,
                "k4_check": k4_errs, "k4_bytes": k4_bytes, "quantized_head_path": quantized,
                "serving_variants_vs_cpu": variants, "serving_options_b128": serving_options,
                "total_s": time.perf_counter() - t_start}

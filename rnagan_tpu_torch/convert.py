@@ -13,7 +13,9 @@ the port's state_dicts. They copy the logic of
 * flax Conv kernels are HWIO and torch Conv2d weights OIHW; both
   cross-correlate, so the kernel is transposed and not flipped;
 * BatchNorm ``scale``/``bias`` + ``mean``/``var`` become
-  ``weight``/``bias``/``running_mean``/``running_var`` (+ ``num_batches_tracked``).
+  ``weight``/``bias``/``running_mean``/``running_var`` (+ ``num_batches_tracked``);
+* InceptionV3's flax tree maps onto torchvision's names
+  (:func:`inception_state_dict_from_jax`).
 
 Adam moments (optax ``mu``/``nu`` trees) move by the same layout transforms,
 in the order of the port's ``parameters()``, which is torchgan's. A JAX
@@ -176,12 +178,19 @@ def _get(tree, path):
     return tree
 
 
+def _f32(leaf) -> np.ndarray:
+    """A leaf as float32 numpy; a ``torch.bfloat16`` leaf (how
+    ``core/msgpack.py`` reads a bfloat16 array) is widened exactly."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().float().cpu().numpy()
+    return np.asarray(leaf, np.float32)
+
+
 def param_list_from_jax(cfg: GANModelConfig, net: str, tree) -> list:
     """A flax-layout tree shaped like the net's ``params`` (the parameters or
-    an optax moment of them) -> float32 tensors in the port's ``parameters()``
-    order and layout."""
-    return [_TO_TORCH[kind](np.asarray(_get(tree, path), np.float32))
-            for path, kind in param_paths(cfg, net)]
+    an optax moment of them, float32 or bfloat16) -> float32 tensors in the
+    port's ``parameters()`` order and layout."""
+    return [_TO_TORCH[kind](_f32(_get(tree, path))) for path, kind in param_paths(cfg, net)]
 
 
 def param_list_to_jax(cfg: GANModelConfig, net: str, tensors) -> Dict[str, Any]:
@@ -238,7 +247,7 @@ def vae_param_paths(cfg: VAEModelConfig):
 def vae_param_list_from_jax(cfg: VAEModelConfig, tree) -> list:
     """A flax-layout tree shaped like ``BetaVAE``'s ``params`` (the parameters
     or an optax moment of them) -> float32 tensors in ``parameters()`` order."""
-    return [_TO_TORCH[kind](np.asarray(_get(tree, path), np.float32)) for _, path, kind in vae_param_paths(cfg)]
+    return [_TO_TORCH[kind](_f32(_get(tree, path))) for _, path, kind in vae_param_paths(cfg)]
 
 
 def vae_param_list_to_jax(cfg: VAEModelConfig, tensors) -> Dict[str, Any]:
@@ -310,6 +319,30 @@ def vae_train_state_to_jax(cfg, step: int, model: StateDict, optimizer: Dict[str
     in flax's state-dict form, for ``serialization.from_state_dict``."""
     return {"step": np.asarray(step, np.int32), **betavae_variables_to_jax(cfg.model, model),
             "opt_state": vae_optimizer_state_to_jax(cfg, optimizer)}
+
+
+# ------------------------------------------------------------- InceptionV3
+
+
+def inception_state_dict_from_jax(variables: Dict[str, Any]) -> StateDict:
+    """JAX ``InceptionV3Features`` ``{'params', 'batch_stats'}`` (or the
+    keras-array form of ``models/inception.py::params_from_keras_arrays``) ->
+    the torchvision state_dict of the port's ``InceptionV3Features``: each
+    BasicConv2d's HWIO ``conv`` kernel to an OIHW ``conv.weight``, its ``bn``
+    to ``bn.weight``/``bias``/``running_mean``/``running_var``."""
+    sd: StateDict = {}
+
+    def walk(params, stats, prefix):
+        for name, sub in params.items():
+            if name == "conv":
+                sd[prefix + "conv.weight"] = conv_kernel_to_torch(sub["kernel"])
+            elif name == "bn":
+                _put_bn(sd, prefix + "bn", sub, stats["bn"])
+            else:
+                walk(sub, stats[name], prefix + name + ".")
+
+    walk(variables["params"], variables["batch_stats"], "")
+    return sd
 
 
 # ------------------------------------------------------- training bundles

@@ -15,6 +15,16 @@ unchanged. What a state_dict cannot hold goes beside it:
 
 Every file is written to a temporary name and renamed, so a crash never
 leaves a torn checkpoint.
+
+The JAX package's own format is here too: :func:`save_pytree` /
+:func:`load_pytree` and :func:`save_bundle` / :func:`load_bundle` are the
+counterparts of ``rnagan_tpu/core/checkpoint.py``'s, over the
+standard-library msgpack codec (``core/msgpack.py``). A tree is written in
+flax's state-dict form (a list or tuple becomes ``{"0": ..., "1": ...}``,
+every leaf an array); a string leaf is the uint8 array ``b"\xffSTR" +
+utf-8`` (``checkpoint.py:28-46``) and a bundle's ``__meta__`` is JSON. So
+the JAX ``load_bundle`` reads what :func:`save_bundle` writes, and
+:func:`load_bundle` reads the JAX ``model_best.ckpt`` and ``gan_last.model``.
 """
 
 from __future__ import annotations
@@ -23,7 +33,10 @@ import json
 import os
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
+
+from rnagan_tpu_torch.core import msgpack
 
 SCALER_NAME = "scaler.npz"
 
@@ -79,3 +92,65 @@ class BestKeeper:
     def save_last(self, state_dict: Dict[str, torch.Tensor], scaler=None) -> None:
         save_state_dict(self.last_path, state_dict)
         self._save_scaler(scaler)
+
+
+# ------------------------------------------- the JAX package's msgpack format
+
+_STR_TAG = b"\xffSTR"
+
+
+def _to_state_dict(tree):
+    """flax ``to_state_dict`` + the JAX package's ``_to_numpy``: dicts keep
+    their (str) keys, lists and tuples become ``{"0": ...}``, strings become
+    tagged uint8 arrays and every other leaf an array (None stays None)."""
+    if isinstance(tree, dict):
+        return {str(k): _to_state_dict(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _to_state_dict(v) for i, v in enumerate(tree)}
+    if isinstance(tree, (str, bytes)):
+        raw = tree.encode("utf-8") if isinstance(tree, str) else tree
+        return np.frombuffer(_STR_TAG + raw, np.uint8).copy()
+    if tree is None or isinstance(tree, torch.Tensor):
+        return tree
+    return np.asarray(tree)
+
+
+def _from_state_dict(tree):
+    if isinstance(tree, dict):
+        return {k: _from_state_dict(v) for k, v in tree.items()}
+    if (isinstance(tree, np.ndarray) and tree.dtype == np.uint8 and tree.ndim == 1
+            and tree.size >= 4 and bytes(tree[:4]) == _STR_TAG):
+        return bytes(tree[4:]).decode("utf-8")
+    return tree
+
+
+def save_pytree(path: str, tree: Any) -> None:
+    """``tree`` as flax msgpack at ``path``, atomically."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    payload = _to_state_dict(tree)
+
+    def write(tmp):
+        with open(tmp, "wb") as f:
+            msgpack.pack(payload, f.write)
+
+    _atomic(path, write)
+
+
+def load_pytree(path: str) -> Any:
+    """The tree of a flax msgpack file: numpy leaves (``torch.bfloat16``
+    tensors for bfloat16 arrays), tagged strings decoded."""
+    with open(path, "rb") as f:
+        return _from_state_dict(msgpack.unpackb(f.read()))
+
+
+def save_bundle(path: str, trees: Dict[str, Any], metadata: Optional[Dict[str, Any]] = None) -> None:
+    """A named bundle with its JSON ``__meta__``, as the JAX package writes one."""
+    save_pytree(path, {"__meta__": json.dumps(metadata or {}), **trees})
+
+
+def load_bundle(path: str):
+    """``(trees, metadata)`` of a bundle written by :func:`save_bundle` or by
+    the JAX package's ``save_bundle`` (``BestKeeper``, ``GANTrainer.save_model``)."""
+    raw = load_pytree(path)
+    meta = json.loads(raw.pop("__meta__", "{}"))
+    return raw, meta

@@ -7,10 +7,17 @@ noise (CUDA kernel ``kernels/infusion``) -> BN-folded generator (with
 ``kernels/quantize``). It is the counterpart of ``GANTrainer._sample_impl``
 followed by ``make_serving_fn``, for every arch that serves (``condgan``
 takes labels).
+
+:func:`generate_images`, :func:`generate_patient_grid` and
+:func:`compare_real_vs_synthetic` are the JAX module's protocol around a
+trainer's ``sample`` (``rnagan_tpu/eval/generate.py:42-91``): [0, 1] tiles,
+the patient grid, the real / RNA-GAN / GAN comparison. A ``seed`` (the
+port's Philox and generator seeds) takes the place of a ``jax.random`` key.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -21,6 +28,7 @@ from rnagan_tpu_torch.eval.serving import make_serving_fn
 from rnagan_tpu_torch.losses.rna_infusion import (encode_z_mean, infused_noise,
                                                   infused_noise_population)
 from rnagan_tpu_torch.models.betavae import BetaVAE
+from rnagan_tpu_torch.utils.images import save_image_grid
 
 
 def unnormalize(images: torch.Tensor) -> torch.Tensor:
@@ -36,6 +44,52 @@ def to_unit_range(images: torch.Tensor) -> torch.Tensor:
         return t.float() / 255.0
     t = t.float()
     return unnormalize(t) if bool(t.min() < 0) else t
+
+
+def generate_images(trainer, state, num_images: int, seed: int, gene=None,
+                    condition_mode: str = "reference") -> torch.Tensor:
+    """``num_images`` tiles in [0, 1] NHWC on the trainer's device. With
+    ``gene`` (a patient's normalized expression row, (F,) or (1, F)) the noise
+    is the RNA-infused prior through K1. ``condition_mode="reference"``
+    standardizes over the batch, which cancels one patient's broadcast z, as
+    the reference does; ``"population"`` standardizes with the training
+    population's z statistics (``trainer.z_pop``, from ``set_z_population``
+    or a checkpoint that bundles it) and keeps the patient's signal."""
+    z_pop = None
+    if gene is not None:
+        gene = torch.atleast_2d(torch.as_tensor(gene, dtype=torch.float32))
+        if condition_mode == "population":
+            if trainer.z_pop is None:
+                raise ValueError(
+                    "condition_mode='population' needs trainer.z_pop: call "
+                    "trainer.set_z_population(rna_matrix) or load a checkpoint that bundles it")
+            z_pop = trainer.z_pop
+    return unnormalize(trainer.sample(state, num_images, gene=gene, z_pop=z_pop, seed=seed))
+
+
+def generate_patient_grid(trainer, state, gene, seed: int, save_path: str,
+                          sample_size: int = 64) -> torch.Tensor:
+    """The ``--random_patient`` path: a patient's tiles, saved as a grid of 8
+    columns (reference ``generate_tissue_images.py:100-105``)."""
+    imgs = generate_images(trainer, state, sample_size, seed, gene=gene)
+    save_image_grid(imgs * 2.0 - 1.0, save_path, nrow=8)
+    return imgs
+
+
+def compare_real_vs_synthetic(rna_trainer, rna_state, gan_trainer, gan_state, real_tiles, gene,
+                              seed: int, save_dir: str, sample_size: int = 64,
+                              prefix: str = "patient"):
+    """Real tiles against RNA-GAN tiles of the patient's ``gene`` and
+    unconditional GAN tiles (``generate_tissue_images.py:106-127``): three
+    grids in ``save_dir``; returns the three [0, 1] sets. The two generations
+    take seeds ``seed`` and ``seed + 1``."""
+    os.makedirs(save_dir, exist_ok=True)
+    rna_imgs = generate_images(rna_trainer, rna_state, sample_size, seed, gene=gene)
+    gan_imgs = generate_images(gan_trainer, gan_state, sample_size, seed + 1)
+    real = to_unit_range(real_tiles)
+    for name, imgs in (("real", real), ("rnagan", rna_imgs), ("gan", gan_imgs)):
+        save_image_grid(imgs * 2 - 1, os.path.join(save_dir, f"{prefix}_{name}.png"), nrow=8)
+    return real, rna_imgs, gan_imgs
 
 
 class Synthesizer:

@@ -46,10 +46,12 @@ import time
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from rnagan_tpu_torch import convert
-from rnagan_tpu_torch.core.config import GANConfig
+from rnagan_tpu_torch.core.checkpoint import load_bundle
+from rnagan_tpu_torch.core.config import GANConfig, VAEModelConfig
 from rnagan_tpu_torch.core.device import resolve_device
 from rnagan_tpu_torch.core.rng import SeedStream
 from rnagan_tpu_torch.losses import gan as gan_losses
@@ -84,10 +86,18 @@ class GANTrainState:
     g_ema: Optional[List[torch.Tensor]] = None
 
 
-def load_frozen_vae(path: str) -> Dict[str, torch.Tensor]:
-    """The frozen betaVAE of the wganvae loss family, from a reference or
-    JAX-exported ``.pt`` state_dict."""
-    return convert.load_betavae_state_dict(path)
+def load_frozen_vae(path: str, vae_cfg: VAEModelConfig) -> Dict[str, torch.Tensor]:
+    """The frozen betaVAE of the wganvae loss family as a state_dict, routed by
+    extension as the JAX loader routes it (``rnagan_tpu/train/gan_trainer.py:79-90``):
+    a ``.pt``/``.pth`` is a reference or JAX-exported state_dict; any other
+    file is a JAX bundle (``model_best.ckpt`` of its ``VAETrainer.fit``) whose
+    ``params`` and ``batch_stats`` are moved by ``betavae_state_dict_from_jax``."""
+    if path.endswith((".pt", ".pth")):
+        return convert.load_betavae_state_dict(path)
+    trees, _ = load_bundle(path)
+    return convert.betavae_state_dict_from_jax(
+        vae_cfg, {"params": trees["params"], "batch_stats": trees["batch_stats"]})
+
 
 
 def _copy_stats(stats: Stats) -> Stats:
@@ -99,7 +109,7 @@ class GANTrainer:
     without CUDA; the tests pass ``"cpu"``).
 
     ``vae_state_dict`` is the frozen betaVAE of the wganvae loss family (or
-    ``cfg.vae_checkpoint`` names its ``.pt``)."""
+    ``cfg.vae_checkpoint`` names its ``.pt`` or JAX bundle)."""
 
     def __init__(self, cfg: GANConfig, vae_state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  device="cuda", image_dir: Optional[str] = None, model_dir: Optional[str] = None):
@@ -120,7 +130,7 @@ class GANTrainer:
             if vae_state_dict is None:
                 if not cfg.vae_checkpoint:
                     raise ValueError("loss_type=wganvae requires vae_state_dict or cfg.vae_checkpoint")
-                vae_state_dict = load_frozen_vae(cfg.vae_checkpoint)
+                vae_state_dict = load_frozen_vae(cfg.vae_checkpoint, cfg.vae)
             self.vae = BetaVAE(cfg.vae, device=self.device)
             self.vae.load_state_dict(vae_state_dict)
             self.vae.eval().requires_grad_(False)
@@ -335,10 +345,19 @@ class GANTrainer:
             g_ema=g_ema, z_pop=self.z_pop)
 
     def load_model(self, path: str) -> GANTrainState:
-        """Resume from a ``.model`` bundle written by :meth:`save_model` or by
-        the JAX package's ``export_torchgan_bundle``. A bundle without ``step``
-        resumes at step 0 (as the JAX importer does); one without ``g_ema``
-        seeds the EMA from the loaded weights when the EMA is on."""
+        """Resume from a bundle. The file's magic picks the format, as the JAX
+        loader picks it (``rnagan_tpu/train/gan_trainer.py:466-509``): a
+        torch file is a torchgan-layout ``.model`` written by :meth:`save_model`
+        or by the JAX package's ``export_torchgan_bundle``; anything else is
+        the JAX package's own msgpack bundle (its ``GANTrainer.save_model``),
+        moved by :meth:`state_from_jax`. A torchgan bundle without ``step``
+        resumes at step 0 (as the JAX importer does); a bundle without
+        ``g_ema`` seeds the EMA from the loaded weights when the EMA is on."""
+        with open(path, "rb") as f:
+            magic = f.read(4)
+        if not (magic[:2] == b"PK" or magic[:1] == b"\x80"):  # torch.save: a zip or a pickle
+            trees, _ = load_bundle(path)
+            return self.state_from_jax(trees)
         bundle = convert.load_training_bundle(path)
         state = self.init_state()
         g, d = state.generator, state.discriminator
@@ -355,6 +374,36 @@ class GANTrainer:
         if "z_pop" in bundle:
             self.z_pop = (bundle["z_pop"]["mean"].to(self.device),
                           bundle["z_pop"]["std"].to(self.device))
+        return state
+
+    def state_from_jax(self, tree: Dict[str, Any]) -> GANTrainState:
+        """A JAX ``GANTrainState`` in the form its ``save_model`` bundles it
+        (``g_params``, ``g_stats``, ``g_opt``, ``d_params``, ``d_stats``,
+        ``d_opt``, ``step``, optionally ``g_ema`` and ``z_pop``; optax's
+        ``adam`` state as ``{"0": {"count", "mu", "nu"}, "1": {}}``), on this
+        trainer's device. ``mu`` takes this trainer's ``adam_mu_dtype``; an
+        EMA-less tree seeds the EMA from the weights when the EMA is on, and a
+        tree's EMA is dropped when it is off (``:497-502``)."""
+        m = self.cfg.model
+        state = self.init_state()
+        g, d = state.generator, state.discriminator
+        g.load_state_dict(convert.generator_state_dict_from_jax(m, tree["g_params"], tree["g_stats"]))
+        d.load_state_dict(convert.discriminator_state_dict_from_jax(m, tree["d_params"], tree["d_stats"]))
+        state.g_stats, state.d_stats = _copy_stats(g.bn_stats()), _copy_stats(d.bn_stats())
+        for opt, net, key in ((state.g_opt, "generator", "g_opt"), (state.d_opt, "discriminator", "d_opt")):
+            adam = tree[key]["0"]
+            mus, nus = convert.adam_moments_from_jax(m, net, adam["mu"], adam["nu"])
+            for dst, src in zip(opt.mu + opt.nu, mus + nus):
+                dst.copy_(src)
+            opt.count = int(np.asarray(adam["count"]))
+        state.step = int(np.asarray(tree["step"]))
+        if state.g_ema is not None:
+            ema = tree.get("g_ema")
+            state.g_ema = ([t.to(self.device) for t in convert.param_list_from_jax(m, "generator", ema)]
+                           if ema is not None else [p.detach().clone() for p in g.parameters()])
+        if "z_pop" in tree:
+            self.z_pop = tuple(torch.as_tensor(np.array(tree["z_pop"][k], np.float32)).to(self.device)
+                               for k in ("mean", "std"))
         return state
 
     # ------------------------------------------------------------------- fit

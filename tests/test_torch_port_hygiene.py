@@ -31,7 +31,7 @@ names = [m.name for m in pkgutil.walk_packages(rnagan_tpu_torch.__path__, "rnaga
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
-             and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "pandas", "rnagan_tpu"))
+             and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas", "rnagan_tpu"))
 print(" ".join(names))
 assert not bad, bad
 """
@@ -40,14 +40,16 @@ assert not bad, bad
 #: that imports one of them (even lazily, at import time) fails here
 _IMPORT_ALL_BLOCKED = """
 import sys
-for name in ("jax", "jaxlib", "flax", "optax", "pandas", "rnagan_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas", "rnagan_tpu"):
     sys.modules[name] = None
 """ + _IMPORT_ALL
 
-#: subpackages of the port and a module each that must be among the imported
-SUBPACKAGES = {"core": "checkpoint", "data": "rna", "cli": "betavae_train", "eval": "interpolate",
-               "losses": "vae", "models": "betavae", "optim": "scheduled", "train": "vae_trainer",
-               "kernels": "fused_adam", "utils": "images"}
+#: subpackages of the port and modules of each that must be among the imported
+SUBPACKAGES = {"core": ("checkpoint", "msgpack"), "data": ("rna", "store", "tiles", "patches"),
+               "cli": ("betavae_train", "gan_train", "generate", "fid"),
+               "eval": ("interpolate", "fid", "representation"), "losses": ("vae",),
+               "models": ("betavae", "inception"), "optim": ("scheduled",), "train": ("vae_trainer",),
+               "kernels": ("fused_adam",), "utils": ("images",)}
 
 
 def _import_all(code):
@@ -55,21 +57,22 @@ def _import_all(code):
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     names = set(res.stdout.split())
-    assert len(names) >= 40  # every module of slices 1 to 5
-    for sub, module in SUBPACKAGES.items():
-        assert f"rnagan_tpu_torch.{sub}.{module}" in names, sub
+    assert len(names) >= 50  # every module of the port
+    for sub, modules in SUBPACKAGES.items():
+        for module in modules:
+            assert f"rnagan_tpu_torch.{sub}.{module}" in names, (sub, module)
 
 
 def test_port_imports_no_jax():
     """In a fresh interpreter (this one has JAX loaded by the conftest):
-    importing every module of the port loads no jax/flax/optax/pandas/
-    rnagan_tpu module."""
+    importing every module of the port loads no jax/flax/optax/msgpack/
+    pandas/rnagan_tpu module."""
     _import_all(_IMPORT_ALL)
 
 
 def test_port_imports_with_forbidden_packages_blocked():
-    """Every module of the port imports with jax, flax, optax, pandas and
-    rnagan_tpu made unimportable (``sys.modules[name] = None``)."""
+    """Every module of the port imports with jax, flax, optax, msgpack,
+    pandas and rnagan_tpu made unimportable (``sys.modules[name] = None``)."""
     _import_all(_IMPORT_ALL_BLOCKED)
 
 
@@ -88,6 +91,24 @@ def test_entry_points_default_to_cuda():
         VAETrainer(VAEConfig(model=SMALL.vae))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         betavae_train.main(["--config", str(REPO / "configs" / "betavae_tissues.json")])
+
+
+@pytest.mark.parametrize("entry", ["inception_extractor", "gan_train", "fid"])
+def test_data_and_fid_entry_points_default_to_cuda(entry):
+    """The Inception extractor and the training and FID CLIs resolve the
+    device first: with no card they raise unless given the CPU, before any
+    data is read."""
+    if torch.cuda.is_available():
+        pytest.skip("the card is present: the CUDA default does not raise here")
+    from rnagan_tpu_torch.cli import fid, gan_train
+    from rnagan_tpu_torch.eval.fid import InceptionExtractor
+
+    config = str(REPO / "configs" / "gan_run_lung.json")
+    call = {"inception_extractor": InceptionExtractor,
+            "gan_train": lambda: gan_train.main(["--config", config]),
+            "fid": lambda: fid.main(["--config", config])}[entry]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
 
 
 def test_training_path_uses_no_library_optimizer():
