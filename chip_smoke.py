@@ -58,7 +58,26 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    and bfloat16 against float32, images/s at batch 64; the FID distance's
    float64 eigh on the card against scipy on 256 images' statistics; and
    ``compute_representations`` for 2 patients (one K1 launch each);
-9. timings with CUDA events: each kernel (through its wrapper, and replayed
+9. SAGAN and BigGAN, and the remaining CLIs: small configurations (float32,
+   TF32 off, cuDNN deterministic, given draws, attention gates and
+   conditional BatchNorm projections drawn) of ``sagan``, conditional
+   ``biggan`` and unconditional ``biggan`` take one wganvae step each on the
+   card against the CPU, and BigGAN's step with ``remat`` (recomputed
+   blocks) is bit-equal to its plain step on the card; the full-width SAGAN
+   discriminator's stored spectral-norm sigma within 5 % of its kernel's top
+   singular value after 30 updating forwards; SAGAN and BigGAN (remat off
+   and on) at the CLI's widths, batch 8 (step ms, peak memory, a profile);
+   ``cli.main
+   gan-train`` with ``--gan_type sagan`` and ``biggan`` (the corpus split
+   over two CSVs, so BigGAN has 2 classes) for one epoch each, the K1 and K3
+   counters read around each run (2 launches a step each), step time and
+   peak memory; then through ``cli.main``: ``generate`` and ``fid`` on the
+   BigGAN bundle, ``representation`` for 2 patients on the SAGAN bundle,
+   ``sample`` from the ``.pt`` and from the JAX-format VAE (equal for one
+   seed), ``interpolate`` on the two-CSV table and ``metrics`` on a JSONL of
+   the two runs. ``tile`` stays a CPU test (``tests/test_torch_port_cli.py``):
+   the card's machine has neither PIL nor OpenSlide;
+10. timings with CUDA events: each kernel (through its wrapper, and replayed
    from a CUDA graph for its device time), its plain version and a PyTorch
    yardstick; K4 also at N = 64 and 1, K1 with ``u`` given and beside a
    graph-replayed launch of a one-element fill (the floor of any launch); the
@@ -688,14 +707,38 @@ STATE_TOL = {"params": (1e-6, 1e-7, 0.0), "stats": (1e-5, 1e-6, 0.0),
              "mu": (1e-4, 1e-7, 1e-5), "nu": (1e-4, 1e-9, 1e-5)}
 
 
+def share_refs(net, moments):
+    """The tensor whose largest value scales each moment's share term, as the
+    CPU tests take it (``tests/test_torch_port_train_archs.py::_grad_scale``):
+    its own, except for a conv bias that a train-mode BatchNorm follows
+    (``dcgan_up``'s ``model.<b>.0.bias``). That bias's gradient is 0 up to
+    rounding, so both sides hold rounding noise of the sums behind the
+    conv's kernel gradient, and its scale is the kernel's moment."""
+    names = [n for n, _ in net.named_parameters()]
+    refs = []
+    for n, m in zip(names, moments):
+        kernel = n.replace(".0.bias", ".0.weight")
+        bn_after = n.endswith(".0.bias") and n.replace(".0.bias", ".1.weight") in names
+        refs.append(moments[names.index(kernel)] if bn_after else m)
+    return refs
+
+
 def state_excess(a, b):
     """The largest ratio of a difference to its allowance under STATE_TOL (1 passes)."""
-    worst = 0.0
-    for group, x, y in state_pairs(a, b):
+    def ratio(group, x, y, ref):
         x, y = x.detach().float().cpu(), y.detach().float().cpu()
         rtol, atol, share = STATE_TOL[group]
-        allow = atol + rtol * y.abs() + share * float(y.abs().max())
-        worst = max(worst, float(((x - y).abs() / allow).max()))
+        allow = atol + rtol * y.abs() + share * float(ref.detach().float().abs().max())
+        return float(((x - y).abs() / allow).max())
+
+    worst = 0.0
+    for group, x, y in state_pairs(a, b):
+        if group in ("params", "stats"):
+            worst = max(worst, ratio(group, x, y, y))
+    for net, o, q in ((b.generator, a.g_opt, b.g_opt), (b.discriminator, a.d_opt, b.d_opt)):
+        for group, xs, ys in (("mu", o.mu, q.mu), ("nu", o.nu, q.nu)):
+            for x, y, ref in zip(xs, ys, share_refs(net, ys), strict=True):
+                worst = max(worst, ratio(group, x, y, ref))
     return worst
 
 
@@ -745,22 +788,43 @@ def train_kernel_vs_plain(dev, gen, vae_sd):
             "metrics": {k: float(v) for k, v in ma.items()}}
 
 
-def train_small_matches_cpu(dev, gen, arch="dcgan"):
+def open_gates(module, gen):
+    """SAGAN's and BigGAN's attention gate ``gamma`` and the conditional
+    BatchNorm projections start at 0: set and drawn here, so a check goes
+    through the attention and the conditioning."""
+    from rnagan_tpu_torch.models.biggan import ConditionalBatchNorm
+    from rnagan_tpu_torch.models.sagan import SelfAttention2d
+
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, SelfAttention2d):
+                m.gamma.fill_(0.5)
+            elif isinstance(m, ConditionalBatchNorm):
+                for lin in (m.gamma, m.beta):
+                    lin.weight.normal_(0.0, 0.3 * lin.in_features ** -0.5, generator=gen)
+
+
+def train_small_matches_cpu(dev, gen, arch="dcgan", remat_check=False, **model_kw):
     """A small configuration's step of ``arch`` on the card against the same
     step on the CPU (whose plain versions the CPU tests hold against the JAX
-    package); ``condgan`` with labels. cuDNN and the CPU sum convolutions in
-    other orders: the state within the CPU tests' bounds (``STATE_TOL``),
-    metrics within 1e-3 relative + 1e-5. The card's step launches K1 and K3
-    twice each (the D and G stages), as ``dcgan``'s does."""
+    package); ``condgan``, and ``biggan`` with classes, with labels; SAGAN
+    and BigGAN with their attention gates and projections drawn
+    (``open_gates``). cuDNN and the CPU sum convolutions in other orders: the
+    state within the CPU tests' bounds (``STATE_TOL``), metrics within 1e-3
+    relative + 1e-5. The card's step launches K1 and K3 twice each (the D
+    and G stages), as ``dcgan``'s does. ``remat_check``: the same step again
+    on the card, plain and with ``remat`` (recomputed blocks), bit-equal to
+    each other (the first card step ran before them: cuDNN's first call may
+    choose other algorithms)."""
     from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig, VAEModelConfig
     from rnagan_tpu_torch.kernels.fused_adam import fused_adam
     from rnagan_tpu_torch.kernels.infusion import infused_noise
     from rnagan_tpu_torch.models.betavae import BetaVAE
     from rnagan_tpu_torch.train.gan_trainer import GANTrainer
 
-    cfg = GANConfig(model=GANModelConfig(arch=arch, out_size=32, encoding_dims=64, step_channels=8,
-                                         num_classes=3 if arch == "condgan" else 0,
-                                         compute_dtype="float32"),
+    kw = dict(arch=arch, out_size=32, encoding_dims=64, step_channels=8,
+              num_classes=3 if arch == "condgan" else 0, compute_dtype="float32")
+    cfg = GANConfig(model=GANModelConfig(**{**kw, **model_kw}),
                     vae=VAEModelConfig(rna_features=256, z_dim=64, encoder_dims=(128, 96, 64),
                                        decoder_dims=(96, 128)))
     cpu_gen = torch.Generator().manual_seed(SEED)
@@ -769,23 +833,39 @@ def train_small_matches_cpu(dev, gen, arch="dcgan"):
     cpu = GANTrainer(cfg, vae.state_dict(), device="cpu")
     card = GANTrainer(cfg, vae.state_dict(), device=dev)
     s_cpu = cpu.init_state()
+    open_gates(s_cpu.generator, cpu_gen)
+    open_gates(s_cpu.discriminator, cpu_gen)
     warm_adam(s_cpu, cpu_gen)
     s_card = state_to(s_cpu, dev)
+    s_again = [state_to(s_cpu, dev) for _ in range(2)] if remat_check else []
     batch = random_batch(cpu_gen, cfg.batch_size, cfg, "cpu", size=32)
-    if arch == "condgan":
-        batch["labels"] = torch.randint(0, 3, (cfg.batch_size,), generator=cpu_gen)
+    if cfg.model.num_classes:
+        batch["labels"] = torch.randint(0, cfg.model.num_classes, (cfg.batch_size,), generator=cpu_gen)
     draws = training_draws(cpu_gen, cfg.batch_size, cfg, "cpu")
     _, m_cpu = cpu.train_step(s_cpu, batch, draws)
     before = (fused_adam.launches, infused_noise.launches)
     _, m_card = card.train_step(s_card, batch, draws)
     launches = {"fused_adam": fused_adam.launches - before[0], "infused_noise": infused_noise.launches - before[1]}
-    check(launches == {"fused_adam": 2, "infused_noise": 2}, f"small {arch} step launches {launches}")
+    name = f"{arch} {model_kw}" if model_kw else arch
+    check(launches == {"fused_adam": 2, "infused_noise": 2}, f"small {name} step launches {launches}")
     excess = state_excess(s_card, s_cpu)
     for k in m_cpu:
         a, b = float(m_cpu[k]), float(m_card[k])
-        check(abs(a - b) <= 1e-3 * abs(a) + 1e-5, f"small {arch} training step {k}: CPU {a}, card {b}")
-    check(excess <= 1.0, f"small {arch} training step: card vs CPU state at {excess} x its tolerance")
-    return {"state_excess": excess, "state_max_abs_diff": state_diff(s_card, s_cpu), "launches": launches}
+        check(abs(a - b) <= 1e-3 * abs(a) + 1e-5, f"small {name} training step {k}: CPU {a}, card {b}")
+    check(excess <= 1.0, f"small {name} training step: card vs CPU state at {excess} x its tolerance")
+    out = {"state_excess": excess, "state_max_abs_diff": state_diff(s_card, s_cpu), "launches": launches}
+    if remat_check:
+        plain, remat = s_again
+        for net in (remat.generator, remat.discriminator):
+            net.cfg = dataclasses.replace(net.cfg, remat=True)
+        _, m_plain = card.train_step(plain, batch, draws)
+        _, m_remat = card.train_step(remat, batch, draws)
+        diff = state_diff(plain, remat)
+        metric_diff = max(abs(float(m_plain[k]) - float(m_remat[k])) for k in m_plain)
+        check(diff == 0.0 and metric_diff == 0.0,
+              f"small {name}: remat step differs from the plain step on the card by {diff} (metrics {metric_diff})")
+        out.update(remat_vs_plain_max_abs_diff=diff, remat_state_excess_vs_cpu=state_excess(remat, s_cpu))
+    return out
 
 
 def train_main_path(dev, gen, vae_sd):
@@ -1441,6 +1521,272 @@ def data_fid_checkpoints(dev, vae_cfg, vae_sd):
     return out
 
 
+# ----------------------------------------------- SAGAN, BigGAN and the CLIs
+
+#: GANModelConfig fields of the full-width SAGAN and BigGAN checks beside
+#: their defaults: none, so they run at the CLI's widths
+SN_FULL_KEYS = {}
+#: phase 9's small configurations, card against CPU: name -> (arch, fields)
+SN_SMALL = {"sagan": ("sagan", {}), "biggan": ("biggan", {"num_classes": 2}),
+            "biggan_unconditional": ("biggan", {})}
+
+
+@contextlib.contextmanager
+def returned(module):
+    """What ``module.main`` returns while ``cli.main`` dispatches to it (the
+    dispatcher itself returns only an exit code)."""
+    results, original = [], module.main
+    module.main = lambda argv=None: results.append(original(argv)) or results[-1]
+    try:
+        yield results
+    finally:
+        module.main = original
+
+
+def dispatch(argv, module=None):
+    """``cli.main.main(argv)``: exit code 0, host seconds, and what the
+    command's ``main`` returned when ``module`` is given."""
+    from rnagan_tpu_torch.cli import main as cli_main
+
+    t0 = time.perf_counter()
+    with returned(module) if module is not None else contextlib.nullcontext([None]) as res:
+        rc = cli_main.main(argv)
+    torch.cuda.synchronize()
+    check(rc == 0, f"cli.main {argv[0]} exited {rc}")
+    return (res[0] if res else None), time.perf_counter() - t0
+
+
+def sn_sigma_check(dev, gen):
+    """30 updating forwards of the full-width SAGAN discriminator: ``Conv_1``'s
+    stored sigma within 5 % of its kernel's top singular value (the kernel
+    reshaped as flax reshapes it; ``tests/test_attention_gans.py:72-92``)."""
+    from rnagan_tpu_torch.core.config import GANModelConfig
+    from rnagan_tpu_torch.models.sagan import SAGANDiscriminator, flax_matrix
+
+    m = GANModelConfig(**{"arch": "sagan", "step_channels": 32, "compute_dtype": "float32", **SN_FULL_KEYS})
+    d = SAGANDiscriminator(m, seed=3, device=dev)
+    x = torch.randn(2, m.out_channels, m.out_size, m.out_size, generator=gen, device=dev)
+    stats = d.bn_stats()
+    with torch.no_grad():
+        for _ in range(30):
+            _, stats = d(x, stats, True)
+    true = float(torch.linalg.matrix_norm(flax_matrix(d.Conv_1.weight.detach(), "conv"), 2))
+    sigma = float(stats[d.Conv_1.slot][1])
+    check(abs(sigma - true) <= 0.05 * true, f"SAGAN D Conv_1: stored sigma {sigma}, top singular value {true}")
+    return {"sigma": sigma, "top_singular_value": true, "rel_err": abs(sigma - true) / true}
+
+
+def sn_step_costs(dev, gen, vae_cfg, vae_sd):
+    """SAGAN and BigGAN (remat off and on) at the CLI's widths (wganvae,
+    bfloat16, batch 8; BigGAN over 2 classes): 5 steps after 2, host clock;
+    the peak memory above what was allocated before the trainer was made,
+    and above the training state (the activations); 3 steps under
+    ``torch.profiler`` (device busy time by category, idle share)."""
+    from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+
+    out = {}
+    for name, model in (("sagan", {"arch": "sagan", "step_channels": 32}),
+                        ("biggan_remat_off", {"arch": "biggan", "num_classes": 2}),
+                        ("biggan_remat_on", {"arch": "biggan", "num_classes": 2, "remat": True})):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        cfg = GANConfig(model=GANModelConfig(**{**model, **SN_FULL_KEYS}), vae=vae_cfg)
+        tr = GANTrainer(cfg, vae_sd, device=dev)
+        st = tr.init_state()
+        batch = {**random_batch(gen, cfg.batch_size, cfg, dev, size=cfg.model.out_size),
+                 "labels": torch.randint(0, 2, (cfg.batch_size,), generator=gen, device=dev)}
+        for _ in range(2):
+            tr.train_step(st, batch)
+        torch.cuda.synchronize()
+        state_bytes = torch.cuda.memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            metrics = tr.train_step(st, batch)[1]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 5
+        peak = torch.cuda.max_memory_allocated() - base
+        check(all(math.isfinite(float(v)) for v in metrics.values()), f"{name} step: {metrics}")
+        out[name] = {"step_ms_b8": step_ms, "peak_gib": peak / 2**30, "state_gib": state_bytes / 2**30,
+                     "activation_peak_gib": (peak - state_bytes) / 2**30,
+                     "g_params": sum(p.numel() for p in st.generator.parameters()),
+                     "d_params": sum(p.numel() for p in st.discriminator.parameters()),
+                     "profile_b8": profile_training(lambda: tr.train_step(st, batch))}
+        del tr, st, batch
+    print("SAGAN and BigGAN (remat off / on) at batch 8: " + json.dumps(
+        {k: {x: y for x, y in v.items() if x != "profile_b8"} | {
+            "device_busy_ms": v["profile_b8"].get("device_busy_ms_per_step"),
+            "device_idle_share": v["profile_b8"].get("device_idle_share")} for k, v in out.items()}))
+    return out
+
+
+def sn_workspace(tmp, vae_cfg, vae_sd, rng):
+    """Phase 8's corpus written again, its expression split over two tissue
+    CSVs (half the slides each) so BigGAN has 2 classes; the VAE as a ``.pt``
+    with its ``scaler.npz`` and as a JAX-format ``model_best.ckpt`` bundling
+    the same scaler; the GAN and VAE JSON configs."""
+    from rnagan_tpu_torch import convert
+    from rnagan_tpu_torch.core.checkpoint import SCALER_NAME, save_bundle, save_state_dict
+    from rnagan_tpu_torch.data.rna import RNATable, Scaler, log_transform
+
+    config, names = write_corpus(tmp, rng)
+    with open(config) as f:
+        (csv,) = json.load(f)["path_csv"]
+    with open(csv) as f:
+        header, *rows = f.read().splitlines()
+    half = len(rows) // 2
+    csvs = []
+    for t, part in enumerate((rows[:half], rows[half:])):
+        csvs.append(os.path.join(tmp, f"tissue{t}.csv"))
+        with open(csvs[-1], "w") as f:
+            f.write("\n".join([header, *part]) + "\n")
+    gan_json = os.path.join(tmp, "gan2.json")
+    with open(gan_json, "w") as f:
+        json.dump({"path_csv": csvs, "patch_data_path": [tmp, tmp], **DATA_CONFIG_KEYS}, f)
+    vae_dir = os.path.join(tmp, "vae")
+    pt, ckpt = os.path.join(vae_dir, "model_dict_best.pt"), os.path.join(vae_dir, "model_best.ckpt")
+    scaler = Scaler.fit(log_transform(RNATable.read_csv(csv).values), "standard")
+    save_state_dict(pt, vae_sd)
+    scaler.save(os.path.join(vae_dir, SCALER_NAME))
+    save_bundle(ckpt, {**convert.betavae_variables_to_jax(vae_cfg, vae_sd), "scaler": scaler.state_dict()},
+                {"config": "betavae"})
+    vae_json = os.path.join(tmp, "vae.json")
+    with open(vae_json, "w") as f:
+        json.dump({"path_csv": csvs, "rna_features": vae_cfg.rna_features, "z_dim": vae_cfg.z_dim,
+                   "encoder_dims": list(vae_cfg.encoder_dims), "decoder_dims": list(vae_cfg.decoder_dims)}, f)
+    return {"gan_json": gan_json, "vae_json": vae_json, "csvs": csvs, "names": names, "pt": pt, "ckpt": ckpt}
+
+
+def sn_gan_train(arch, ws, tmp, dev):
+    """``cli.main gan-train --gan_type arch`` for one epoch of the corpus
+    (wganvae, the CLI's widths, bfloat16, batch 8; BigGAN over 2 classes),
+    the K1 and K3 counters set to 0 just before it and read just after: 2
+    launches each a step; peak memory above what earlier phases hold."""
+    from rnagan_tpu_torch.cli import gan_train
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.kernels.infusion import infused_noise
+
+    model_dir = os.path.join(tmp, arch)
+    steps = -(-DATA_SLIDES * DATA_TILES // 8)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused_adam.launches = infused_noise.launches = 0
+    res, main_s = dispatch(["gan-train", "--config", ws["gan_json"], "--gan_type", arch, "--device", str(dev),
+                            "--num_epochs", "1", "--num_patches", str(DATA_TILES), "--vae_checkpoint", ws["pt"],
+                            "--model_dir", model_dir, "--image_dir", os.path.join(tmp, f"{arch}_images")],
+                           gan_train)
+    launches = {"fused_adam": fused_adam.launches, "infused_noise": infused_noise.launches}
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    epoch = res["history"][-1]
+    print(f"gan-train --gan_type {arch}: {steps} steps, {epoch['step_ms_mean']:.2f} ms a step, main "
+          f"{main_s:.3f} s, peak {peak_gib:.2f} GiB above earlier phases; launches {launches}")
+    check(launches == {"fused_adam": 2 * steps, "infused_noise": 2 * steps},
+          f"gan-train {arch} launched {launches} in {steps} steps, expected 2 a step each")
+    check(all(math.isfinite(v) for v in epoch.values()), f"gan-train {arch} epoch metrics {epoch}")
+    check(os.path.exists(os.path.join(model_dir, "gan_last.model")), f"gan-train {arch} wrote no bundle")
+    return os.path.join(model_dir, "gan_last.model"), res["history"], {
+        "main_s": main_s, "launches": launches, "steps": steps, "epoch": epoch,
+        "step_ms_mean": epoch["step_ms_mean"], "peak_gib": peak_gib}
+
+
+def sn_clis(ws, bundles, histories, tmp, dev):
+    """The other CLIs through ``cli.main``: ``generate`` and ``fid`` on the
+    BigGAN bundle (FID finite), ``representation`` for 2 patients on the
+    SAGAN bundle, ``sample`` from the ``.pt`` and from the JAX-format VAE
+    (equal for one seed), ``interpolate`` on the two-CSV table, and
+    ``metrics`` on a JSONL of the two runs' epochs."""
+    import io
+    import pickle
+
+    import numpy as np
+
+    from rnagan_tpu_torch.cli import fid, generate, representation, sample
+    from rnagan_tpu_torch.core.metrics import MetricsLogger
+
+    d, out = str(dev), {}
+    vae_common = ["--vae", ws["pt"], "--device", d, "--config", ws["gan_json"]]
+    imgs, out["generate_s"] = dispatch(["generate", *vae_common, "--checkpoint", bundles["biggan"],
+                                        "--gan_type", "biggan", "--rna_file", ws["csvs"][0], "--random_patient",
+                                        "--sample_size", "16", "--save_path", os.path.join(tmp, "gen.png")],
+                                       generate)
+    check(tuple(imgs.shape[:1] + imgs.shape[3:]) == (16, 3) and bool(torch.isfinite(imgs).all()),
+          f"generate: {tuple(imgs.shape)}")
+    (fid_mean, _), out["fid_s"] = dispatch(["fid", *vae_common, "--checkpoint", bundles["biggan"],
+                                            "--gan_type", "biggan", "--patient1", ws["names"][0],
+                                            "--num_images", "64", "--repetitions", "1", "--batch_size", "32"], fid)
+    check(math.isfinite(fid_mean), f"fid on the BigGAN bundle: {fid_mean}")
+    out["fid"] = fid_mean
+    reps_dir = os.path.join(tmp, "reps")
+    reps, out["representation_s"] = dispatch(
+        ["representation", *vae_common, "--checkpoint", bundles["sagan"], "--checkpoint2", bundles["sagan"],
+         "--gan_type", "sagan", "--max_patients", "2", "--tiles_per_patient", "32",
+         "--num_patches", str(DATA_TILES), "--save_dir", reps_dir], representation)
+    check(all(v.shape == (2, 2048) and np.isfinite(v).all() for v in reps.values())
+          and all(os.path.exists(os.path.join(reps_dir, f"representations_{k}.npy")) for k in reps),
+          "representation: shapes, values or files")
+    expr = []
+    for ckpt in (ws["pt"], ws["ckpt"]):
+        e, t = dispatch(["sample", "--config", ws["vae_json"], "--checkpoint", ckpt, "--num_samples", "16",
+                         "--seed", "3", "--save_path", os.path.join(tmp, "samples.pkl"), "--device", d], sample)
+        expr.append(e)
+    out["sample_s"] = t
+    check(expr[0].shape[0] == 16 and np.isfinite(expr[0]).all() and np.array_equal(*expr),
+          "sample: the .pt and the JAX-format VAE differ for one seed")
+    interp = os.path.join(tmp, "interp.pkl")
+    _, out["interpolate_s"] = dispatch(["interpolate", "--config", ws["vae_json"], "--checkpoint", ws["pt"],
+                                        "--save_path", interp, "--device", d])
+    with open(interp, "rb") as f:
+        report = pickle.load(f)
+    check(sorted(report["difference_vectors"]) == [(0, 1), (1, 0)], f"interpolate: {list(report)}")
+    jsonl = os.path.join(tmp, "logs")
+    logger = MetricsLogger(log_dir=jsonl, run_name="gan")
+    for arch, history in histories.items():
+        for epoch, means in enumerate(history):
+            logger.scalars(arch, means, epoch)
+    logger.close()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dispatch(["metrics", os.path.join(jsonl, "gan.jsonl")])
+        dispatch(["metrics", os.path.join(jsonl, "gan.jsonl"), "--tag", "biggan", "--metric", "step_ms_mean"])
+    shown = buf.getvalue()
+    print(shown, end="")
+    check("sagan" in shown and "biggan/step_ms_mean" in shown, "metrics printed neither run")
+    print("CLIs through cli.main: " + json.dumps(out))
+    return out
+
+
+def attention_gans(dev, gen, vae_cfg, vae_sd):
+    """Phase 9: small SAGAN and BigGAN steps card against CPU (BigGAN
+    conditional and not, remat bit-equal to plain), the SN sigma check, the
+    steps at batch 8 (remat's cost), ``gan-train`` of both archs at the CLI's widths
+    through ``cli.main``, and the other CLIs on their bundles."""
+    import tempfile
+
+    import numpy as np
+
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    out["small_vs_cpu"] = {name: train_small_matches_cpu(dev, gen, arch, remat_check=arch == "biggan",
+                                                         attn_size=16, embed_dim=8, **kw)
+                           for name, (arch, kw) in SN_SMALL.items()}
+    out["sn_sigma"] = sn_sigma_check(dev, gen)
+    print("SAGAN and BigGAN small steps card vs CPU: " + json.dumps(out))
+    torch.backends.cudnn.deterministic = False
+    out["steps_b8"] = sn_step_costs(dev, gen, vae_cfg, vae_sd)
+    with tempfile.TemporaryDirectory() as tmp:
+        ws = sn_workspace(tmp, vae_cfg, vae_sd, np.random.RandomState(SEED + 9))
+        bundles, histories = {}, {}
+        for arch in ("sagan", "biggan"):
+            bundles[arch], histories[arch], out[f"gan_train_{arch}"] = sn_gan_train(arch, ws, tmp, dev)
+        out["clis"] = sn_clis(ws, bundles, histories, tmp, dev)
+    return out
+
+
 def small_config_matches_cpu(dev):
     """A small configuration through the Synthesizer on the card and on the
     CPU (whose plain versions the CPU tests hold against the JAX package)."""
@@ -1582,7 +1928,14 @@ def main():
     data_phase = data_fid_checkpoints(dev, vae_cfg, vae_sd)
     print(f"data plane, FID and JAX checkpoints on {smi}: " + json.dumps(data_phase))
 
-    # ---- phase 9: timings (serving as in its first measurement: cuDNN deterministic)
+    # ---- phase 9: SAGAN and BigGAN (gan-train through cli.main) and the remaining CLIs
+    torch.cuda.empty_cache()
+    # its own generator: the timings phase draws what it drew before this phase
+    # existed (its dcgan_up weights, randomized, must give tiles that vary)
+    sn_phase = attention_gans(dev, torch.Generator(device=dev).manual_seed(SEED + 9), vae_cfg, vae_sd)
+    print(f"SAGAN, BigGAN and the CLIs on {smi}: " + json.dumps(sn_phase))
+
+    # ---- phase 10: timings (serving as in its first measurement: cuDNN deterministic)
     torch.backends.cudnn.deterministic = True
     torch.cuda.reset_peak_memory_stats()
     k3 = k3_timings(shapes, dev, gen)
@@ -1645,9 +1998,12 @@ def main():
     ]
     for i, k in enumerate(("infused_noise", "tanh_to_uint8")):  # the quantized path launched them too
         kernels[i]["launches"] += quantized["launches"][k]
-    for i, k in ((0, "infused_noise"), (2, "fused_adam")):  # and gan_train's epoch K1 and K3
+    for i, k in ((0, "infused_noise"), (2, "fused_adam")):  # and gan_train's epochs K1 and K3
         kernels[i]["launches"] += data_phase["gan_train"]["launches"][k]
         kernels[i]["gan_train_launches"] = data_phase["gan_train"]["launches"][k]
+        for arch in ("sagan", "biggan"):
+            kernels[i]["launches"] += sn_phase[f"gan_train_{arch}"]["launches"][k]
+            kernels[i][f"gan_train_{arch}_launches"] = sn_phase[f"gan_train_{arch}"]["launches"][k]
     del w_bf16
 
     g_flops, v_flops = generator_flops(gan_cfg, BATCH), vae_encode_flops(vae_cfg, BATCH)
@@ -1704,6 +2060,7 @@ def main():
                "training_f32_k3_vs_plain": train_check, "training_small_vs_cpu": train_small,
                "training": training, "fused_adam_by_model": k3, "vae_training": vae_train,
                "vae_small_vs_cpu": vae_small, "data_fid_checkpoints": data_phase,
+               "attention_gans": sn_phase,
                "k4_check": k4_errs, "k4_bytes": k4_bytes, "quantized_head_path": quantized,
                "serving_variants_vs_cpu": variants, "serving_options_b128": serving_options,
                "total_s": time.perf_counter() - t_start}

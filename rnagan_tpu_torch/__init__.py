@@ -8,5 +8,6 @@ kernels under ``csrc/``, built with ``nvcc`` at their first launch and bound
 with ``ctypes`` (``kernels/``).
 
 Entry points: tile synthesis, :class:`rnagan_tpu_torch.eval.generate.Synthesizer`;
-GAN training, :class:`rnagan_tpu_torch.train.gan_trainer.GANTrainer`.
+GAN training, :class:`rnagan_tpu_torch.train.gan_trainer.GANTrainer`; the
+command line, ``python -m rnagan_tpu_torch.cli.main <command>``.
 """

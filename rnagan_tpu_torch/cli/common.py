@@ -15,6 +15,40 @@ def dump_pickle(path: str, obj: Any) -> None:
         pickle.dump(obj, f)
 
 
+def load_vae(checkpoint: str, model_cfg, device):
+    """A trained betaVAE for the sampling CLIs: ``(model in eval mode, scaler
+    or None, metadata)``. A ``.pt``/``.pth`` state_dict takes the
+    ``scaler.npz`` and ``model_dict_best.json`` written beside it
+    (``core/checkpoint.py::BestKeeper``) when they exist; any other file is a
+    JAX bundle (``model_best.ckpt``) with its bundled scaler and ``__meta__``."""
+    import json
+
+    from rnagan_tpu_torch import convert
+    from rnagan_tpu_torch.core.checkpoint import SCALER_NAME, load_bundle
+    from rnagan_tpu_torch.data.rna import Scaler
+    from rnagan_tpu_torch.models.betavae import BetaVAE
+
+    scaler, meta = None, {}
+    if checkpoint.endswith((".pt", ".pth")):
+        state_dict = convert.load_betavae_state_dict(checkpoint)
+        folder = os.path.dirname(os.path.abspath(checkpoint))
+        if os.path.exists(os.path.join(folder, SCALER_NAME)):
+            scaler = Scaler.load(os.path.join(folder, SCALER_NAME))
+        info = os.path.splitext(checkpoint)[0] + ".json"
+        if os.path.exists(info):
+            with open(info) as f:
+                meta = json.load(f)
+    else:
+        trees, meta = load_bundle(checkpoint)
+        state_dict = convert.betavae_state_dict_from_jax(
+            model_cfg, {"params": trees["params"], "batch_stats": trees["batch_stats"]})
+        if "scaler" in trees:
+            scaler = Scaler.from_state_dict(trees["scaler"])
+    model = BetaVAE(model_cfg, device=device)
+    model.load_state_dict(state_dict)
+    return model.eval(), scaler, meta
+
+
 def load_gan_dataframe(config: Dict[str, Any]):
     """The slide table of a config: its ``path_csv`` files read in turn and
     concatenated, each row with its CSV's ``patch_data_path`` and the CSV's

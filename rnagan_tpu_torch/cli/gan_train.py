@@ -35,7 +35,8 @@ def build_parser():
     p.add_argument("--num_epochs", type=int, default=None)
     p.add_argument("--num_patches", type=int, default=250, help="tiles per slide")
     p.add_argument("--gan_type", type=str, default="dcgan",
-                   help="dcgan | dcgan_up | condgan (sagan | biggan are not ported yet)")
+                   help="dcgan | dcgan_up | condgan | sagan | biggan (biggan is class-conditional "
+                        "over the config's CSVs)")
     p.add_argument("--loss_type", type=str, default="wganvae", help="minimax | wgan | wganvae | lsgan")
     p.add_argument("--vae_checkpoint", type=str, default=None,
                    help="beta-VAE checkpoint for wganvae: a .pt state_dict or a JAX bundle")
@@ -94,7 +95,8 @@ def main(argv=None):
     load_s = time.perf_counter() - t0
     print(f"Loaded {len(data)} tiles from {len(data.slides)} slides in {load_s:.3f} s")
 
-    # condgan is class-conditional over the tissue CSVs
+    # condgan and biggan are class-conditional over the tissue CSVs (the reference's
+    # biggan wiring's n_classes=2 is its 2 CSVs); sagan is unconditional
     conditional = args.gan_type in ("condgan", "biggan")
     model_cfg = GANModelConfig(
         arch=args.gan_type,

@@ -32,8 +32,8 @@ def build_parser():
     p.add_argument("--random_patient", action="store_true", help="sample one row from --rna_file")
     p.add_argument("--patient", type=str, default=None, help="wsi_file_name to condition on")
     p.add_argument("--gan_type", type=str, default=None,
-                   help="architecture of the checkpoint (dcgan | dcgan_up | condgan); "
-                        "defaults to the config's gan_type key or dcgan")
+                   help="architecture of the checkpoint (dcgan | dcgan_up | condgan | sagan | "
+                        "biggan); defaults to the config's gan_type key or dcgan")
     p.add_argument("--sample_size", type=int, default=64)
     p.add_argument("--save_path", type=str, default="generated.png")
     p.add_argument("--save_dir", type=str, default="generated")

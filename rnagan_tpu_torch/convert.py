@@ -14,6 +14,12 @@ the port's state_dicts. They copy the logic of
   cross-correlate, so the kernel is transposed and not flipped;
 * BatchNorm ``scale``/``bias`` + ``mean``/``var`` become
   ``weight``/``bias``/``running_mean``/``running_var`` (+ ``num_batches_tracked``);
+* SAGAN and BigGAN keep the flax names as module names
+  (``models/sagan.py::flax_source``), and flax's spectral-norm state
+  (``batch_stats["sn_Conv_1"]["Conv_1/kernel/u"]`` and ``.../sigma``)
+  becomes the layer's ``sn_u``/``sn_sigma`` buffers. The ConvTranspose flip
+  leaves ``u`` as it is: it only permutes the rows of the ``(-1, out)``
+  matrix. ``nn.Embed`` tables carry over as they are;
 * InceptionV3's flax tree maps onto torchvision's names
   (:func:`inception_state_dict_from_jax`).
 
@@ -79,17 +85,49 @@ def convt_kernel_to_torch(k) -> torch.Tensor:
     return _t(np.asarray(k)[::-1, ::-1].transpose(2, 3, 0, 1))
 
 
+#: architectures whose nets keep the flax names (``models/sagan.py``, ``models/biggan.py``)
+SN_ARCHS = ("sagan", "biggan")
+
+
+def _layout(cfg: GANModelConfig, net: str) -> torch.nn.Module:
+    """The port's net of ``cfg.arch`` on the ``meta`` device: names and
+    shapes, no storage."""
+    from rnagan_tpu_torch.models.dcgan import make_discriminator, make_generator
+
+    return (make_generator if net == "generator" else make_discriminator)(cfg, device="meta")
+
+
+def sn_state_dict_from_jax(cfg: GANModelConfig, net: str, params: Dict[str, Any],
+                           stats: Dict[str, Any]) -> StateDict:
+    """JAX params/batch_stats of a SAGAN or BigGAN ``net`` -> the port's
+    state_dict, key by key through ``flax_source``."""
+    from rnagan_tpu_torch.models.sagan import flax_source
+
+    module = _layout(cfg, net)
+    sd: StateDict = {}
+    for key in module.state_dict():
+        col, path, kind = flax_source(module, key)
+        if kind == "count":
+            sd[key] = torch.tensor(0, dtype=torch.int64)
+        else:
+            sd[key] = _TO_TORCH[kind](_f32(_get(params if col == "params" else stats, path)))
+    return sd
+
+
 def generator_state_dict_from_jax(cfg: GANModelConfig, params: Dict[str, Any],
                                   stats: Dict[str, Any]) -> StateDict:
-    """JAX generator params/batch_stats -> the port's ``model.<b>.0|1`` keys.
+    """JAX generator params/batch_stats -> the port's ``model.<b>.0|1`` keys
+    (``sagan``/``biggan``: :func:`sn_state_dict_from_jax`).
 
     ``dcgan`` and ``condgan`` (whose head reads ``encoding_dims + num_classes``
     channels) take torchgan's layout: ``ConvTranspose_b`` is block b, with
     ``_BN_b`` for b <= r when ``cfg.batchnorm``. ``dcgan_up`` takes the port's
     own (``models/dcgan.py``): block 0 is ``ConvTranspose_0`` with ``_BN_0``,
     block b >= 1 is the 3x3 ``Conv_{b-1}`` (with its bias) and ``_BN_b``."""
+    if cfg.arch in SN_ARCHS:
+        return sn_state_dict_from_jax(cfg, "generator", params, stats)
     if cfg.arch not in ("dcgan", "condgan", "dcgan_up"):
-        raise NotImplementedError(f"arch={cfg.arch!r}: no generator layout in the port")
+        raise ValueError(f"unknown gan arch {cfg.arch!r}")
     r = num_repeats(cfg.out_size)
     sd: StateDict = {}
     for b in range(r + 2):
@@ -117,9 +155,12 @@ def discriminator_state_dict_from_jax(cfg: GANModelConfig, params: Dict[str, Any
     """JAX ``DCGANDiscriminator`` params/batch_stats -> torchgan ``model.<b>.0|1``
     keys (blocks 1..r carry ``_BN_{b-1}`` when ``cfg.batchnorm``), plus
     ``cond_proj.weight`` for the projection critic. ``dcgan_up`` shares the
-    layout; ``condgan``'s block 0 reads ``out_channels + num_classes`` channels."""
+    layout; ``condgan``'s block 0 reads ``out_channels + num_classes`` channels
+    (``sagan``/``biggan``: :func:`sn_state_dict_from_jax`)."""
+    if cfg.arch in SN_ARCHS:
+        return sn_state_dict_from_jax(cfg, "discriminator", params, stats)
     if cfg.arch not in ("dcgan", "dcgan_up", "condgan"):
-        raise NotImplementedError(f"arch={cfg.arch!r}: no discriminator layout in the port")
+        raise ValueError(f"unknown gan arch {cfg.arch!r}")
     r = num_repeats(cfg.out_size)
     sd: StateDict = {}
     for b in range(r + 2):
@@ -149,9 +190,15 @@ def param_paths(cfg: GANModelConfig, net: str):
     the port's ``parameters()`` order (torchgan's, ``dcgan_torch.py:159-170``):
     per block the conv kernel, its bias or the BN scale and bias; then the
     projection critic's ``cond_proj``. ``dcgan_up``'s generator blocks b >= 1
-    are ``Conv_{b-1}``'s kernel and bias, then ``_BN_b``'s scale and bias."""
+    are ``Conv_{b-1}``'s kernel and bias, then ``_BN_b``'s scale and bias.
+    ``sagan``/``biggan`` read theirs off the net's own parameters."""
     if net not in ("generator", "discriminator"):
         raise ValueError(f"net must be 'generator' or 'discriminator', not {net!r}")
+    if cfg.arch in SN_ARCHS:
+        from rnagan_tpu_torch.models.sagan import flax_source
+
+        module = _layout(cfg, net)
+        return [flax_source(module, name)[1:] for name, _ in module.named_parameters()]
     gen = net == "generator"
     r = num_repeats(cfg.out_size)
     conv, kind = ("ConvTranspose", "convt") if gen else ("Conv", "conv")

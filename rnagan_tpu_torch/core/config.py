@@ -2,8 +2,8 @@
 
 Field names and defaults are the JAX package's, so a configuration moves
 between the two packages field for field. Knobs that only choose a TPU
-compute schedule with the same math (``GANModelConfig.convt_impl``,
-``remat``) and the device mesh (``GANConfig.mesh``, ``VAEConfig.mesh``,
+compute schedule with the same math (``GANModelConfig.convt_impl``) and
+the device mesh (``GANConfig.mesh``, ``VAEConfig.mesh``,
 ROADMAP A15) are not copied.
 """
 
@@ -52,7 +52,7 @@ class VAEConfig:
 class GANModelConfig:
     """DCGAN-family architecture (reference ``histopathology_gan.py:175-246``)."""
 
-    #: dcgan | dcgan_up | condgan | sagan | biggan (sagan and biggan are not ported yet).
+    #: dcgan | dcgan_up | condgan | sagan | biggan
     arch: str = "dcgan"
     encoding_dims: int = 2048
     out_size: int = 256
@@ -63,6 +63,10 @@ class GANModelConfig:
     num_classes: int = 0
     attn_size: int = 32
     embed_dim: int = 128
+    #: biggan: recompute each residual block in the backward pass
+    #: (``torch.utils.checkpoint``) instead of keeping its activations; the
+    #: same math, less memory
+    remat: bool = False
     batchnorm: bool = True
     critic: str = "unconditional"
     compute_dtype: str = "bfloat16"

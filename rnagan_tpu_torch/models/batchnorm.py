@@ -19,7 +19,7 @@ buffer: it returns the new statistics and the caller decides which to keep.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -30,12 +30,14 @@ EPS = 1e-5
 Stats = List[Tuple[torch.Tensor, torch.Tensor]]
 
 
-def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, mean: torch.Tensor,
-               var: torch.Tensor, *, train: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def batch_norm(x: torch.Tensor, scale: Optional[torch.Tensor], bias: Optional[torch.Tensor],
+               mean: torch.Tensor, var: torch.Tensor, *,
+               train: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``x`` (N, C, ...) in the compute dtype; ``scale``, ``bias`` and the
-    running ``mean``, ``var`` (C,) float32. Returns ``(y, new_mean, new_var)``:
-    ``y`` in ``x``'s dtype; in eval mode the running statistics come back as
-    they were."""
+    running ``mean``, ``var`` (C,) float32; a None ``scale`` or ``bias`` is
+    left out (flax's ``use_scale=False``, ``use_bias=False``). Returns ``(y,
+    new_mean, new_var)``: ``y`` in ``x``'s dtype; in eval mode the running
+    statistics come back as they were."""
     axes = [0, *range(2, x.ndim)]
     xf = x.float()
     if train:
@@ -46,6 +48,10 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, mean: t
     else:
         m, v, new_mean, new_var = mean, var, mean, var
     shape = (1, -1) + (1,) * (x.ndim - 2)
-    mul = torch.rsqrt(v + EPS) * scale
-    y = (xf - m.reshape(shape)) * mul.reshape(shape) + bias.reshape(shape)
+    mul = torch.rsqrt(v + EPS)
+    if scale is not None:
+        mul = mul * scale
+    y = (xf - m.reshape(shape)) * mul.reshape(shape)
+    if bias is not None:
+        y = y + bias.reshape(shape)
     return y.to(x.dtype), new_mean, new_var

@@ -64,10 +64,6 @@ from rnagan_tpu_torch.core.config import GANModelConfig
 from rnagan_tpu_torch.core.device import compute_dtype
 from rnagan_tpu_torch.models.batchnorm import Stats, batch_norm
 
-#: architectures of ``make_generator`` that later slices port, by ROADMAP item
-_LATER = {"sagan": "A13", "biggan": "A13"}
-
-
 def num_repeats(size: int) -> int:
     if size < 16 or (size & (size - 1)) != 0:
         raise ValueError("image size must be >= 16 and a power of 2")
@@ -75,13 +71,9 @@ def num_repeats(size: int) -> int:
 
 
 def check_arch(cfg: GANModelConfig, archs: Sequence[str]) -> None:
-    """Raise unless ``cfg.arch`` is one of ``archs``: NotImplementedError
-    naming the ROADMAP item for an architecture not ported yet."""
-    if cfg.arch in _LATER:
-        raise NotImplementedError(
-            f"arch={cfg.arch!r} is not ported yet (ROADMAP {_LATER[cfg.arch]})")
+    """Raise ValueError unless ``cfg.arch`` is one of ``archs``."""
     if cfg.arch not in archs:
-        raise ValueError(f"unknown gan arch {cfg.arch!r} here; expected one of {tuple(archs)}")
+        raise ValueError(f"arch={cfg.arch!r} is not one of {tuple(archs)} here")
 
 
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
@@ -372,19 +364,32 @@ class ConditionalDCGANDiscriminator(DCGANDiscriminator):
     conditional = True
 
 
-def make_generator(cfg: GANModelConfig, **kwargs) -> _Generator:
-    """Architecture registry (``rnagan_tpu/models/dcgan.py:262-281``);
-    ``kwargs`` go to the class (``seed``, ``device``, ...)."""
-    classes = {"dcgan": DCGANGenerator, "dcgan_up": DCGANUpGenerator,
-               "condgan": ConditionalDCGANGenerator}
+def _classes(net: str):
+    """The registry (``rnagan_tpu/models/dcgan.py:262-297``); SAGAN and BigGAN
+    are imported here, as they import this module."""
+    from rnagan_tpu_torch.models.biggan import BigGANDiscriminator, BigGANGenerator
+    from rnagan_tpu_torch.models.sagan import SAGANDiscriminator, SAGANGenerator
+
+    if net == "generator":
+        return {"dcgan": DCGANGenerator, "dcgan_up": DCGANUpGenerator,
+                "condgan": ConditionalDCGANGenerator, "sagan": SAGANGenerator,
+                "biggan": BigGANGenerator}
+    return {"dcgan": DCGANDiscriminator, "dcgan_up": DCGANDiscriminator,
+            "condgan": ConditionalDCGANDiscriminator, "sagan": SAGANDiscriminator,
+            "biggan": BigGANDiscriminator}
+
+
+def make_generator(cfg: GANModelConfig, **kwargs) -> nn.Module:
+    """The generator of ``cfg.arch``; ``kwargs`` go to the class (``seed``,
+    ``device``, ...)."""
+    classes = _classes("generator")
     check_arch(cfg, tuple(classes))
     return classes[cfg.arch](cfg, **kwargs)
 
 
-def make_discriminator(cfg: GANModelConfig, **kwargs) -> DCGANDiscriminator:
-    """``dcgan`` and ``dcgan_up`` share the plain discriminator
-    (``rnagan_tpu/models/dcgan.py:284-297``)."""
-    classes = {"dcgan": DCGANDiscriminator, "dcgan_up": DCGANDiscriminator,
-               "condgan": ConditionalDCGANDiscriminator}
+def make_discriminator(cfg: GANModelConfig, **kwargs) -> nn.Module:
+    """The discriminator of ``cfg.arch``; ``dcgan`` and ``dcgan_up`` share the
+    plain one."""
+    classes = _classes("discriminator")
     check_arch(cfg, tuple(classes))
     return classes[cfg.arch](cfg, **kwargs)

@@ -20,8 +20,13 @@ One :meth:`GANTrainer.train_step` is the JAX package's ``_train_step_impl``
 * the EMA of G's weights, on steps that updated G.
 
 G and D come from the model registry: ``dcgan``, ``dcgan_up`` (the
-resize-conv generator with the plain discriminator) and ``condgan``, whose
-batch ``labels`` go into G and D at every stage, the GP's included.
+resize-conv generator with the plain discriminator), ``condgan``, ``sagan``
+and ``biggan``. ``condgan``'s batch ``labels``, and ``biggan``'s when
+``num_classes`` > 0, go into G and D at every stage, the GP's included.
+SAGAN and BigGAN keep spectral-norm state ``(u, sigma)`` beside the
+BatchNorm statistics in ``g_stats``/``d_stats`` and thread it the same way:
+D's real pass gives ``s1``, its fake pass ``s2``, the GP reads ``s2`` and its
+update is dropped.
 
 Every Adam step is one launch of the K3 kernel (``optim/adam.py``); every
 stage's noise is one launch of the K1 kernel (``kernels/infusion.py``), its
@@ -29,7 +34,9 @@ uniforms drawn from a seed of ``core/rng.py`` or given in ``draws``. The
 frozen VAE encodes z_mean once a step: JAX encodes it per stage, with the
 same result. ``fused_critic_batch=True`` is accepted and runs this two-pass
 step: in the JAX package it is a TPU schedule of the same function, and its
-test shows the two agree (``tests/test_gan_trainer.py:337``).
+test shows the two agree (``tests/test_gan_trainer.py:337``). For ``sagan``
+and ``biggan`` it raises the JAX package's ValueError (its closed-form
+statistics blend would corrupt the power-iteration state).
 
 Unlike the JAX step, which is pure, ``train_step`` updates the state in place
 and returns it. ``fit`` writes a sample grid PNG and ``gan_last.model`` per
@@ -59,7 +66,7 @@ from rnagan_tpu_torch.losses.rna_infusion import (encode_z_mean, infused_noise,
                                                   infused_noise_population, z_population_stats)
 from rnagan_tpu_torch.models.batchnorm import Stats
 from rnagan_tpu_torch.models.betavae import BetaVAE
-from rnagan_tpu_torch.models.dcgan import DCGANDiscriminator, make_discriminator, make_generator
+from rnagan_tpu_torch.models.dcgan import make_discriminator, make_generator
 from rnagan_tpu_torch.optim.adam import Adam
 from rnagan_tpu_torch.utils.images import save_image_grid
 
@@ -72,13 +79,14 @@ _STAGES = {"d": 0, "gp": 1, "g": 2, "eps": 3}
 @dataclass
 class GANTrainState:
     """The training state. ``generator``/``discriminator`` hold the live
-    parameters; ``g_stats``/``d_stats`` the BatchNorm running statistics
-    (``(mean, var)`` per BatchNorm, module order); ``g_ema`` the EMA of G's
-    parameters in ``parameters()`` order, or None when it is off."""
+    parameters; ``g_stats``/``d_stats`` the nets' state pairs in module order
+    (``(mean, var)`` per BatchNorm, ``(u, sigma)`` per spectral norm);
+    ``g_ema`` the EMA of G's parameters in ``parameters()`` order, or None
+    when it is off."""
 
     step: int
     generator: torch.nn.Module
-    discriminator: DCGANDiscriminator
+    discriminator: torch.nn.Module
     g_stats: Stats
     d_stats: Stats
     g_opt: Adam
@@ -120,6 +128,9 @@ class GANTrainer:
                              "it requires loss_type=wganvae")
         if cfg.adam_mu_dtype not in (None, "float32", "bfloat16"):
             raise ValueError("adam_mu_dtype must be None, 'float32' or 'bfloat16'")
+        if cfg.fused_critic_batch and cfg.model.arch in ("sagan", "biggan"):
+            raise ValueError("fused_critic_batch is unsupported for spectral-norm architectures "
+                             "(sagan/biggan)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.image_dir = image_dir
@@ -181,13 +192,18 @@ class GANTrainer:
         gen = self.seeds.generator("train", step, _STAGES["eps"], self.device)
         return torch.rand(shape, generator=gen, device=self.device)
 
+    def _conditional(self) -> bool:
+        m = self.cfg.model
+        return m.arch == "condgan" or (m.arch == "biggan" and m.num_classes > 0)
+
     def _labels(self, batch) -> Optional[torch.Tensor]:
-        """``condgan``'s class labels, the batch's ``"labels"`` (JAX's
-        ``_labels``, ``gan_trainer.py:184-189``); None for the other archs."""
-        if self.cfg.model.arch != "condgan":
+        """The batch's ``"labels"`` for ``condgan``, and for ``biggan`` with
+        ``num_classes`` > 0 (JAX's ``_labels``, ``gan_trainer.py:184-189``);
+        None for the other archs and unconditional ``biggan``."""
+        if not self._conditional():
             return None
         if batch.get("labels") is None:
-            raise ValueError("arch='condgan' trains on batches with 'labels'")
+            raise ValueError(f"arch={self.cfg.model.arch!r} with classes trains on batches with 'labels'")
         return torch.as_tensor(batch["labels"]).to(self.device, torch.long)
 
     # ------------------------------------------------------------- train step
@@ -282,14 +298,15 @@ class GANTrainer:
     # -------------------------------------------------------------- sampling
     @torch.no_grad()
     def sample(self, state: GANTrainState, n: int, gene=None, z_pop=None,
-               use_ema: Optional[bool] = None, seed: int = 0) -> torch.Tensor:
+               use_ema: Optional[bool] = None, seed: int = 0, labels=None) -> torch.Tensor:
         """``n`` images (n, H, W, C) float32 in [-1, 1], generated in eval mode.
         With ``gene`` (wganvae) the noise is the infusion prior of the
         patients' z_mean ((B, F) rows, B = n or 1), standardized over the batch,
         or with ``z_pop = (mean, std)`` by population statistics; both through
         K1 with Philox ``seed``. Without ``gene`` it is standard normal.
-        ``condgan`` draws the labels uniformly from its ``num_classes`` with a
-        generator of ``seed``.
+        ``condgan`` and ``biggan`` with ``num_classes`` > 0 draw the labels
+        uniformly from their ``num_classes`` with a generator of ``seed``, or
+        take ``labels`` (n,) when given.
         ``use_ema=None`` picks the EMA generator whenever the state has one."""
         if use_ema is None:
             use_ema = state.g_ema is not None
@@ -309,8 +326,11 @@ class GANTrainer:
         else:
             gen = self.seeds.generator("sample", seed, device=dev)
             noise = torch.randn((n, self.cfg.model.encoding_dims), generator=gen, device=dev)
-        labels = None
-        if self.cfg.model.arch == "condgan":
+        if not self._conditional():
+            labels = None
+        elif labels is not None:
+            labels = torch.as_tensor(labels).to(dev, torch.long)
+        else:
             gen = self.seeds.generator("sample_labels", seed, device=dev)
             labels = torch.randint(0, self.cfg.model.num_classes, (n,), generator=gen, device=dev)
         imgs, _ = state.generator.forward_stats(noise, state.g_stats, False,

@@ -45,11 +45,12 @@ for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas", "rnagan_tpu"
 """ + _IMPORT_ALL
 
 #: subpackages of the port and modules of each that must be among the imported
-SUBPACKAGES = {"core": ("checkpoint", "msgpack"), "data": ("rna", "store", "tiles", "patches"),
-               "cli": ("betavae_train", "gan_train", "generate", "fid"),
+SUBPACKAGES = {"core": ("checkpoint", "msgpack"), "data": ("rna", "store", "tiles", "patches", "tiler"),
+               "cli": ("betavae_train", "gan_train", "generate", "fid", "sample", "interpolate",
+                       "representation", "metrics", "tile", "main"),
                "eval": ("interpolate", "fid", "representation"), "losses": ("vae",),
-               "models": ("betavae", "inception"), "optim": ("scheduled",), "train": ("vae_trainer",),
-               "kernels": ("fused_adam",), "utils": ("images",)}
+               "models": ("betavae", "inception", "sagan", "biggan"), "optim": ("scheduled",),
+               "train": ("vae_trainer",), "kernels": ("fused_adam",), "utils": ("images",)}
 
 
 def _import_all(code):
@@ -93,20 +94,37 @@ def test_entry_points_default_to_cuda():
         betavae_train.main(["--config", str(REPO / "configs" / "betavae_tissues.json")])
 
 
-@pytest.mark.parametrize("entry", ["inception_extractor", "gan_train", "fid"])
+@pytest.mark.parametrize("entry", ["inception_extractor", "gan_train", "fid", "sample", "interpolate",
+                                   "representation", "main_gan_train", "sagan_trainer", "biggan_trainer"])
 def test_data_and_fid_entry_points_default_to_cuda(entry):
-    """The Inception extractor and the training and FID CLIs resolve the
-    device first: with no card they raise unless given the CPU, before any
-    data is read."""
+    """The Inception extractor, the SAGAN and BigGAN trainers and the CLIs
+    that take ``--device`` resolve the device first: with no card they raise
+    unless given the CPU, before any data is read (``metrics`` and ``tile``
+    run on the host and take no device)."""
     if torch.cuda.is_available():
         pytest.skip("the card is present: the CUDA default does not raise here")
-    from rnagan_tpu_torch.cli import fid, gan_train
+    import dataclasses
+
+    from rnagan_tpu_torch.cli import fid, gan_train, interpolate, main, representation, sample
     from rnagan_tpu_torch.eval.fid import InceptionExtractor
 
     config = str(REPO / "configs" / "gan_run_lung.json")
+    vae = str(REPO / "configs" / "betavae_tissues.json")
+
+    def trainer(arch):
+        model = dataclasses.replace(SMALL.model, arch=arch, num_classes=2 if arch == "biggan" else 0,
+                                    attn_size=8)
+        return lambda: GANTrainer(dataclasses.replace(SMALL, model=model), BetaVAE(SMALL.vae).state_dict())
+
     call = {"inception_extractor": InceptionExtractor,
             "gan_train": lambda: gan_train.main(["--config", config]),
-            "fid": lambda: fid.main(["--config", config])}[entry]
+            "fid": lambda: fid.main(["--config", config]),
+            "sample": lambda: sample.main(["--config", vae, "--checkpoint", "absent.pt"]),
+            "interpolate": lambda: interpolate.main(["--config", vae, "--checkpoint", "absent.ckpt"]),
+            "representation": lambda: representation.main(["--config", config, "--checkpoint", "a.model",
+                                                            "--checkpoint2", "b.model", "--vae", "v.pt"]),
+            "main_gan_train": lambda: main.main(["gan-train", "--config", config, "--gan_type", "biggan"]),
+            "sagan_trainer": trainer("sagan"), "biggan_trainer": trainer("biggan")}[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
 

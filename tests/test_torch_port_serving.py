@@ -324,8 +324,9 @@ def test_quantized_full_serving_matches_jax(rng, uint8):
 
 
 def test_make_serving_fn_raises_like_jax():
-    """The ValueErrors of ``rnagan_tpu/eval/serving.py::make_serving_fn`` and
-    the ROADMAP item of the archs not ported yet."""
+    """The ValueErrors of ``rnagan_tpu/eval/serving.py::make_serving_fn``;
+    serving takes the dcgan family only (SAGAN and BigGAN sample through
+    ``GANTrainer.sample``)."""
     for arch, kw in (("dcgan_up", {"quantized_full": True}), ("condgan", {"quantized_full": True}),
                      ("condgan", {"quantized_head": True})):
         jc, tc, params, stats, sd = _weights(arch)
@@ -333,8 +334,9 @@ def test_make_serving_fn_raises_like_jax():
             jserving.make_serving_fn(jc, params, stats, **kw)
         with pytest.raises(ValueError, match="quantized"):
             tserving.make_serving_fn(tc, sd, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
-        tserving.make_serving_fn(tcfg.GANModelConfig(arch="sagan", **KW), {}, device="cpu")
+    for arch in ("sagan", "biggan"):
+        with pytest.raises(ValueError, match=arch):
+            tserving.make_serving_fn(tcfg.GANModelConfig(arch=arch, **KW), {}, device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["dcgan", "dcgan_up"])

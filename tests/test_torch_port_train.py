@@ -197,8 +197,8 @@ def test_discriminator_later_archs_and_projection_cond():
         model = tcfg.GANModelConfig(**{**MODEL_KW, "arch": arch, "num_classes": 2})
         st = GANTrainer(tcfg.GANConfig(model=model, loss_type="wgan"), device="cpu").init_state()
         assert st.discriminator.cfg.arch == st.generator.cfg.arch == arch
-    for arch in ("sagan", "biggan"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    for arch in ("sagan", "biggan"):  # their own classes (tests/test_torch_port_attention_gans.py)
+        with pytest.raises(ValueError, match=arch):
             DCGANDiscriminator(tcfg.GANModelConfig(**{**MODEL_KW, "arch": arch}))
     d = DCGANDiscriminator(tcfg.GANModelConfig(**{**MODEL_KW, "critic": "projection"}))
     with pytest.raises(ValueError, match="requires cond"):
