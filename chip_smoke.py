@@ -77,7 +77,25 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    seed), ``interpolate`` on the two-CSV table and ``metrics`` on a JSONL of
    the two runs. ``tile`` stays a CPU test (``tests/test_torch_port_cli.py``):
    the card's machine has neither PIL nor OpenSlide;
-10. timings with CUDA events: each kernel (through its wrapper, and replayed
+10. the ResNet family (AdamW through K3, its decoupled-decay path): K3 as
+   AdamW against its plain version at the shapes, rate and decay of every
+   full-width step below (the classifier's ResNet50 with 161 tensors and
+   ResNet152 with 467, SimCLR's 163, fusion's 103 trainable at decay 0), one
+   launch each, bit-equal; small configurations of the
+   classifier, SimCLR and fusion steps on the card against the CPU (float32,
+   TF32 off, cuDNN deterministic, given draws; the fusion step's frozen
+   parameters bit-unchanged); ``run_cv_experiment`` with ``MLConfig()``
+   (ResNet50, 224x224, batch 64, bfloat16) over 2 folds of 1 epoch on 512
+   drawn tiles and ``fit_resident`` for an epoch, one K3 launch a step;
+   SimCLR at ``SSLConfig()`` (batch 256, 512 views), 5 steps, its
+   backbone handed to a classifier that steps; ``FusionConfig()`` (ResNet50
+   with conv1..layer2 frozen + the 19,198-gene RNA encoder, 4 bags x 40 tiles
+   of 256x256) for 2 epochs of 8 bags, one K3 launch a step over the
+   trainable tensors, frozen parameters bit-unchanged, their BatchNorm
+   statistics moved; for each trainer the step's device time (CUDA events),
+   images/s, TFLOP/s (``FlopCounterMode``), peak memory and a profile; K3's
+   times at ResNet50's shapes beside its bound and ``torch.optim.AdamW(fused=True)``;
+11. timings with CUDA events: each kernel (through its wrapper, and replayed
    from a CUDA graph for its device time), its plain version and a PyTorch
    yardstick; K4 also at N = 64 and 1, K1 with ``u`` given and beside a
    graph-replayed launch of a one-element fill (the floor of any launch); the
@@ -749,8 +767,8 @@ def plain_adam():
     from rnagan_tpu_torch.optim import adam as adam_module
 
     kernel = adam_module.fused_adam
-    adam_module.fused_adam = lambda p, g, mu, nu, *, c1, c2, lr, b1, b2, eps: adam_update_plain(
-        p, g, mu, nu, c1, c2, lr, b1, b2, eps)
+    adam_module.fused_adam = lambda p, g, mu, nu, *, c1, c2, lr, b1, b2, eps, wd=0.0: adam_update_plain(
+        p, g, mu, nu, c1, c2, lr, b1, b2, eps, wd)
     try:
         yield
     finally:
@@ -1532,15 +1550,22 @@ SN_SMALL = {"sagan": ("sagan", {}), "biggan": ("biggan", {"num_classes": 2}),
 
 
 @contextlib.contextmanager
-def returned(module):
-    """What ``module.main`` returns while ``cli.main`` dispatches to it (the
-    dispatcher itself returns only an exit code)."""
-    results, original = [], module.main
-    module.main = lambda argv=None: results.append(original(argv)) or results[-1]
+def collected(owner, name):
+    """What ``owner.name`` (a module's function, or a class's method) returns
+    while the block runs: a command's results while ``cli.main`` dispatches
+    to it (the dispatcher itself returns only an exit code), a loop's
+    histories."""
+    results, original = [], getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        results.append(original(*args, **kwargs))
+        return results[-1]
+
+    setattr(owner, name, wrapper)
     try:
         yield results
     finally:
-        module.main = original
+        setattr(owner, name, original)
 
 
 def dispatch(argv, module=None):
@@ -1549,7 +1574,7 @@ def dispatch(argv, module=None):
     from rnagan_tpu_torch.cli import main as cli_main
 
     t0 = time.perf_counter()
-    with returned(module) if module is not None else contextlib.nullcontext([None]) as res:
+    with collected(module, "main") if module is not None else contextlib.nullcontext([None]) as res:
         rc = cli_main.main(argv)
     torch.cuda.synchronize()
     check(rc == 0, f"cli.main {argv[0]} exited {rc}")
@@ -1787,6 +1812,428 @@ def attention_gans(dev, gen, vae_cfg, vae_sd):
     return out
 
 
+# ------------------------------------- the ResNet family: ML, SimCLR, fusion
+
+#: the phase's full-width sizes: the CV corpus (tiles, side), the fusion bags
+#: (count, side); a CPU rehearsal shrinks them
+ML_TILES, ML_SIZE = 512, 224
+FUSION_BAGS, FUSION_SIDE = 8, 256
+#: MLConfig / SSLConfig / FusionConfig fields beside their defaults, and the
+#: SimCLR and fusion backbone (None: ResNet50): none, so full width
+ML_KEYS, SSL_KEYS, FUSION_KEYS = {}, {}, {}
+BACKBONE = None
+#: the tile side of the small card-against-CPU steps: at 64 the last stage's
+#: BatchNorm normalizes 2x2 maps, at 32 a 1x1 map of 8 (16 views) values, which
+#: amplifies cuDNN's and the CPU's rounding past the CPU tests' bounds
+SMALL_SIDE = 64
+#: AdamW of MLConfig(): K3's decoupled-decay path at the classifier's rate
+ADAMW_HP = dict(lr=3e-5, b1=0.9, b2=0.999, eps=1e-8, wd=0.01)
+#: group -> (rtol, share of the scale tensor's largest value): the CPU tests'
+#: bounds (tests/test_torch_port_resnet.py, test_torch_port_ssl_fusion.py)
+RESNET_TOL = {"params": (1e-5, 1e-6), "stats": (1e-5, 1e-6), "moments": (1e-5, 1e-5)}
+
+
+def resnet_shapes(arch, **kw):
+    from rnagan_tpu_torch.models.resnet import ARCHS
+
+    return [tuple(p.shape) for p in ARCHS[arch](device="meta", **kw).parameters()]
+
+
+def k3_adamw_cases():
+    """(name, the parameter shapes one launch takes, AdamW's rate and decay)
+    of every AdamW step that phase 10 drives at full width: the classifier
+    (``MLConfig``: ResNet50 at 2 classes, and ``--arch resnet152``), SimCLR
+    (``SSLConfig``: ResNet50 + the projection) and fusion (``FusionConfig``:
+    the trainable tensors only, the RNA encoder's 19,198 x 6,000 kernel among
+    them, decay 0: K3's no-decay instantiation with a table of more than 64
+    rows)."""
+    from rnagan_tpu_torch.core.config import VAEModelConfig
+    from rnagan_tpu_torch.models.fusion import FusionModel
+    from rnagan_tpu_torch.models.resnet import ARCHS
+    from rnagan_tpu_torch.train.fusion_trainer import FusionConfig, trainable_names
+    from rnagan_tpu_torch.train.ssl_trainer import SimCLRModel, SSLConfig
+
+    ssl, fusion = SSLConfig(**SSL_KEYS), FusionConfig(**FUSION_KEYS)
+    backbone = BACKBONE or ARCHS["resnet50"]
+    simclr = SimCLRModel(backbone(num_classes=0, device="meta"), ssl.projection_hidden, ssl.projection_dim,
+                         device="meta")
+    fused = FusionModel(backbone(num_classes=0, device="meta"), VAEModelConfig().rna_features,
+                        fusion.rna_hidden_dims, fusion.num_classes, device="meta")
+    trainable = set(trainable_names(fused, fusion.freeze_backbone_early))
+    return (("resnet50", resnet_shapes("resnet50", num_classes=2), ADAMW_HP),
+            ("resnet152", resnet_shapes("resnet152", num_classes=2), ADAMW_HP),
+            ("simclr", [tuple(p.shape) for p in simclr.parameters()],
+             ADAMW_HP | {"lr": ssl.lr, "wd": ssl.weight_decay}),
+            ("fusion", [tuple(p.shape) for n, p in fused.named_parameters() if n in trainable],
+             ADAMW_HP | {"lr": fusion.lr, "wd": fusion.weight_decay}))
+
+
+def check_k3_adamw(dev, gen):
+    """K3 as AdamW against its plain version at the shapes, rate and decay of
+    each of ``k3_adamw_cases``, one launch each, float32 mu. Bit-equal."""
+    from rnagan_tpu_torch.kernels.fused_adam import adam_update_plain, fused_adam
+
+    out = {}
+    for name, shapes, hp in k3_adamw_cases():
+        c1, c2 = adam_corrections(6, hp["b1"], hp["b2"])
+        a = adam_inputs(shapes, dev, gen, torch.float32)
+        b = [[t.clone() for t in ts] for ts in a]
+        before = fused_adam.launches
+        fused_adam(*a, c1=c1, c2=c2, **hp)
+        check(fused_adam.launches == before + 1, f"K3 AdamW at {name}'s {len(shapes)} tensors: not one launch")
+        adam_update_plain(*b, c1, c2, **hp)
+        torch.cuda.synchronize()
+        worst = {m: max(ulps(x, y) for x, y in zip(xs, ys))
+                 for m, xs, ys in zip(("p", "mu", "nu"), (a[0], a[2], a[3]), (b[0], b[2], b[3]))}
+        err = max(float((x - y).abs().max()) for xs, ys in zip(a, b) for x, y in zip(xs, ys))
+        check(max(worst.values()) == 0, f"K3 AdamW at {name}'s shapes differs from its plain version: {worst} ulp")
+        out[name] = {"tensors": len(shapes), "params": sum(math.prod(s) for s in shapes), "lr": hp["lr"],
+                     "wd": hp["wd"], "ulps": worst, "max_abs_err": err}
+        del a, b
+        torch.cuda.empty_cache()
+    print(f"K3 AdamW vs plain, one launch each: {json.dumps(out)}")
+    return out
+
+
+def k3_adamw_timings(shapes, dev, gen):
+    """K3 with decay through its wrapper and replayed from a CUDA graph, its
+    plain version, and ``torch.optim.AdamW(fused=True)`` as the yardstick."""
+    from rnagan_tpu_torch.kernels.fused_adam import adam_update_plain, fused_adam
+
+    c1, c2 = adam_corrections(6, ADAMW_HP["b1"], ADAMW_HP["b2"])
+    a = adam_inputs(shapes, dev, gen, torch.float32)
+    params = sum(math.prod(s) for s in shapes)
+    call = lambda: fused_adam(*a, c1=c1, c2=c2, **ADAMW_HP)  # noqa: E731
+    ps = [torch.nn.Parameter(t.clone()) for t in a[0]]
+    for p, g in zip(ps, a[1]):
+        p.grad = g
+    library = torch.optim.AdamW(ps, lr=ADAMW_HP["lr"], betas=(ADAMW_HP["b1"], ADAMW_HP["b2"]),
+                                eps=ADAMW_HP["eps"], weight_decay=ADAMW_HP["wd"], fused=True)
+    ms_bound, by = bound_ms(28 * params, 13 * params)  # read p, g, mu, nu; write p, mu, nu
+    out = {"params": params, "tensors": len(shapes), "ms": time_ms(call, iters=20),
+           "device_ms": graph_ms(call, reps=10, iters=5),
+           "plain_ms": time_ms(lambda: adam_update_plain(*a, c1, c2, **ADAMW_HP), iters=5),
+           "library_ms": time_ms(library.step, iters=10), "bound_ms": ms_bound, "bound_by": by}
+    del a, ps, library
+    return out
+
+
+def resnet_state_to(state, dev):
+    """A copy of an ML, SimCLR or fusion training state on ``dev``."""
+    st = copy.deepcopy(state)
+    st.model.to(dev)
+    st.opt.mu, st.opt.nu = [t.to(dev) for t in st.opt.mu], [t.to(dev) for t in st.opt.nu]
+    return st
+
+
+def resnet_state_excess(a, b, names, kernels=None, lr=0.0):
+    """The largest ratio of a difference between two states (``a`` on the
+    card, ``b`` on the CPU) to its allowance under ``RESNET_TOL``, and where.
+    ``kernels`` maps each Dense bias ahead of a train-mode BatchNorm to its
+    kernel (the fusion model's ``pre_norm_biases()``, which the CPU tests
+    use too). Such a bias's true gradient is 0; what it gets is rounding
+    noise of the sums behind its kernel's, which Adam normalizes into moves
+    of up to ``lr`` either way on each device. So its moments are held to
+    the kernel's scale, as the CPU tests hold them, and the bias to that
+    scale plus ``2 * lr``: about the bias's own size after 6 steps, so the
+    bias itself is in effect not compared, only its moments are."""
+    kernels = kernels or {}
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+
+    def ratio(group, x, y, ref, noise=0.0):
+        x, y = x.detach().float().cpu(), y.detach().float().cpu()
+        rtol, share = RESNET_TOL[group]
+        allow = rtol * y.abs() + share * float(ref.detach().float().abs().max()) + noise + 1e-30
+        return float(((x - y).abs() / allow).max())
+
+    found = [(ratio("stats" if "running_" in k else "params", sa[k], y, sb[kernels.get(k, k)],
+                    2 * lr if k in kernels else 0.0), k)
+             for k, y in sb.items() if not k.endswith("num_batches_tracked")]
+    for moment, xs, ys in (("mu", a.opt.mu, b.opt.mu), ("nu", a.opt.nu, b.opt.nu)):
+        pool = dict(zip(names, ys))
+        found += [(ratio("moments", x, y, pool[kernels.get(name, name)]), f"{moment} {name}")
+                  for name, x, y in zip(names, xs, ys, strict=True)]
+    return max(found, key=lambda rw: rw[0])
+
+
+def resnet_small_matches_cpu(dev):
+    """Small configurations of the three trainers (a BasicBlock ResNet of one
+    block a stage, ``SMALL_SIDE`` tiles, float32, TF32 off, cuDNN
+    deterministic), one step each on the card against the same step on the
+    CPU from one state with the same draws: the state of 5 steps on the CPU,
+    each on a batch of its own (as the CPU tests start from a JAX state of 5
+    steps: the moments at the gradients' scale, the loss not yet fitted),
+    within the CPU tests' bounds (``RESNET_TOL``), one K3 launch a card step;
+    the fusion step's frozen parameters bit-unchanged on the card."""
+    import functools
+
+    import numpy as np
+
+    from rnagan_tpu_torch.core.config import MLConfig
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.models.resnet import BasicBlock, ResNet
+    from rnagan_tpu_torch.train.fusion_trainer import FusionConfig, FusionTrainer, trainable_names
+    from rnagan_tpu_torch.train.ml_experiment import TileClassifierTrainer
+    from rnagan_tpu_torch.train.ssl_trainer import SimCLRTrainer, SSLConfig, draw_view
+
+    tiny = functools.partial(ResNet, BasicBlock, (1, 1, 1, 1), compute_dtype="float32")
+    rng = np.random.RandomState(SEED + 10)
+    cpu_gen = torch.Generator().manual_seed(SEED + 10)
+    n, side, genes = 8, SMALL_SIDE, 128
+    labels = np.arange(n) % 2
+    mask = np.r_[np.ones(n - 1), 0.0].astype(np.float32)
+    # six batches: five to reach the compared state, the sixth for the compared step
+    images = [rng.rand(n, side, side, 3).astype(np.float32) for _ in range(6)]
+    bags = [rng.randint(0, 256, (4, 2, side, side, 3)).astype(np.uint8) for _ in range(6)]
+    rna = [rng.randn(4, genes).astype(np.float32) for _ in range(6)]
+    cases = {
+        "ml": (lambda d: TileClassifierTrainer(MLConfig(batch_size=n, image_size=side),
+                                               model=functools.partial(tiny, num_classes=2), device=d),
+               lambda tr: tr.init_state(),
+               {"flip_h": rng.rand(n) < 0.5, "flip_v": rng.rand(n) < 0.5},
+               lambda tr, st, k, draws: tr.train_step(st, images[k], labels, mask, draws=draws)),
+        "ssl": (lambda d: SimCLRTrainer(SSLConfig(batch_size=n, image_size=side, projection_hidden=64,
+                                                  projection_dim=32), backbone=tiny, device=d),
+                lambda tr: tr.init_state(),
+                {v: draw_view(n, 0.6, cpu_gen, "cpu") for v in "ab"},
+                lambda tr, st, k, draws: tr.train_step(st, images[k], draws=draws)),
+        "fusion": (lambda d: FusionTrainer(FusionConfig(rna_hidden_dims=(64, 32)), backbone=tiny, device=d),
+                   lambda tr: tr.init_state(bags[0].shape[1:], genes),
+                   {"keep": rng.rand(4, genes) < 0.5},
+                   lambda tr, st, k, draws: tr.train_step(st, bags[k], rna[k], labels[:4], mask[-4:],
+                                                          draws=draws)),
+    }
+    out = {}
+    for name, (make, init, draws, step) in cases.items():
+        cpu, card = make("cpu"), make(dev)
+        s_cpu = init(cpu)
+        for k in range(5):
+            step(cpu, s_cpu, k, None)  # the trainer's own draws
+        s_card = resnet_state_to(s_cpu, dev)
+        frozen = {k: p.detach().clone() for k, p in s_card.model.named_parameters() if not p.requires_grad}
+        _, m_cpu = step(cpu, s_cpu, 5, draws)
+        before = fused_adam.launches
+        _, m_card = step(card, s_card, 5, draws)
+        launches = fused_adam.launches - before
+        check(launches == 1, f"small {name} step on the card launched K3 {launches} times")
+        if name == "fusion":
+            names, kernels = trainable_names(s_cpu.model, True), s_cpu.model.pre_norm_biases()
+        else:
+            names, kernels = [k for k, _ in s_cpu.model.named_parameters()], {}
+        excess, where = resnet_state_excess(s_card, s_cpu, names, kernels, lr=cpu.cfg.lr)
+        for k in m_cpu:
+            a, b = float(m_cpu[k]), float(m_card[k])
+            check(abs(a - b) <= 1e-5 * abs(a) + 1e-6, f"small {name} step {k}: CPU {a}, card {b}")
+        check(excess <= 1.0, f"small {name} step: card vs CPU state at {excess} x its tolerance ({where})")
+        unchanged = all(torch.equal(p, frozen[k]) for k, p in s_card.model.named_parameters() if k in frozen)
+        check(unchanged, f"small {name} step moved a frozen parameter on the card")
+        out[name] = {"state_excess": excess, "worst": where, "frozen_tensors": len(frozen), "launches": launches,
+                     "metrics_card": {k: float(v) for k, v in m_card.items()}}
+    print("ResNet family small steps card vs CPU: " + json.dumps(out))
+    return out
+
+
+def drawn_tiles(gen, n, side, dev):
+    """``n`` tiles in [0, 1], NHWC, two classes (alternating) apart by a
+    shift of the first channel: labels and the float tiles on ``dev``."""
+    labels = torch.arange(n, device=dev) % 2
+    x = torch.rand(n, side, side, 3, generator=gen, device=dev) * 0.8
+    x[..., 0] += 0.2 * labels[:, None, None].float()
+    return x, labels
+
+
+def step_costs(step, batch_images, flop_step=None):
+    """A training step's device time (CUDA events over 10 steps after 3), peak
+    memory above the state, FLOPs (``FlopCounterMode`` over one step: convs
+    and matmuls, forward and backward) and 3 profiled steps."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(step, iters=10, warmup=0)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    with FlopCounterMode(display=False) as fc:
+        (flop_step or step)()
+    flops = fc.get_total_flops()
+    return {"step_ms": ms, "images_per_s": batch_images / ms * 1e3, "step_tflop": flops / 1e12,
+            "tflop_per_s": flops / ms / 1e9, "peak_gib_above_state": peak,
+            "profile": profile_training(step)}
+
+
+def ml_full_width(dev, gen):
+    """``MLConfig()`` (ResNet50, 224x224, 2 classes, batch 64, bfloat16,
+    AdamW through K3): ``run_cv_experiment`` with 2 folds of 1 epoch over
+    ``ML_TILES`` drawn tiles, the K3 counter set to 0 before and read after
+    (one launch a train step); ``fit_resident`` for one epoch on uint8 tiles
+    on the card; then the step's costs."""
+    from rnagan_tpu_torch.core.config import MLConfig
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.train import ml_experiment as ml
+
+    cfg = MLConfig(folds=2, num_epochs=1, **ML_KEYS)
+    x, y = drawn_tiles(gen, ML_TILES, ML_SIZE, dev)
+    images, labels = x.cpu().numpy(), y.cpu().numpy()
+    out = {"tiles": ML_TILES, "side": ML_SIZE, "arch": cfg.arch, "batch": cfg.batch_size}
+    steps = sum(-(-len(tr_idx) // cfg.batch_size) for tr_idx, _ in ml.stratified_folds(labels, cfg.folds, cfg.seed))
+    torch.cuda.synchronize()
+    fused_adam.launches = 0
+    t0 = time.perf_counter()
+    with collected(ml.TileClassifierTrainer, "fit") as fits:
+        res = ml.run_cv_experiment(images, labels, cfg, device=dev)
+    torch.cuda.synchronize()
+    out["cv_s"], out["cv_launches"], out["cv_steps"] = time.perf_counter() - t0, fused_adam.launches, steps
+    out["cv"] = res
+    history = [h for _, r in fits for h in r["history"]]
+    out["cv_history"] = history
+    check(out["cv_launches"] == steps, f"run_cv_experiment launched K3 {out['cv_launches']} times in {steps} steps")
+    check(len(history) == cfg.folds and all(math.isfinite(h["loss"]) for h in history), f"CV losses {history}")
+    del images
+
+    tr = ml.TileClassifierTrainer(cfg, device=dev)
+    u8 = (x * 255).to(torch.uint8)
+    n_train = ML_TILES * 3 // 4
+    fused_adam.launches = 0
+    t0 = time.perf_counter()
+    st, res = tr.fit_resident(u8[:n_train], y[:n_train], u8[n_train:], y[n_train:].cpu().numpy())
+    torch.cuda.synchronize()
+    out["resident_s"], out["resident_launches"] = time.perf_counter() - t0, fused_adam.launches
+    out["resident_history"] = res["history"]
+    check(out["resident_launches"] == n_train // cfg.batch_size,
+          f"fit_resident launched K3 {out['resident_launches']} times in {n_train // cfg.batch_size} steps")
+    check(math.isfinite(res["history"][0]["loss"]), f"fit_resident loss {res['history']}")
+    del u8
+
+    xb, yb = x[:cfg.batch_size], y[:cfg.batch_size]
+    ones = torch.ones(cfg.batch_size, device=dev)
+    out.update(step_costs(lambda: tr.train_step(st, xb, yb, ones), cfg.batch_size))
+    out["params"] = sum(p.numel() for p in st.model.parameters())
+    out["tensors"] = len(st.opt.mu)
+    del st, tr, x, y
+    return out
+
+
+def ssl_full_width(dev, gen):
+    """``SSLConfig()`` (ResNet50 + a 512 -> 128 projection, 224x224, batch
+    256 of 2 views each, temperature 0.5, AdamW at 1e-3 and 1e-6): 3 warm-up steps, then 5 with the K3 counter set to 0 before them
+    and read after (host clock, one synchronize); the step's costs; the
+    backbone handed to a ``TileClassifierTrainer`` that takes a step."""
+    from rnagan_tpu_torch.core.config import MLConfig
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.train.ml_experiment import TileClassifierTrainer
+    from rnagan_tpu_torch.train.ssl_trainer import SimCLRTrainer, SSLConfig
+
+    cfg = SSLConfig(**SSL_KEYS)
+    tr = SimCLRTrainer(cfg, backbone=BACKBONE, device=dev)
+    st = tr.init_state()
+    x, _ = drawn_tiles(gen, cfg.batch_size, cfg.image_size, dev)
+    for _ in range(3):
+        tr.train_step(st, x)
+    torch.cuda.synchronize()
+    fused_adam.launches = 0
+    t0 = time.perf_counter()
+    metrics = [tr.train_step(st, x)[1] for _ in range(5)]
+    torch.cuda.synchronize()
+    out = {"batch": cfg.batch_size, "views": 2 * cfg.batch_size, "side": cfg.image_size,
+           "step_ms_host": (time.perf_counter() - t0) * 1e3 / 5, "launches": fused_adam.launches,
+           "metrics": [{k: float(v) for k, v in m.items()} for m in metrics],
+           "params": sum(p.numel() for p in st.model.parameters()), "tensors": len(st.opt.mu)}
+    check(out["launches"] == 5, f"5 SimCLR steps launched K3 {out['launches']} times")
+    check(all(math.isfinite(m["loss"]) for m in out["metrics"]), f"SimCLR losses {out['metrics']}")
+    out.update(step_costs(lambda: tr.train_step(st, x), 2 * cfg.batch_size))
+    bv = tr.backbone_variables(st)
+    del x
+    ml_cfg = MLConfig(batch_size=8, **{k: v for k, v in ML_KEYS.items() if k != "batch_size"})
+    cls = TileClassifierTrainer(ml_cfg, backbone_variables=bv, device=dev)
+    cst = cls.init_state()
+    check(all(torch.equal(cst.model.state_dict()[k], v) for k, v in bv.items()), "the backbone handoff")
+    xs, ys = drawn_tiles(gen, 8, ml_cfg.image_size, dev)
+    _, m = cls.train_step(cst, xs, ys, torch.ones(8, device=dev))
+    out["handoff_loss"] = float(m["loss"])
+    check(math.isfinite(out["handoff_loss"]), "the classifier's step on the SimCLR backbone")
+    del st, tr, cls, cst, bv
+    return out
+
+
+def fusion_full_width(dev, gen):
+    """``FusionConfig()``: the ResNet50 backbone (conv1 .. layer2 frozen) +
+    ``RNAEncoder`` (6000, 4000, 2048) over 19,198 genes, batch 4 bags x 40
+    tiles of ``FUSION_SIDE``, drawn; ``fit`` for 2 epochs of ``FUSION_BAGS``
+    bags with the K3 counter set to 0 before and read after (one launch a
+    step, over the trainable tensors only); frozen parameters bit-unchanged
+    and the frozen stages' BatchNorm statistics moved; the step's costs."""
+    from rnagan_tpu_torch.core.config import VAEModelConfig
+    from rnagan_tpu_torch.data.patches import BagData
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.train.fusion_trainer import FusionConfig, FusionTrainer
+
+    cfg = FusionConfig(**FUSION_KEYS)
+    genes = VAEModelConfig().rna_features
+    tr = FusionTrainer(cfg, backbone=BACKBONE, device=dev)
+    bags = torch.randint(0, 256, (FUSION_BAGS, cfg.bag_size, FUSION_SIDE, FUSION_SIDE, 3), generator=gen,
+                         device=dev, dtype=torch.uint8).cpu().numpy()
+    labels = (torch.arange(FUSION_BAGS) % 2).numpy().astype("int32")
+    slide_idx = (torch.arange(FUSION_BAGS) // 2).numpy().astype("int32")
+    rna = torch.randn(FUSION_BAGS // 2, genes, generator=gen, device=dev).cpu().numpy()
+    data = BagData(bags, labels, slide_idx, [f"S{i}" for i in range(FUSION_BAGS // 2)], rna)
+    st = tr.init_state(bags.shape[1:], genes)
+    frozen = {k: p.detach().clone() for k, p in st.model.named_parameters() if not p.requires_grad}
+    frozen_stats = {k: v.clone() for k, v in st.model.state_dict().items()
+                    if k.startswith(("backbone.bn1.", "backbone.layer1.", "backbone.layer2.")) and "running_" in k}
+    steps = 2 * -(-FUSION_BAGS // cfg.batch_size)
+    torch.cuda.synchronize()
+    fused_adam.launches = 0
+    t0 = time.perf_counter()
+    st, res = tr.fit(data, num_epochs=2, state=st)
+    torch.cuda.synchronize()
+    out = {"bags": FUSION_BAGS, "bag_size": cfg.bag_size, "side": FUSION_SIDE, "genes": genes,
+           "fit_s": time.perf_counter() - t0, "launches": fused_adam.launches, "steps": steps,
+           "history": res["history"], "trainable_tensors": len(st.opt.mu), "frozen_tensors": len(frozen),
+           "params": sum(p.numel() for p in st.model.parameters()),
+           "trainable_params": sum(m.numel() for m in st.opt.mu)}
+    print(f"fusion: {out['trainable_tensors']} trainable tensors in K3's table, {out['frozen_tensors']} frozen")
+    check(out["launches"] == steps, f"fusion fit launched K3 {out['launches']} times in {steps} steps")
+    check(all(math.isfinite(h["loss"]) for h in res["history"]), f"fusion losses {res['history']}")
+    moved = [k for k, p in st.model.named_parameters() if k in frozen and not torch.equal(p, frozen[k])]
+    check(not moved, f"fusion fit moved frozen parameters {moved[:3]}")
+    sd = st.model.state_dict()
+    still = [k for k, v in frozen_stats.items() if torch.equal(sd[k], v)]
+    check(not still, f"frozen stages' BatchNorm statistics did not move: {still[:3]}")
+    xb, rb = bags[:cfg.batch_size], rna[slide_idx[:cfg.batch_size]]
+    yb, mb = labels[:cfg.batch_size], torch.ones(cfg.batch_size).numpy()
+    out.update(step_costs(lambda: tr.train_step(st, xb, rb, yb, mb), cfg.batch_size * cfg.bag_size))
+    del st, tr, data, bags
+    return out
+
+
+def resnet_family(dev, gen):
+    """Phase 10: K3's AdamW against its plain version, the small trainers
+    card against CPU, and the three trainers at full width."""
+    out = {}
+    out["k3_adamw_check"] = check_k3_adamw(dev, gen)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    out["small_vs_cpu"] = resnet_small_matches_cpu(dev)
+    torch.backends.cudnn.deterministic = False
+    for name, fn in (("ml", ml_full_width), ("ssl", ssl_full_width), ("fusion", fusion_full_width)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[name] = fn(dev, gen)
+        out[name]["phase_s"] = time.perf_counter() - t0
+        print(f"{name} at full width: " + json.dumps(
+            {k: v for k, v in out[name].items() if k not in ("profile", "cv_history", "history", "metrics")}
+            | {"device_busy_ms": out[name]["profile"].get("device_busy_ms_per_step"),
+               "device_idle_share": out[name]["profile"].get("device_idle_share")}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["k3_resnet50"] = k3_adamw_timings(resnet_shapes("resnet50", num_classes=2), dev, gen)
+    return out
+
+
 def small_config_matches_cpu(dev):
     """A small configuration through the Synthesizer on the card and on the
     CPU (whose plain versions the CPU tests hold against the JAX package)."""
@@ -1935,7 +2382,19 @@ def main():
     sn_phase = attention_gans(dev, torch.Generator(device=dev).manual_seed(SEED + 9), vae_cfg, vae_sd)
     print(f"SAGAN, BigGAN and the CLIs on {smi}: " + json.dumps(sn_phase))
 
-    # ---- phase 10: timings (serving as in its first measurement: cuDNN deterministic)
+    # ---- phase 10: the ResNet family (AdamW through K3): the classifier's CV, SimCLR, fusion
+    torch.cuda.empty_cache()
+    resnet_phase = resnet_family(dev, torch.Generator(device=dev).manual_seed(SEED + 10))
+    print(f"ResNet family on {smi}: " + json.dumps(
+        {"k3_resnet50": resnet_phase["k3_resnet50"], "small_vs_cpu": resnet_phase["small_vs_cpu"]}
+        | {name: {k: resnet_phase[name][k] for k in ("step_ms", "images_per_s", "step_tflop", "tflop_per_s",
+                                                     "peak_gib_above_state", "phase_s")}
+                 | {"device_busy_ms": resnet_phase[name]["profile"].get("device_busy_ms_per_step"),
+                    "device_idle_share": resnet_phase[name]["profile"].get("device_idle_share")}
+           for name in ("ml", "ssl", "fusion")}))
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: timings (serving as in its first measurement: cuDNN deterministic)
     torch.backends.cudnn.deterministic = True
     torch.cuda.reset_peak_memory_stats()
     k3 = k3_timings(shapes, dev, gen)
@@ -1998,6 +2457,17 @@ def main():
     ]
     for i, k in enumerate(("infused_noise", "tanh_to_uint8")):  # the quantized path launched them too
         kernels[i]["launches"] += quantized["launches"][k]
+    # the ResNet family's main paths: AdamW, one launch a step, and K3 at ResNet50's shapes
+    resnet_launches = {"ml_cv": resnet_phase["ml"]["cv_launches"],
+                       "ml_fit_resident": resnet_phase["ml"]["resident_launches"],
+                       "ssl": resnet_phase["ssl"]["launches"], "fusion": resnet_phase["fusion"]["launches"]}
+    kernels[2]["launches"] += sum(resnet_launches.values())
+    kernels[2]["resnet_launches"] = resnet_launches
+    kernels[2]["max_abs_err"] = max(kernels[2]["max_abs_err"],
+                                    *(v["max_abs_err"] for v in resnet_phase["k3_adamw_check"].values()))
+    kernels[2].update({f"resnet50_{key}": resnet_phase["k3_resnet50"][key]
+                       for key in ("params", "tensors", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")})
     for i, k in ((0, "infused_noise"), (2, "fused_adam")):  # and gan_train's epochs K1 and K3
         kernels[i]["launches"] += data_phase["gan_train"]["launches"][k]
         kernels[i]["gan_train_launches"] = data_phase["gan_train"]["launches"][k]
@@ -2060,7 +2530,7 @@ def main():
                "training_f32_k3_vs_plain": train_check, "training_small_vs_cpu": train_small,
                "training": training, "fused_adam_by_model": k3, "vae_training": vae_train,
                "vae_small_vs_cpu": vae_small, "data_fid_checkpoints": data_phase,
-               "attention_gans": sn_phase,
+               "attention_gans": sn_phase, "resnet_family": resnet_phase,
                "k4_check": k4_errs, "k4_bytes": k4_bytes, "quantized_head_path": quantized,
                "serving_variants_vs_cpu": variants, "serving_options_b128": serving_options,
                "total_s": time.perf_counter() - t_start}

@@ -9,5 +9,8 @@ with ``ctypes`` (``kernels/``).
 
 Entry points: tile synthesis, :class:`rnagan_tpu_torch.eval.generate.Synthesizer`;
 GAN training, :class:`rnagan_tpu_torch.train.gan_trainer.GANTrainer`; the
-command line, ``python -m rnagan_tpu_torch.cli.main <command>``.
+downstream tile classifier, SimCLR and fusion,
+:mod:`rnagan_tpu_torch.train.ml_experiment`, ``ssl_trainer`` and
+``fusion_trainer``; the command line, ``python -m rnagan_tpu_torch.cli.main
+<command>``.
 """

@@ -6,8 +6,8 @@
 Device-taking commands read ``--device`` (default ``cuda``) where the JAX
 ones read ``--platform``; ``metrics`` and ``tile`` run on the host and take
 neither. ``metrics`` joins the table, which the JAX dispatcher leaves to
-``python -m rnagan_tpu.cli.metrics``. ``ml-experiment`` and ``export-torch``
-are not ported yet: they exit with code 2 and name their ROADMAP item.
+``python -m rnagan_tpu.cli.metrics``. ``export-torch`` is not ported yet: it
+exits with code 2 and names its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,15 +24,14 @@ COMMANDS = {
     "interpolate": ("rnagan_tpu_torch.cli.interpolate", "latent interpolation (betaVAE_interpolation.py)"),
     "representation": ("rnagan_tpu_torch.cli.representation",
                        "per-patient representations (compute_representation.py)"),
-    "ml-experiment": (None, "downstream classification (ml_experiments.py)"),
+    "ml-experiment": ("rnagan_tpu_torch.cli.ml_experiment", "downstream classification (ml_experiments.py)"),
     "tile": ("rnagan_tpu_torch.cli.tile", "WSI preprocessing (patch_gen_grid.py)"),
     "metrics": ("rnagan_tpu_torch.cli.metrics", "MetricsLogger JSONL viewer"),
     "export-torch": (None, "GAN checkpoint <-> torchgan .model conversion"),
 }
 
 #: commands of the JAX dispatcher the port does not have yet, by ROADMAP item
-NOT_PORTED = {"ml-experiment": "A12 (models/resnet.py, train/ml_experiment.py)",
-              "export-torch": "A16 (export_torch: the port-state -> flax-tree converters)"}
+NOT_PORTED = {"export-torch": "A16 (export_torch: the port-state -> flax-tree converters)"}
 
 
 def main(argv=None) -> int:

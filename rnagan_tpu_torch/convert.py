@@ -21,7 +21,13 @@ the port's state_dicts. They copy the logic of
   leaves ``u`` as it is: it only permutes the rows of the ``(-1, out)``
   matrix. ``nn.Embed`` tables carry over as they are;
 * InceptionV3's flax tree maps onto torchvision's names
-  (:func:`inception_state_dict_from_jax`).
+  (:func:`inception_state_dict_from_jax`);
+* the ResNet family (``models/resnet.py``, torchvision's names) and the
+  fusion and SimCLR models around it map key by key
+  (:func:`resnet_flax_leaf`): ``layer1.0.downsample.0`` is flax's
+  ``layer1_0/downsample_conv``, the fusion model's ``rna_encoder`` its
+  ``RNAEncoder_0`` (``dense_i``, ``bn_i``), SimCLR's ``projection.Dense_i``
+  as named.
 
 Adam moments (optax ``mu``/``nu`` trees) move by the same layout transforms,
 in the order of the port's ``parameters()``, which is torchgan's. A JAX
@@ -390,6 +396,91 @@ def inception_state_dict_from_jax(variables: Dict[str, Any]) -> StateDict:
 
     walk(variables["params"], variables["batch_stats"], "")
     return sd
+
+
+# ------------------------------------------- ResNet, fusion and SimCLR models
+
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def resnet_flax_leaf(key: str) -> Optional[Tuple[str, Tuple[str, ...], str]]:
+    """``(collection, flax path, kind)`` of a state_dict key of the port's
+    ``ResNet``, ``FusionModel``, ``AggregationModel`` or SimCLR model; None
+    for ``num_batches_tracked``, which flax does not keep."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    if leaf == "num_batches_tracked":
+        return None
+    path: list = []
+    mods = parts[:-1]
+    if mods[0] == "backbone":
+        path.append("backbone")
+        mods = mods[1:]
+    kind = "dense"
+    if mods[0] == "rna_encoder":  # rna_encoder.encoder.{i+1}.{0: Dense, 1: BatchNorm}
+        i, is_bn = int(mods[2]) - 1, mods[3] == "1"
+        path += ["RNAEncoder_0", f"{'bn' if is_bn else 'dense'}_{i}"]
+    elif mods[0].startswith("layer"):  # layerL.B.X
+        path.append(f"{mods[0]}_{mods[1]}")
+        rest, kind = mods[2:], "conv"
+        if rest[0] == "downsample":
+            is_bn = rest[1] == "1"
+            path.append("downsample_bn" if is_bn else "downsample_conv")
+        else:
+            is_bn = rest[0].startswith("bn")
+            path.append(rest[0])
+    else:  # conv1, bn1, project, fc, fuse, head, projection.Dense_i
+        path += mods
+        is_bn = mods[-1] == "bn1"
+        kind = "conv" if mods[-1] == "conv1" else "dense"
+    if is_bn:
+        col, name = _BN_LEAVES[leaf]
+        return col, (*path, name), "vec"
+    if leaf == "bias":
+        return "params", (*path, "bias"), "vec"
+    return "params", (*path, "kernel"), kind
+
+
+def resnet_state_dict_from_jax(model: torch.nn.Module, variables: Dict[str, Any]) -> StateDict:
+    """JAX ``{'params', 'batch_stats'}`` of a ``ResNet`` (or a fusion or SimCLR
+    model) -> ``model``'s state_dict, key by key over ``model``'s own keys
+    (``num_batches_tracked`` as ``model`` holds it)."""
+    sd: StateDict = {}
+    for key, own in model.state_dict().items():
+        leaf = resnet_flax_leaf(key)
+        if leaf is None:
+            sd[key] = own.detach().cpu().clone()
+            continue
+        col, path, kind = leaf
+        sd[key] = _TO_TORCH[kind](_f32(_get(variables[col], path)))
+    return sd
+
+
+def resnet_param_list_from_jax(names, tree) -> list:
+    """A flax tree shaped like the model's ``params`` (the parameters or an
+    optax moment of them) -> float32 tensors for the parameter ``names``, in
+    that order (a trainer's optimizer order)."""
+    out = []
+    for name in names:
+        _, path, kind = resnet_flax_leaf(name)
+        out.append(_TO_TORCH[kind](_f32(_get(tree, path))))
+    return out
+
+
+def adamw_state_from_jax(names, opt_state) -> Dict[str, Any]:
+    """The state of ``optax.adamw`` (the chain ``(ScaleByAdamState, EmptyState,
+    EmptyState)``), or of the fusion trainer's ``multi_transform`` whose
+    ``"train"`` part is that chain over the trainable leaves, -> ``{"count",
+    "mu", "nu"}`` for the parameter ``names`` (the trainable ones, in the
+    optimizer's order) of the port's ``AdamW``. Read by attribute, so optax's
+    own state objects serve as they are."""
+    if hasattr(opt_state, "inner_states"):
+        opt_state = opt_state.inner_states["train"].inner_state
+    adam = opt_state[0]
+    return {"count": int(np.asarray(adam.count)),
+            "mu": resnet_param_list_from_jax(names, adam.mu),
+            "nu": resnet_param_list_from_jax(names, adam.nu)}
 
 
 # ------------------------------------------------------- training bundles

@@ -124,6 +124,22 @@ class DataConfig:
     normalizer: str = "standard"  # standard | minmax (read_data.py:488-495)
 
 
+@dataclass(frozen=True)
+class MLConfig:
+    """Downstream tile classification (reference ``ml_experiments.py:299,342-345,282``;
+    ``rnagan_tpu/train/ml_experiment.py:MLConfig`` without the mesh: one card)."""
+
+    num_classes: int = 2
+    lr: float = 3e-5
+    weight_decay: float = 0.01
+    num_epochs: int = 40
+    batch_size: int = 64
+    folds: int = 5
+    image_size: int = 224
+    seed: int = 99
+    arch: str = "resnet50"
+
+
 def load_reference_json(path: str) -> Dict[str, Any]:
     """Load one of the reference's JSON config files verbatim
     (``configs/betavae_tissues.json``, ``configs/gan_run*.json``)."""

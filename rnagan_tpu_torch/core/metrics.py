@@ -2,7 +2,7 @@
 
 One :class:`MetricsLogger` writes a JSONL event log (when given a
 ``log_dir``), the console, and tensorboardX when it is importable and asked
-for. It logs plain epoch means.
+for. It logs plain epoch means (:func:`epoch_means`).
 """
 
 from __future__ import annotations
@@ -10,7 +10,23 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
+
+import torch
+
+
+def epoch_means(per_step: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
+    """The mean of per-step (0-dim tensor) metrics, summed in step order in
+    float64 as the JAX loops sum them; one copy off the card."""
+    if not per_step:
+        return {}
+    keys = list(per_step[0])
+    table = torch.stack([torch.stack([m[k].float() for k in keys]) for m in per_step]).cpu().tolist()
+    sums = dict.fromkeys(keys, 0.0)
+    for row in table:
+        for k, v in zip(keys, row):
+            sums[k] += v
+    return {k: v / len(table) for k, v in sums.items()}
 
 
 class MetricsLogger:

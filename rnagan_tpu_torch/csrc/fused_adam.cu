@@ -5,7 +5,9 @@
 // computed on the host:
 //   mu = b1*mu + (1-b1)*g
 //   nu = b2*nu + ((1-b2)*g)*g
-//   p  = p - lr * ((mu/c1) / (sqrt(nu/c2) + eps))
+//   u  = (mu/c1) / (sqrt(nu/c2) + eps)
+//   u  = u + wd*p                    (optax.adamw's decoupled decay; only when wd != 0)
+//   p  = p - lr * u
 // in that order, each step rounded on its own (__fmul_rn, __fadd_rn,
 // __fdiv_rn, __fsqrt_rn: nvcc contracts nothing into an FMA), so the plain
 // PyTorch version (kernels/fused_adam.py), a chain of separate tensor ops,
@@ -15,19 +17,29 @@
 //
 // Bound on the H100: Adam reads p, g, mu, nu and writes p, mu, nu, 28 bytes
 // a parameter (24 with a bf16 mu), a few flops each: bandwidth work, far
-// below the card's ridge point. The training step's 156.55 M parameters move
-// 4.383 GB, 1.3085 ms at 3.35 TB/s.
+// below the card's ridge point. The GAN training step's 156.55 M parameters
+// move 4.383 GB, 1.3085 ms at 3.35 TB/s; ResNet50's 23.51 M (2 classes) move
+// 658 MB, 0.1965 ms.
+//
+// With wd == 0 the kernel is instantiated without the decay term, so Adam's
+// instruction sequence is the one it always was. optax.adamw adds wd*p to
+// Adam's scaled update (add_decayed_weights), then scales by -lr
+// (scale_by_learning_rate) and adds (apply_updates): p + (-lr)*u has the
+// bits of p - lr*u.
 //
 // Design: one launch per model per optimizer step, over all its tensors,
 // with no flat copy. The host packs a table of (p, g, mu, nu, numel) for up
 // to kMaxTensors tensors into the kernel's parameter block (a
 // __grid_constant__ struct, so no device allocation and no host-to-device
 // copy; the table is rebuilt on every call because gradient tensors move
-// between steps). Each tensor is cut into chunks of kChunk elements; block b
-// takes chunks b, b + gridDim.x, ... and finds its tensor by a scan of the
-// chunk prefix sums. Inside a chunk each thread moves 16-byte float4 (and
-// 8-byte bf16x4) vectors when the tensor's pointers are aligned, and the
-// ragged tail (tensors of 1 or 3 elements included) goes element by element.
+// between steps). CUDA 12.1 and later take up to 32,764 bytes of kernel
+// parameters on Volta and later, so 512 rows fit: ResNet152 (467 tensors)
+// steps in one launch. Each tensor is cut into chunks of kChunk elements;
+// block b takes chunks b, b + gridDim.x, ... and finds its tensor by a
+// binary search of the chunk prefix sums. Inside a chunk each thread moves
+// 16-byte float4 (and 8-byte bf16x4) vectors when the tensor's pointers are
+// aligned, and the ragged tail (tensors of 1 or 3 elements included) goes
+// element by element.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -35,7 +47,7 @@
 
 namespace {
 
-constexpr int kMaxTensors = 64;    // parameter block: 64 x 48 bytes + scalars < 4 KB
+constexpr int kMaxTensors = 512;   // parameter block: 512 x 48 bytes + scalars < 32,764 bytes
 constexpr int kThreads = 256;
 constexpr long long kChunk = 16384;  // elements a block handles at once (16 float4 a thread)
 
@@ -51,14 +63,20 @@ struct AdamTable {
 
 struct AdamScalars {
   float lr, b1, b2, omb1, omb2, eps, c1, c2;  // omb = 1 - b, rounded from double on the host
+  float wd;                                   // decoupled weight decay (AdamW), 0 for Adam
 };
 
+static_assert(sizeof(AdamTable) + sizeof(AdamScalars) <= 32764,
+              "the kernel's parameter block exceeds CUDA's 32,764-byte limit");
+
+template <bool kDecay>
 __device__ __forceinline__ void adam_elem(float& p, float g, float& mu, float& nu,
                                           const AdamScalars& s) {
   mu = __fadd_rn(__fmul_rn(s.b1, mu), __fmul_rn(s.omb1, g));
   nu = __fadd_rn(__fmul_rn(s.b2, nu), __fmul_rn(__fmul_rn(s.omb2, g), g));
-  const float upd =
+  float upd =
       __fdiv_rn(__fdiv_rn(mu, s.c1), __fadd_rn(__fsqrt_rn(__fdiv_rn(nu, s.c2)), s.eps));
+  if (kDecay) upd = __fadd_rn(upd, __fmul_rn(s.wd, p));
   p = __fsub_rn(p, __fmul_rn(s.lr, upd));
 }
 
@@ -90,13 +108,18 @@ __device__ __forceinline__ void store4(__nv_bfloat16* m, const float v[4]) {
   *reinterpret_cast<uint2*>(m) = make_uint2(h[0] | (h[1] << 16), h[2] | (h[3] << 16));
 }
 
-template <typename MuT>
+template <typename MuT, bool kDecay>
 __global__ void __launch_bounds__(kThreads)
 fused_adam_kernel(const __grid_constant__ AdamTable t, const AdamScalars s) {
   const long long total = t.chunk_start[t.count];
   for (long long c = blockIdx.x; c < total; c += gridDim.x) {
-    int i = 0;
-    while (c >= t.chunk_start[i + 1]) ++i;
+    // the last tensor whose first chunk is at or before c (tensors of 0
+    // elements share the next one's start and are passed over)
+    int i = 0, hi = t.count - 1;
+    while (i < hi) {
+      const int mid = (i + hi + 1) >> 1;
+      if (t.chunk_start[mid] <= c) i = mid; else hi = mid - 1;
+    }
     const long long begin = (c - t.chunk_start[i]) * kChunk;
     const long long end = begin + kChunk < t.n[i] ? begin + kChunk : t.n[i];
     float* p = t.p[i];
@@ -115,10 +138,10 @@ fused_adam_kernel(const __grid_constant__ AdamTable t, const AdamScalars s) {
         float4 nv = *reinterpret_cast<const float4*>(nu + j);
         float m[4];
         load4(mu + j, m);
-        adam_elem(pv.x, gv.x, m[0], nv.x, s);
-        adam_elem(pv.y, gv.y, m[1], nv.y, s);
-        adam_elem(pv.z, gv.z, m[2], nv.z, s);
-        adam_elem(pv.w, gv.w, m[3], nv.w, s);
+        adam_elem<kDecay>(pv.x, gv.x, m[0], nv.x, s);
+        adam_elem<kDecay>(pv.y, gv.y, m[1], nv.y, s);
+        adam_elem<kDecay>(pv.z, gv.z, m[2], nv.z, s);
+        adam_elem<kDecay>(pv.w, gv.w, m[3], nv.w, s);
         *reinterpret_cast<float4*>(p + j) = pv;
         *reinterpret_cast<float4*>(nu + j) = nv;
         store4(mu + j, m);
@@ -126,7 +149,7 @@ fused_adam_kernel(const __grid_constant__ AdamTable t, const AdamScalars s) {
     }
     for (long long j = tail + threadIdx.x; j < end; j += kThreads) {
       float pj = p[j], mj = load1(mu + j), nj = nu[j];
-      adam_elem(pj, g[j], mj, nj, s);
+      adam_elem<kDecay>(pj, g[j], mj, nj, s);
       p[j] = pj;
       nu[j] = nj;
       store1(mu + j, mj);
@@ -134,13 +157,23 @@ fused_adam_kernel(const __grid_constant__ AdamTable t, const AdamScalars s) {
   }
 }
 
+template <bool kDecay>
+void launch(const AdamTable& t, const AdamScalars& s, int mu_bf16, unsigned int grid,
+            cudaStream_t st) {
+  if (mu_bf16)
+    fused_adam_kernel<__nv_bfloat16, kDecay><<<grid, kThreads, 0, st>>>(t, s);
+  else
+    fused_adam_kernel<float, kDecay><<<grid, kThreads, 0, st>>>(t, s);
+}
+
 }  // namespace
 
 // table: count rows of (p, g, mu, nu, numel) as 64-bit words, in host memory.
 // mu_bf16: 0 when every mu is float32, 1 when every mu is bfloat16.
+// wd: optax.adamw's weight decay; 0 takes Adam's kernel.
 extern "C" int rnagan_fused_adam(const unsigned long long* table, int count, int mu_bf16,
                                  float lr, float b1, float b2, float omb1, float omb2,
-                                 float eps, float c1, float c2, void* stream) {
+                                 float eps, float c1, float c2, float wd, void* stream) {
   if (count < 1 || count > kMaxTensors) return (int)cudaErrorInvalidValue;
   AdamTable t;
   long long chunks = 0;
@@ -162,12 +195,12 @@ extern "C" int rnagan_fused_adam(const unsigned long long* table, int count, int
   t.chunk_start[kMaxTensors] = chunks;
   t.count = count;
   if (chunks == 0) return 0;
-  const AdamScalars s{lr, b1, b2, omb1, omb2, eps, c1, c2};
+  const AdamScalars s{lr, b1, b2, omb1, omb2, eps, c1, c2, wd};
   const unsigned int grid = chunks < 65535 ? (unsigned int)chunks : 65535u;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mu_bf16)
-    fused_adam_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(t, s);
+  if (wd != 0.0f)
+    launch<true>(t, s, mu_bf16, grid, st);
   else
-    fused_adam_kernel<float><<<grid, kThreads, 0, st>>>(t, s);
+    launch<false>(t, s, mu_bf16, grid, st);
   return (int)cudaGetLastError();
 }

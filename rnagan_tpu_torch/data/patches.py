@@ -1,5 +1,5 @@
-"""Patch datasets: slide databases -> training batches (port of the LMDB half
-of ``rnagan_tpu/data/patches.py``, without pandas).
+"""Patch datasets: slide databases -> training batches, and bags of tiles per
+slide (port of ``rnagan_tpu/data/patches.py``, without pandas).
 
 The JAX package walks a pandas frame of slides. The port walks a
 :class:`SlideTable`: the rows of an :class:`~rnagan_tpu_torch.data.rna.RNATable`
@@ -19,6 +19,13 @@ The random draws are the JAX package's, draw for draw: one
 and ``quick`` keeping ``min(n, 150 if with_rna else 10)`` slides as pandas'
 ``df.sample(k, random_state=seed)`` picks them (``data/rna.py::sample_rows``).
 So the same CSVs and seed give the same tiles, labels and RNA rows.
+
+The bag half (:class:`BagData`, :func:`make_bags`, the JPEG and HDF5 bag
+readers, :func:`convert_slide_to_hdf5`) walks a :class:`SlideTable` where
+the JAX functions walk a frame: the same row order, ``quick`` keeping the
+listed slides in table order, a slide's ``labels`` entry as its label and
+its expression row as its RNA when the table has ``rna_*`` columns. PIL and
+h5py are imported inside the functions that use them.
 """
 
 from __future__ import annotations
@@ -301,3 +308,212 @@ class StreamingPatchBatches:
                 yield self._make_batch(idx)
 
         return Prefetcher(gen(), depth=self.prefetch_depth, transfer=self.transfer)
+
+
+# -------------------------------------------------------------------- bags
+
+
+@dataclass
+class BagData:
+    """Bags of ``bag_size`` tiles per slide + slide-level label/RNA — the
+    PatchBagDataset / PatchBagRNADataset shape (reference ``read_data.py:22-155``)."""
+
+    bags: np.ndarray            # (B, bag_size, H, W, 3) uint8
+    labels: np.ndarray          # (B,) int32
+    slide_idx: np.ndarray       # (B,) int32
+    slides: List[str]
+    rna: Optional[np.ndarray] = None
+
+    def __len__(self):
+        return len(self.bags)
+
+
+def _bag_data(bags, labels, slide_idx, slides, rna_rows, bag_size) -> BagData:
+    rna = np.stack(rna_rows) if rna_rows else None
+    if not bags:
+        return BagData(np.zeros((0, bag_size, 0, 0, 3), np.uint8), np.zeros(0, np.int32),
+                       np.zeros(0, np.int32), slides, rna)
+    return BagData(np.stack(bags), np.asarray(labels, np.int32), np.asarray(slide_idx, np.int32), slides, rna)
+
+
+def _quick(slides: SlideTable, quick: Optional[Sequence[str]]) -> SlideTable:
+    if quick is None:
+        return slides
+    return slides.take(np.flatnonzero(np.isin(slides.wsi_file_name, list(quick))))
+
+
+def load_bag_folder(slides: SlideTable, patch_path: str, *, bag_size: int = 20,
+                    max_patch_per_wsi: Optional[int] = 400, img_size: Optional[int] = None,
+                    quick: Optional[Sequence[str]] = None) -> BagData:
+    """Bags from the reference's file-per-patch JPEG layout
+    (``get_data_rna_bag_wsi``, ``read_data.py:60-98``): ``patch_path/<wsi>/``
+    holds ``<wsi>_patch_<i>.jpeg`` and a ``loc.txt`` whose line count minus 2
+    is the patch count (``:83-85``). The first ``max_patch_per_wsi`` patches
+    in index order, consecutive ``bag_size`` chunks (remainder dropped);
+    ``quick`` keeps the listed slides (``:70-71``)."""
+    from PIL import Image
+
+    slides = _quick(slides, quick)
+    bags, labels, slide_idx, names, rna_rows = [], [], [], [], []
+    for i in range(len(slides)):
+        wsi = slides.wsi_file_name[i]
+        slide_dir = os.path.join(patch_path, wsi)
+        loc = os.path.join(slide_dir, "loc.txt")
+        if not os.path.isdir(slide_dir) or not os.path.exists(loc):
+            continue
+        with open(loc) as f:
+            n_patches = sum(1 for _ in f) - 2
+        paths = [os.path.join(slide_dir, f"{wsi}_patch_{k}.jpeg") for k in range(n_patches)]
+        if max_patch_per_wsi is not None:
+            paths = paths[:max_patch_per_wsi]
+        sid = len(names)
+        names.append(wsi)
+        if slides.rna.columns:
+            rna_rows.append(slides.rna_row(i))
+        for k in range(len(paths) // bag_size):
+            tiles = []
+            for path in paths[bag_size * k : bag_size * (k + 1)]:
+                with Image.open(path) as im:
+                    im = im.convert("RGB")
+                    if img_size is not None and im.size != (img_size, img_size):
+                        im = im.resize((img_size, img_size), Image.BILINEAR)
+                    tiles.append(np.asarray(im, np.uint8))
+            bags.append(np.stack(tiles))
+            labels.append(int(slides.labels[i]))
+            slide_idx.append(sid)
+    return _bag_data(bags, labels, slide_idx, names, rna_rows, bag_size)
+
+
+def slide_hdf5_path(patch_data_path: str, wsi_file_name: str) -> str:
+    """``{path}/{wsi_file_name}.h5``: one HDF5 file per slide (the layout the
+    reference's ``_Patches256x256_hdf5`` directory implies, ``ml_experiments.py:265``)."""
+    return os.path.join(patch_data_path, wsi_file_name + ".h5")
+
+
+def write_slide_hdf5(path: str, tiles: np.ndarray, locs: Optional[np.ndarray] = None) -> None:
+    """One slide's tiles as an HDF5 store: ``patches`` (N, H, W, 3) uint8,
+    chunked a tile (a bag read decodes only its rows), gzip level 1, and an
+    optional ``loc`` (N, 2) int32 grid-coordinate table."""
+    import h5py
+
+    tiles = np.ascontiguousarray(tiles, np.uint8)
+    if tiles.ndim != 4 or tiles.shape[-1] != 3:
+        raise ValueError(f"tiles must be (N,H,W,3) uint8, got {tiles.shape}")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with h5py.File(path, "w") as f:
+        f.create_dataset("patches", data=tiles, chunks=(1,) + tiles.shape[1:],
+                         compression="gzip", compression_opts=1)
+        if locs is not None:
+            f.create_dataset("loc", data=np.asarray(locs, np.int32))
+
+
+def convert_slide_to_hdf5(patch_data_path: str, wsi_file_name: str, out_dir: str,
+                          chunk_tiles: int = 512) -> str:
+    """A slide's LMDB tile database (the tiler's output) as the HDF5 store
+    :func:`load_bag_hdf5` reads; returns its path. Tiles keep their index
+    order: ascii-integer keys are sorted numerically (a tree walk yields
+    '10' before '2'), and stream through in ``chunk_tiles`` batches, so peak
+    memory stays a chunk's; a tile that does not decode is left out."""
+    import h5py
+
+    out = slide_hdf5_path(out_dir, wsi_file_name)
+    with LMDBTileStore(slide_db_path(patch_data_path, wsi_file_name)) as store:
+        keys = store.keys()
+        if not keys:
+            raise ValueError(f"empty tile database for {wsi_file_name}")
+        if all(k.isdigit() for k in keys):
+            keys = sorted(keys, key=int)
+        first = store.get_tile(keys[0])
+        if first is None:
+            raise ValueError(f"corrupt first tile in {wsi_file_name}")
+        h, w = first.shape[:2]
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with h5py.File(out, "w") as f:
+            ds = f.create_dataset("patches", shape=(0, h, w, 3), maxshape=(None, h, w, 3), dtype=np.uint8,
+                                  chunks=(1, h, w, 3), compression="gzip", compression_opts=1)
+            written = 0
+            for i in range(0, len(keys), chunk_tiles):
+                tiles, ok = store.load_tiles_fixed(keys[i : i + chunk_tiles], h, w)
+                tiles = tiles[ok]
+                if len(tiles):
+                    ds.resize(written + len(tiles), axis=0)
+                    ds[written:] = tiles
+                    written += len(tiles)
+    return out
+
+
+def load_bag_hdf5(slides: SlideTable, patch_path: str, *, bag_size: int = 40,
+                  max_patch_per_wsi: Optional[int] = 300, img_size: Optional[int] = None,
+                  quick: Optional[Sequence[str]] = None) -> BagData:
+    """:func:`load_bag_folder`'s bags over per-slide HDF5 stores (the
+    reference's declared ``PatchBagDatasetHDF5``): the patch count is the
+    ``patches`` dataset's length; a slide with a store is listed even with
+    no full bag, so slide indices and RNA rows align with the folder reader's."""
+    import h5py
+
+    slides = _quick(slides, quick)
+    bags, labels, slide_idx, names, rna_rows = [], [], [], [], []
+    for i in range(len(slides)):
+        wsi = slides.wsi_file_name[i]
+        h5path = slide_hdf5_path(patch_path, wsi)
+        if not os.path.exists(h5path):
+            continue
+        with h5py.File(h5path, "r") as f:
+            if "patches" not in f:
+                continue
+            ds = f["patches"]
+            n_patches = ds.shape[0]
+            if max_patch_per_wsi is not None:
+                n_patches = min(n_patches, max_patch_per_wsi)
+            sid = len(names)
+            names.append(wsi)
+            if slides.rna.columns:
+                rna_rows.append(slides.rna_row(i))
+            for k in range(n_patches // bag_size):
+                chunk = np.asarray(ds[bag_size * k : bag_size * (k + 1)], np.uint8)
+                if img_size is not None and chunk.shape[1:3] != (img_size, img_size):
+                    chunk = _resize_bilinear_u8(chunk, img_size)
+                bags.append(chunk)
+                labels.append(int(slides.labels[i]))
+                slide_idx.append(sid)
+    return _bag_data(bags, labels, slide_idx, names, rna_rows, bag_size)
+
+
+def _resize_bilinear_u8(tiles: np.ndarray, size: int) -> np.ndarray:
+    """Bilinear resize of a (N, H, W, 3) uint8 stack with PIL (torchvision
+    Resize's default interpolation, as the reference)."""
+    from PIL import Image
+
+    out = np.empty((tiles.shape[0], size, size, 3), np.uint8)
+    for i, t in enumerate(tiles):
+        out[i] = np.asarray(Image.fromarray(t).resize((size, size), Image.BILINEAR))
+    return out
+
+
+def make_bags(data: PatchData, bag_size: int = 40, seed: int = 0, drop_last: bool = True) -> BagData:
+    """A :class:`PatchData` grouped into per-slide bags, shuffled within each
+    slide (the reference's ``shuffle()``, ``read_data.py:134``), drawing from
+    one ``RandomState(seed)`` as the JAX package does; with ``drop_last``
+    off, a short last bag is filled with tiles of its slide drawn again."""
+    rng = np.random.RandomState(seed)
+    bags, labels, slide_idx = [], [], []
+    for sid in range(len(data.slides)):
+        tiles = np.flatnonzero(data.slide_idx == sid)
+        rng.shuffle(tiles)
+        n_full = len(tiles) // bag_size
+        for b in range(n_full):
+            chunk = tiles[b * bag_size : (b + 1) * bag_size]
+            bags.append(data.images[chunk])
+            labels.append(int(data.labels[chunk[0]]))
+            slide_idx.append(sid)
+        if not drop_last and len(tiles) % bag_size:
+            chunk = tiles[n_full * bag_size :]
+            fill = tiles[rng.choice(len(tiles), bag_size - len(chunk))]
+            bags.append(data.images[np.concatenate([chunk, fill])])
+            labels.append(int(data.labels[chunk[0]]))
+            slide_idx.append(sid)
+    if not bags:
+        return BagData(np.zeros((0, bag_size, 0, 0, 3), np.uint8), np.zeros(0, np.int32),
+                       np.zeros(0, np.int32), data.slides, data.rna)
+    return BagData(np.stack(bags), np.asarray(labels, np.int32), np.asarray(slide_idx, np.int32),
+                   data.slides, data.rna)

@@ -6,7 +6,9 @@ corrections ``c1 = 1 - b1^t`` and ``c2 = 1 - b2^t`` given as scalars::
 
     mu = b1*mu + (1-b1)*g
     nu = b2*nu + ((1-b2)*g)*g
-    p  = p - lr * ((mu/c1) / (sqrt(nu/c2) + eps))
+    u  = (mu/c1) / (sqrt(nu/c2) + eps)
+    u  = u + wd*p          (optax.adamw's decoupled weight decay, when wd != 0)
+    p  = p - lr * u
 
 The TPU kernel runs over one flat copy of every parameter; this one walks the
 model's tensors in place, one launch per call (``csrc/fused_adam.cu``). Both
@@ -15,7 +17,8 @@ they agree bit for bit. ``mu`` may be bfloat16 (optax ``mu_dtype``): it is
 read into float32, used in float32 and rounded to nearest even on store.
 
 Bound on the H100: 28 bytes a parameter (24 with a bf16 ``mu``); the
-training step's 156,554,948 parameters take 1.3085 ms at 3.35 TB/s.
+training step's 156,554,948 parameters take 1.3085 ms at 3.35 TB/s,
+ResNet50's 23,512,130 (2 classes) 0.1965 ms.
 """
 
 from __future__ import annotations
@@ -28,17 +31,19 @@ import torch
 from rnagan_tpu_torch.kernels import _build
 
 #: tensors one launch takes (the kernel's parameter-block table; the DCGAN
-#: generator has 20, the discriminator 19 or 20)
-MAX_TENSORS = 64
+#: generator has 20 tensors, ResNet50's classifier 161, ResNet152's 467)
+MAX_TENSORS = 512
 
 
 def adam_update_plain(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                       mus: Sequence[torch.Tensor], nus: Sequence[torch.Tensor],
-                      c1: float, c2: float, lr: float, b1: float, b2: float, eps: float) -> None:
+                      c1: float, c2: float, lr: float, b1: float, b2: float, eps: float,
+                      wd: float = 0.0) -> None:
     """The kernel's arithmetic in separate PyTorch ops, in place on
     ``params``, ``mus`` and ``nus``. ``c1`` and ``c2`` divide as tensors on the
     parameters' device: PyTorch's CUDA division by a Python number multiplies
-    by its reciprocal, which rounds differently."""
+    by its reciprocal, which rounds differently. ``wd`` adds ``wd * p`` to
+    the update (AdamW)."""
     with torch.no_grad():
         dev = params[0].device
         c1, c2 = torch.tensor(c1, device=dev), torch.tensor(c2, device=dev)
@@ -46,6 +51,8 @@ def adam_update_plain(params: Sequence[torch.Tensor], grads: Sequence[torch.Tens
             m = mu.float() * b1 + g * (1.0 - b1)
             v = nu * b2 + (g * (1.0 - b2)) * g
             upd = (m / c1) / (torch.sqrt(v / c2) + eps)
+            if wd:
+                upd = upd + p * wd
             p.sub_(upd * lr)
             mu.copy_(m)
             nu.copy_(v)
@@ -76,15 +83,16 @@ def _check(params, grads, mus, nus) -> torch.dtype:
 
 def fused_adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                mus: Sequence[torch.Tensor], nus: Sequence[torch.Tensor], *, c1: float, c2: float,
-               lr: float, b1: float, b2: float, eps: float) -> None:
+               lr: float, b1: float, b2: float, eps: float, wd: float = 0.0) -> None:
     """One Adam step over every tensor of a model (at most
     :data:`MAX_TENSORS`), in place on ``params``, ``mus`` and ``nus``, in one
-    launch. ``c1``/``c2`` are the bias corrections for this step."""
+    launch. ``c1``/``c2`` are the bias corrections for this step; ``wd`` is
+    AdamW's decoupled weight decay (0: Adam)."""
     params, grads, mus, nus = list(params), list(grads), list(mus), list(nus)
     mu_dtype = _check(params, grads, mus, nus)
     dev = params[0].device
     if dev.type == "cpu":
-        adam_update_plain(params, grads, mus, nus, c1, c2, lr, b1, b2, eps)
+        adam_update_plain(params, grads, mus, nus, c1, c2, lr, b1, b2, eps, wd)
         return
     if dev.type != "cuda":
         raise ValueError(f"fused_adam runs on CUDA or CPU tensors, not {dev}")
@@ -94,7 +102,7 @@ def fused_adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     with torch.cuda.device(dev):
         err = _build.library().rnagan_fused_adam(
             ctypes.addressof(table), len(params), int(mu_dtype == torch.bfloat16), lr, b1, b2,
-            1.0 - b1, 1.0 - b2, eps, c1, c2, torch.cuda.current_stream().cuda_stream)
+            1.0 - b1, 1.0 - b2, eps, c1, c2, wd, torch.cuda.current_stream().cuda_stream)
     _build.check("rnagan_fused_adam", err)
     fused_adam.launches += 1
 

@@ -9,6 +9,10 @@ corrections ``1 - b1^t`` and ``1 - b2^t`` on the host in float32 (as
 advances the count. With ``mu_dtype=torch.bfloat16``, ``mu`` is stored in
 bfloat16 and the kernel computes in float32 from the stored value (optax's
 ``mu_dtype``); ``nu`` stays float32.
+
+:class:`AdamW` is ``optax.adamw`` (the ResNet trainers' optimizer,
+``rnagan_tpu/train/ml_experiment.py:105``): the same step with
+``weight_decay * p`` added to Adam's update inside the kernel.
 """
 
 from __future__ import annotations
@@ -31,6 +35,9 @@ def bias_corrections(t: int, b1: float, b2: float) -> Tuple[float, float]:
 class Adam:
     """Adam state for one model's parameter list (``optax.adam`` math)."""
 
+    #: decoupled weight decay (:class:`AdamW`); Adam has none
+    weight_decay = 0.0
+
     def __init__(self, params: Sequence[torch.Tensor], *, lr: float, b1: float, b2: float,
                  eps: float = 1e-8, mu_dtype: Optional[torch.dtype] = None):
         self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
@@ -50,17 +57,19 @@ class Adam:
         with torch.no_grad():
             fused_adam([p.detach() for p in params], [g.contiguous() for g in grads],
                        self.mu, self.nu, c1=c1, c2=c2, lr=self.lr if lr is None else float(lr),
-                       b1=self.b1, b2=self.b2, eps=self.eps)
+                       b1=self.b1, b2=self.b2, eps=self.eps, wd=self.weight_decay)
         self.count += 1
 
     def state_dict(self) -> Dict[str, Any]:
-        """``torch.optim.Adam.state_dict()`` layout (torchgan ``.model`` bundles);
-        copies on the CPU, ``exp_avg`` float32 whatever ``mu_dtype`` is."""
+        """``torch.optim.Adam.state_dict()`` layout (torchgan ``.model`` bundles;
+        :class:`AdamW`'s is ``torch.optim.AdamW``'s, the same keys); copies on
+        the CPU, ``exp_avg`` float32 whatever ``mu_dtype`` is."""
         state = {i: {"step": torch.tensor(float(self.count)),
                      "exp_avg": mu.detach().to("cpu", torch.float32, copy=True),
                      "exp_avg_sq": nu.detach().to("cpu", copy=True)}
                  for i, (mu, nu) in enumerate(zip(self.mu, self.nu))}
-        group = {"lr": self.lr, "betas": (self.b1, self.b2), "eps": self.eps, "weight_decay": 0,
+        group = {"lr": self.lr, "betas": (self.b1, self.b2), "eps": self.eps,
+                 "weight_decay": self.weight_decay,
                  "amsgrad": False, "maximize": False, "foreach": None, "capturable": False,
                  "differentiable": False, "fused": None, "params": list(range(len(self.mu)))}
         return {"state": state, "param_groups": [group]}
@@ -78,3 +87,17 @@ class Adam:
             mu.copy_(torch.as_tensor(entry["exp_avg"]).reshape(mu.shape))
             nu.copy_(torch.as_tensor(entry["exp_avg_sq"]).reshape(nu.shape))
             self.count = int(float(entry["step"]))
+
+
+class AdamW(Adam):
+    """``optax.adamw(lr, b1, b2, eps, weight_decay=...)``: Adam whose update
+    takes ``weight_decay * p`` before the rate scales it (optax's
+    ``add_decayed_weights``, every parameter decayed), one K3 launch a step.
+    Its ``state_dict`` has ``torch.optim.AdamW``'s layout; torch's AdamW
+    decays as ``p * (1 - lr * wd)`` first, which rounds otherwise."""
+
+    def __init__(self, params: Sequence[torch.Tensor], lr: float, weight_decay: float = 1e-4,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 mu_dtype: Optional[torch.dtype] = None):
+        super().__init__(params, lr=lr, b1=b1, b2=b2, eps=eps, mu_dtype=mu_dtype)
+        self.weight_decay = float(weight_decay)

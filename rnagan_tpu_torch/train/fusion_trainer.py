@@ -1,0 +1,171 @@
+"""Multimodal fusion training (port of ``rnagan_tpu/train/fusion_trainer.py``).
+
+Bags of tiles per slide and the patient's RNA profile go through a ResNet
+backbone and the β-VAE's ``RNAEncoder`` into :class:`~rnagan_tpu_torch.models.fusion.FusionModel`,
+trained with cross-entropy (reference ``main.py:84-96,136-164``). The
+backbone's ``conv1``, ``bn1``, ``layer1`` and ``layer2`` are frozen
+(``main.py:136-143``): the JAX package gives them zero updates through
+``optax.multi_transform``; here they never enter AdamW's table (one K3
+launch a step over the trainable tensors only), keep no moments, stay
+bit-unchanged and are left out of autograd. Their BatchNorm running
+statistics still move in train mode, as flax's ``mutable=["batch_stats"]``
+moves them.
+
+Inputs are ``tiles_to_float(bags) * 0.5 + 0.5`` ([0, 1], no ImageNet
+normalization, as in the JAX trainer), computed on the card from the uint8
+bags with the same float32 arithmetic. The RNA encoder's dropout mask comes
+from a ``core/rng.py`` generator per step (``"fusion"``) or is given as
+``draws={"keep"}``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from rnagan_tpu_torch.core.device import resolve_device
+from rnagan_tpu_torch.core.metrics import MetricsLogger, epoch_means
+from rnagan_tpu_torch.core.rng import SeedStream
+from rnagan_tpu_torch.data.batching import batch_indices
+from rnagan_tpu_torch.data.patches import BagData
+from rnagan_tpu_torch.models.fusion import FusionModel
+from rnagan_tpu_torch.models.resnet import ResNet, resnet50
+from rnagan_tpu_torch.optim.adam import AdamW
+from rnagan_tpu_torch.train.ml_experiment import as_draw, load_adamw, masked_cross_entropy, unit_from_uint8
+
+#: top-level backbone modules frozen by ``freeze_backbone_early``
+FROZEN_STAGES = ("conv1", "bn1", "layer1", "layer2")
+
+
+@dataclass(frozen=True)
+class FusionConfig:
+    num_classes: int = 2
+    lr: float = 3e-4
+    weight_decay: float = 0.0
+    num_epochs: int = 10
+    batch_size: int = 4
+    bag_size: int = 40
+    rna_hidden_dims: Tuple[int, ...] = (6000, 4000, 2048)
+    #: freeze every backbone stage except layer3/layer4 (+ heads), main.py:136-143
+    freeze_backbone_early: bool = True
+    seed: int = 99
+
+
+@dataclass
+class FusionTrainState:
+    step: int
+    model: FusionModel
+    opt: AdamW
+
+
+def _trainable_mask(names: Iterable[str], freeze_early: bool) -> Dict[str, bool]:
+    """True where trainable, over the backbone's parameter names: only the
+    top-level module decides (a block's inner ``conv1``/``bn1`` do not)."""
+    return {n: not (freeze_early and n.split(".")[0] in FROZEN_STAGES) for n in names}
+
+
+def trainable_names(model: FusionModel, freeze_early: bool):
+    """The model's trainable parameter names, in ``named_parameters`` order."""
+    mask = _trainable_mask([n for n, _ in model.backbone.named_parameters()], freeze_early)
+    return [n for n, _ in model.named_parameters()
+            if not n.startswith("backbone.") or mask[n[len("backbone."):]]]
+
+
+class FusionTrainer:
+    """Fusion training on one card (``device="cuda"``, the default, raises
+    without CUDA). ``backbone`` builds the headless ResNet (called with
+    ``num_classes=0``, ``seed=`` and ``device=``; default ResNet50)."""
+
+    def __init__(self, cfg: FusionConfig, *, backbone: Optional[Callable[..., ResNet]] = None,
+                 logger: Optional[MetricsLogger] = None, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.backbone = backbone or resnet50
+        self.logger = logger or MetricsLogger()
+        self.seeds = SeedStream(cfg.seed)
+
+    def init_state(self, bag_shape: Tuple[int, ...], rna_features: int) -> FusionTrainState:
+        """A fresh state for bags of ``bag_shape`` (bag, H, W, C) and
+        ``rna_features`` genes; the frozen parameters set not to require grad."""
+        cfg = self.cfg
+        if bag_shape[-1] != 3:
+            raise ValueError(f"bags must be (bag, H, W, 3), got {tuple(bag_shape)}")
+        bb = self.backbone(num_classes=0, seed=self.seeds.seed("init"), device=self.device)
+        model = FusionModel(bb, rna_features, cfg.rna_hidden_dims, cfg.num_classes,
+                            seed=self.seeds.seed("init", stage=1), device=self.device)
+        names = set(trainable_names(model, cfg.freeze_backbone_early))
+        params = []
+        for n, p in model.named_parameters():
+            p.requires_grad_(n in names)
+            if n in names:
+                params.append(p)
+        return FusionTrainState(0, model, AdamW(params, cfg.lr, cfg.weight_decay))
+
+    def state_from_jax(self, tree, bag_shape, rna_features) -> FusionTrainState:
+        """A JAX ``FusionTrainState`` (its ``multi_transform`` state holds
+        moments of the trainable leaves only) on this trainer's device."""
+        from rnagan_tpu_torch import convert
+
+        state = self.init_state(bag_shape, rna_features)
+        state.model.load_state_dict(convert.resnet_state_dict_from_jax(
+            state.model, {"params": tree.params, "batch_stats": tree.batch_stats}))
+        load_adamw(state.opt, trainable_names(state.model, self.cfg.freeze_backbone_early), tree.opt_state)
+        state.step = int(np.asarray(tree.step))
+        return state
+
+    def _inputs(self, bags_u8, rna) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = unit_from_uint8(torch.as_tensor(bags_u8).to(self.device))
+        x = (x - 0.5) / 0.5 * 0.5 + 0.5  # data/tiles.py::tiles_to_float, then * 0.5 + 0.5
+        return x, torch.as_tensor(rna).to(self.device, torch.float32)
+
+    def train_step(self, state: FusionTrainState, bags_u8, rna, labels, mask,
+                   draws: Optional[Dict[str, Any]] = None) -> Tuple[FusionTrainState, Dict[str, torch.Tensor]]:
+        """One step on uint8 ``bags_u8`` (B, bag, H, W, 3), ``rna`` (B, G),
+        int ``labels`` and ``mask``; ``draws`` may give ``keep``, the RNA
+        encoder's dropout mask (bool (B, G))."""
+        x, r = self._inputs(bags_u8, rna)
+        y = torch.as_tensor(labels).to(self.device, torch.int64)
+        m = torch.as_tensor(mask).to(self.device, torch.float32)
+        keep = (draws or {}).get("keep")
+        gen = None
+        if keep is None:
+            gen = self.seeds.generator("fusion", state.step, device=self.device)
+        else:
+            keep = as_draw(keep).to(self.device)
+        model = state.model.train()
+        loss, acc = masked_cross_entropy(model(x, r, keep, gen), y, m)
+        params = [p for p in model.parameters() if p.requires_grad]
+        state.opt.step(params, torch.autograd.grad(loss, params))
+        state.step += 1
+        return state, {"loss": loss.detach(), "acc": acc.detach()}
+
+    @torch.no_grad()
+    def eval_step(self, state: FusionTrainState, bags_u8, rna) -> torch.Tensor:
+        return state.model.eval()(*self._inputs(bags_u8, rna)).argmax(1)
+
+    def fit(self, bags: BagData, *, num_epochs: Optional[int] = None,
+            state: Optional[FusionTrainState] = None) -> Tuple[FusionTrainState, Dict[str, Any]]:
+        if bags.rna is None:
+            raise ValueError("fusion training needs per-slide RNA")
+        cfg = self.cfg
+        state = state if state is not None else self.init_state(bags.bags.shape[1:], bags.rna.shape[1])
+        history = []
+        for epoch in range(num_epochs or cfg.num_epochs):
+            per_step = []
+            for idx, m in batch_indices(len(bags), cfg.batch_size, shuffle=True, seed=cfg.seed, epoch=epoch):
+                state, metrics = self.train_step(state, bags.bags[idx], bags.rna[bags.slide_idx[idx]],
+                                                 bags.labels[idx], m)
+                per_step.append(metrics)
+            history.append(epoch_means(per_step) or {"loss": 0.0, "acc": 0.0})
+            self.logger.scalars("fusion", history[-1], epoch)
+        return state, {"history": history}
+
+    def predict(self, bags: BagData, state: FusionTrainState) -> np.ndarray:
+        preds = []
+        for idx, m in batch_indices(len(bags), self.cfg.batch_size):
+            p = self.eval_step(state, bags.bags[idx], bags.rna[bags.slide_idx[idx]]).cpu().numpy()
+            preds.append(p[np.asarray(m) > 0])
+        return np.concatenate(preds) if preds else np.zeros(0, np.int64)

@@ -1,0 +1,239 @@
+"""Self-supervised (SimCLR) pre-training on histology tiles (port of
+``rnagan_tpu/train/ssl_trainer.py``).
+
+Two stochastic views per tile (random resized crop, horizontal and vertical
+flips, brightness and contrast jitter) are made on the card; a ResNet
+backbone and a 2-layer projection head map both through flax's BatchNorm
+(one batch of 2N views); NT-Xent over the 2N views is the loss; AdamW
+(``optax.adamw``, one K3 launch a step) updates every parameter. The
+pretrained backbone goes to :class:`~rnagan_tpu_torch.train.ml_experiment.TileClassifierTrainer`
+as a state_dict (:meth:`SimCLRTrainer.backbone_variables`).
+
+Each view's seven draws (``scale``, ``off_x``, ``off_y``, ``flip_h``,
+``flip_v``, ``brightness``, ``contrast``, the values ``jax.random`` draws in
+``augment_views``) come from a ``core/rng.py`` generator per step
+(``"ssl"``) or are given as ``draws={"a": {...}, "b": {...}}``.
+"""
+
+from __future__ import annotations
+
+import copy
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from rnagan_tpu_torch.core.device import resolve_device
+from rnagan_tpu_torch.core.metrics import MetricsLogger, epoch_means
+from rnagan_tpu_torch.core.rng import SeedStream
+from rnagan_tpu_torch.data.batching import batch_indices
+from rnagan_tpu_torch.models.resnet import ResNet, lecun_normal_, resnet50
+from rnagan_tpu_torch.optim.adam import AdamW
+from rnagan_tpu_torch.train.ml_experiment import IMAGENET_MEAN, IMAGENET_STD, as_draw, flip_views, load_adamw
+
+VIEW_DRAWS = ("scale", "off_x", "off_y", "flip_h", "flip_v", "brightness", "contrast")
+
+
+@dataclass(frozen=True)
+class SSLConfig:
+    lr: float = 1e-3
+    weight_decay: float = 1e-6
+    temperature: float = 0.5
+    num_epochs: int = 100
+    batch_size: int = 256
+    image_size: int = 224
+    crop_scale_min: float = 0.6
+    projection_dim: int = 128
+    projection_hidden: int = 512
+    seed: int = 99
+
+
+class ProjectionHead(nn.Module):
+    """Dense -> ReLU -> Dense (flax's ``Dense_0``, ``Dense_1``), float32."""
+
+    def __init__(self, fan_in: int, hidden: int, out: int, gen: torch.Generator, device=None):
+        super().__init__()
+        self.Dense_0 = nn.Linear(fan_in, hidden, device=device)
+        self.Dense_1 = nn.Linear(hidden, out, device=device)
+        lecun_normal_(self.Dense_0, gen)
+        lecun_normal_(self.Dense_1, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Dense_1(F.relu(self.Dense_0(x)))
+
+
+class SimCLRModel(nn.Module):
+    """Headless backbone -> pooled features -> projection."""
+
+    def __init__(self, backbone: ResNet, hidden: int, out: int, *, seed: int = 0, device=None):
+        super().__init__()
+        if backbone.fc is not None:
+            raise ValueError("the SimCLR backbone has no fc head: build it with num_classes=0")
+        self.backbone = backbone
+        self.projection = ProjectionHead(backbone.out_features, hidden, out,
+                                         torch.Generator().manual_seed(seed), device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NCHW views -> projections (N, out), float32."""
+        return self.projection(self.backbone(x, extract=True))
+
+
+@dataclass
+class SSLTrainState:
+    step: int
+    model: SimCLRModel
+    opt: AdamW
+
+
+def nt_xent_loss(z: torch.Tensor, temperature: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """NT-Xent over 2N stacked views (first N = view A, last N = view B):
+    ``(loss, contrastive accuracy)``. ``z @ z.T`` is a plain product
+    (``torch.matmul``), as the JAX package leaves it to XLA."""
+    n2 = z.shape[0]
+    n = n2 // 2
+    z = z / (torch.linalg.vector_norm(z, dim=1, keepdim=True) + 1e-8)
+    sim = (z @ z.T) / temperature
+    sim = sim - 1e9 * torch.eye(n2, dtype=z.dtype, device=z.device)  # mask self-similarity
+    ar = torch.arange(n, device=z.device)
+    pos = torch.cat([ar + n, ar])  # the positive of i is i + n (mod 2n)
+    logp = torch.log_softmax(sim, dim=1)
+    loss = -logp.gather(1, pos[:, None]).mean()
+    acc = (sim.argmax(1) == pos).float().mean()
+    return loss, acc
+
+
+def unit_linspace(n: int, device) -> torch.Tensor:
+    """``jnp.linspace(0, 1, n)`` in float32 as XLA computes it: ``i * (1 / (n - 1))``
+    with the reciprocal rounded once, the last value 1."""
+    out = torch.arange(n, dtype=torch.float32, device=device) * float(np.float32(1) / np.float32(n - 1))
+    out[-1] = 1.0
+    return out
+
+
+def _random_resized_crop(images01: torch.Tensor, scale: torch.Tensor, off_x: torch.Tensor,
+                         off_y: torch.Tensor) -> torch.Tensor:
+    """Per-sample square crop of NHWC ``images01``, side ``scale`` (N,) of the
+    tile at offsets ``off * (1 - scale)`` (``off_x``, ``off_y`` uniform in
+    [0, 1), (N,)), resized back bilinearly on ``linspace`` grids: sample
+    rows and columns clipped at ``h - 2`` / ``w - 2`` (the JAX package's
+    ``_random_resized_crop``)."""
+    n, h, w, c = images01.shape
+    dev = images01.device
+    scale = scale.to(dev, torch.float32).reshape(n, 1, 1)
+    max_off = 1.0 - scale
+    oy = off_y.to(dev, torch.float32).reshape(n, 1, 1) * max_off
+    ox = off_x.to(dev, torch.float32).reshape(n, 1, 1) * max_off
+    src_y = (oy + unit_linspace(h, dev)[None, :, None] * scale) * (h - 1)  # (n, h, 1)
+    src_x = (ox + unit_linspace(w, dev)[None, None, :] * scale) * (w - 1)  # (n, 1, w)
+    y0 = torch.clamp(torch.floor(src_y), 0, h - 2)
+    x0 = torch.clamp(torch.floor(src_x), 0, w - 2)
+    fy = (src_y - y0).to(images01.dtype)[..., None]  # (n, h, 1, 1)
+    fx = (src_x - x0).to(images01.dtype)[:, 0, :, None][:, None]  # (n, 1, w, 1)
+    yi = y0.long().reshape(n, h, 1, 1).expand(n, h, w, c)
+    r0 = torch.take_along_dim(images01, yi, dim=1)
+    r1 = torch.take_along_dim(images01, yi + 1, dim=1)
+    rows = r0 * (1 - fy) + r1 * fy
+    xi = x0.long().reshape(n, 1, w, 1).expand(n, h, w, c)
+    c0 = torch.take_along_dim(rows, xi, dim=2)
+    c1 = torch.take_along_dim(rows, xi + 1, dim=2)
+    return c0 * (1 - fx) + c1 * fx
+
+
+def draw_view(n: int, scale_min: float, gen: torch.Generator, device) -> Dict[str, torch.Tensor]:
+    """The seven draws of one view of ``n`` tiles, from ``gen``."""
+    u = lambda lo=0.0, hi=1.0: lo + (hi - lo) * torch.rand(n, generator=gen, device=device)  # noqa: E731
+    return {"scale": u(scale_min), "off_x": u(), "off_y": u(),
+            "flip_h": u() < 0.5, "flip_v": u() < 0.5, "brightness": u(-0.2, 0.2), "contrast": u(0.8, 1.2)}
+
+
+def augment_views(images01: torch.Tensor, draws: Dict[str, Any]) -> torch.Tensor:
+    """One stochastic view of NHWC ``images01``: crop, flips, then brightness
+    and contrast jitter about each view's mean, clipped to [0, 1]."""
+    dev = images01.device
+    d = {k: as_draw(draws[k]) for k in VIEW_DRAWS}
+    x = _random_resized_crop(images01, d["scale"], d["off_x"], d["off_y"])
+    x = flip_views(x, d["flip_h"].reshape(-1), d["flip_v"].reshape(-1))
+    n = x.shape[0]
+    brightness = d["brightness"].to(dev, torch.float32).reshape(n, 1, 1, 1)
+    contrast = d["contrast"].to(dev, torch.float32).reshape(n, 1, 1, 1)
+    mean = x.mean((1, 2, 3), keepdim=True)
+    return torch.clamp((x - mean) * contrast + mean + brightness, 0.0, 1.0)
+
+
+class SimCLRTrainer:
+    """SimCLR on one card (``device="cuda"``, the default, raises without
+    CUDA). ``backbone`` builds the headless ResNet (called with ``seed=`` and
+    ``device=``; default ResNet50)."""
+
+    def __init__(self, cfg: SSLConfig, *, backbone: Optional[Callable[..., ResNet]] = None,
+                 logger: Optional[MetricsLogger] = None, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.backbone = backbone or resnet50
+        self.logger = logger or MetricsLogger()
+        self.seeds = SeedStream(cfg.seed)
+        self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
+        self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
+
+    def init_state(self) -> SSLTrainState:
+        bb = self.backbone(num_classes=0, seed=self.seeds.seed("init"), device=self.device)
+        model = SimCLRModel(bb, self.cfg.projection_hidden, self.cfg.projection_dim,
+                            seed=self.seeds.seed("init", stage=1), device=self.device)
+        return SSLTrainState(0, model, AdamW(list(model.parameters()), self.cfg.lr, self.cfg.weight_decay))
+
+    def state_from_jax(self, tree) -> SSLTrainState:
+        """A JAX ``SSLTrainState`` (numpy or JAX leaves) on this trainer's device."""
+        from rnagan_tpu_torch import convert
+
+        state = self.init_state()
+        state.model.load_state_dict(convert.resnet_state_dict_from_jax(
+            state.model, {"params": tree.params, "batch_stats": tree.batch_stats}))
+        load_adamw(state.opt, [n for n, _ in state.model.named_parameters()], tree.opt_state)
+        state.step = int(np.asarray(tree.step))
+        return state
+
+    def train_step(self, state: SSLTrainState, images01,
+                   draws: Optional[Dict[str, Dict[str, Any]]] = None) -> Tuple[SSLTrainState, Dict[str, torch.Tensor]]:
+        """One step on NHWC ``images01`` in [0, 1]: views A and B, normalized
+        as the downstream classifier normalizes, through the model in train
+        mode, NT-Xent, AdamW."""
+        x = torch.as_tensor(images01).to(self.device, torch.float32)
+        if draws is None:
+            gen = self.seeds.generator("ssl", state.step, device=self.device)
+            draws = {v: draw_view(len(x), self.cfg.crop_scale_min, gen, self.device) for v in "ab"}
+        both = torch.cat([augment_views(x, draws["a"]), augment_views(x, draws["b"])])
+        both = (both - self._mean) / self._std
+        model = state.model.train()
+        loss, acc = nt_xent_loss(model(both.permute(0, 3, 1, 2)).float(), self.cfg.temperature)
+        params = list(model.parameters())
+        state.opt.step(params, torch.autograd.grad(loss, params))
+        state.step += 1
+        return state, {"loss": loss.detach(), "contrastive_acc": acc.detach()}
+
+    def fit(self, images01: np.ndarray, *, num_epochs: Optional[int] = None,
+            state: Optional[SSLTrainState] = None) -> Tuple[SSLTrainState, Dict[str, Any]]:
+        """Epochs of full batches: NT-Xent takes every row as a real negative,
+        so the batch is clamped to the corpus and the remainder dropped."""
+        cfg = self.cfg
+        state = state if state is not None else self.init_state()
+        n = len(images01)
+        bs = min(cfg.batch_size, n)
+        if bs == 0:
+            raise ValueError("an empty corpus cannot fill a batch")
+        history = []
+        for epoch in range(num_epochs or cfg.num_epochs):
+            per_step = [self.train_step(state, images01[idx])[1]
+                        for idx, _ in batch_indices(n, bs, shuffle=True, seed=cfg.seed, epoch=epoch,
+                                                    drop_remainder=True)]
+            history.append(epoch_means(per_step))
+            self.logger.scalars("ssl", history[-1], epoch)
+        return state, {"history": history}
+
+    @staticmethod
+    def backbone_variables(state: SSLTrainState) -> Dict[str, torch.Tensor]:
+        """The pretrained backbone's state_dict (copies), for
+        ``TileClassifierTrainer(backbone_variables=...)``."""
+        return copy.deepcopy(state.model.backbone.state_dict())

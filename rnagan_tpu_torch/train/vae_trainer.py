@@ -39,7 +39,7 @@ import torch
 from rnagan_tpu_torch.core.checkpoint import BestKeeper
 from rnagan_tpu_torch.core.config import VAEConfig
 from rnagan_tpu_torch.core.device import resolve_device
-from rnagan_tpu_torch.core.metrics import MetricsLogger
+from rnagan_tpu_torch.core.metrics import MetricsLogger, epoch_means
 from rnagan_tpu_torch.core.profiling import StepTimer
 from rnagan_tpu_torch.core.rng import SeedStream
 from rnagan_tpu_torch.data.rna import Scaler, batch_iterator
@@ -134,20 +134,6 @@ class VAETrainer:
         return masked_beta_vae_loss(x, out, z_mean, z_logvar, m, self.cfg.model.beta, False), out
 
     # ------------------------------------------------------------------ loops
-    @staticmethod
-    def _means(per_batch: List[Losses]) -> Dict[str, float]:
-        """The mean of per-batch means, summed in batch order in float64 as the
-        JAX loop sums them (one copy off the card)."""
-        if not per_batch:
-            return {}
-        keys = list(per_batch[0])
-        table = torch.stack([torch.stack([b[k] for k in keys]) for b in per_batch]).cpu().tolist()
-        sums = dict.fromkeys(keys, 0.0)
-        for row in table:
-            for k, v in zip(keys, row):
-                sums[k] += v
-        return {k: v / len(per_batch) for k, v in sums.items()}
-
     def _run_epoch(self, state: VAETrainState, data: np.ndarray, *, train: bool, epoch: int):
         per_batch: List[Losses] = []
         for count, (batch, mask) in enumerate(batch_iterator(data, self.cfg.batch_size, shuffle=train,
@@ -158,7 +144,7 @@ class VAETrainer:
                 gen = self.seeds.generator("eval", epoch, count, device=self.device)
                 losses, _ = self.eval_step(state, batch, mask, gen)
             per_batch.append(losses)
-        return state, self._means(per_batch)
+        return state, epoch_means(per_batch)
 
     def fit(self, train_data: np.ndarray, val_data: np.ndarray, *, save_dir: Optional[str] = None,
             scaler: Optional[Scaler] = None,
@@ -209,4 +195,4 @@ class VAETrainer:
             losses, out = self.eval_step(state, batch, mask, gen)
             per_batch.append(losses)
             preds.append(out.cpu().numpy()[mask > 0])
-        return self._means(per_batch), (np.concatenate(preds, axis=0) if preds else np.zeros((0,)))
+        return epoch_means(per_batch), (np.concatenate(preds, axis=0) if preds else np.zeros((0,)))

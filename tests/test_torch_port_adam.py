@@ -6,6 +6,8 @@ held against the Pallas kernel they replace (``ops/fused_adam.py``, interpret
 mode) and against ``optax.adam``, at rtol 1e-6 (the tolerance of
 ``tests/test_ops.py``): the host's float32 ``1 - b^t`` may differ from
 ``jnp.power`` by an ulp, and XLA may round ``(1-b2)*g*g`` in another order.
+``AdamW`` (K3 with its decoupled decay) is held to ``optax.adamw`` the same
+way, and with ``weight_decay=0`` bit-equal to ``Adam``.
 """
 
 import jax.numpy as jnp
@@ -17,7 +19,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from rnagan_tpu.ops.fused_adam import adam_update_flat
 from rnagan_tpu_torch.kernels.fused_adam import MAX_TENSORS, adam_update_plain, fused_adam
-from rnagan_tpu_torch.optim.adam import Adam, bias_corrections
+from rnagan_tpu_torch.optim.adam import Adam, AdamW, bias_corrections
 
 LR, B1, B2, EPS = 1e-4, 0.5, 0.999, 1e-8
 #: a model's mix: conv kernels, BN vectors, and tensors of 1 and 3 elements
@@ -194,3 +196,102 @@ def test_fused_adam_takes_cpu_or_cuda_only():
     t = [torch.empty(4, device="meta")]
     with pytest.raises(ValueError, match="CUDA or CPU"):
         fused_adam(t, t, t, t, c1=0.5, c2=0.1, lr=LR, b1=B1, b2=B2, eps=EPS)
+
+
+def _adamw_pair(p, mu, nu, count, wd, lr=3e-5):
+    """``optax.adamw`` at ``count`` with the given moments, and the port's
+    ``AdamW`` in the same state."""
+    tx = optax.adamw(lr, weight_decay=wd)
+    params = [jnp.asarray(a) for a in p]
+    st = tx.init(params)
+    if count:
+        st = (st[0]._replace(count=jnp.asarray(count, jnp.int32), mu=[jnp.asarray(a) for a in mu],
+                             nu=[jnp.asarray(a) for a in nu]),) + tuple(st[1:])
+    opt = AdamW(_torch(p), lr, weight_decay=wd)
+    if count:
+        opt.mu, opt.nu, opt.count = _torch(mu), _torch(nu), count
+    return tx, params, st, opt
+
+
+@pytest.mark.parametrize("count", [0, 5])
+@pytest.mark.parametrize("wd", [0.01, 1e-6])
+def test_adamw_matches_optax(rng, count, wd):
+    """``AdamW`` (K3's plain version on the CPU) against ``optax.adamw``,
+    three steps from a fresh state and from a count-5 one, at the ML
+    experiment's rate and decay (0.01) and SimCLR's decay (1e-6)."""
+    p, g, mu, nu = _state(rng)
+    tx, params, st, opt = _adamw_pair(p, mu, nu, count, wd)
+    tp = _torch(p)
+    for k in range(3):
+        grads = [a * (k + 1) for a in g]
+        upd, st = tx.update([jnp.asarray(a) for a in grads], st, params)
+        params = optax.apply_updates(params, upd)
+        opt.step(tp, _torch(grads))
+    assert opt.count == int(st[0].count) == count + 3
+    # from count 0 the first update is +-lr: one ulp of it on a weight near 0 is a large relative error
+    _close(tp, params, atol=1e-12 if count else 3e-12)
+    _close(opt.mu, st[0].mu)
+    _close(opt.nu, st[0].nu)
+
+
+def test_adamw_without_decay_is_adam_bit_for_bit(rng):
+    p, g, mu, nu = _state(rng)
+    a, w = Adam(_torch(p), lr=LR, b1=B1, b2=B2, eps=EPS), AdamW(_torch(p), LR, 0.0, b1=B1, b2=B2, eps=EPS)
+    for opt in (a, w):
+        opt.mu, opt.nu, opt.count = _torch(mu), _torch(nu), 5
+    ta, tw = _torch(p), _torch(p)
+    for _ in range(2):
+        a.step(ta, _torch(g))
+        w.step(tw, _torch(g))
+    for x, y in zip([*ta, *a.mu, *a.nu], [*tw, *w.mu, *w.nu]):
+        assert torch.equal(x, y)
+
+
+def test_plain_decay_is_a_separate_rounding(rng):
+    """With ``wd`` the plain version adds ``p * wd`` to the rounded Adam update,
+    then scales by the rate: ``p - lr * (u + wd * p)``, each op rounded alone."""
+    p, g, mu, nu = _state(rng, [(257,)])
+    tp, tmu, tnu = _torch(p), _torch(mu), _torch(nu)
+    p0 = tp[0].clone()
+    adam_update_plain(tp, _torch(g), tmu, tnu, 0.9, 0.1, LR, B1, B2, EPS, wd=0.01)
+    c1, c2 = torch.tensor(0.9), torch.tensor(0.1)
+    u = (tmu[0] / c1) / (torch.sqrt(tnu[0] / c2) + EPS)
+    assert torch.equal(tp[0], p0 - (u + p0 * 0.01) * LR)
+
+
+def test_adamw_state_dict_is_torch_adamw_layout(rng):
+    """``AdamW.state_dict`` loads into ``torch.optim.AdamW`` (its decay is
+    ``p * (1 - lr * wd)`` first, which rounds otherwise: rtol 1e-5) and reads
+    back unchanged."""
+    p, g, mu, nu = _state(rng)
+    opt = AdamW(_torch(p), LR, 0.01, b1=B1, b2=B2, eps=EPS)
+    opt.mu, opt.nu, opt.count = _torch(mu), _torch(nu), 5
+    sd = opt.state_dict()
+    assert sd["param_groups"][0]["weight_decay"] == 0.01
+    params = [torch.nn.Parameter(t) for t in _torch(p)]
+    ref = torch.optim.AdamW(params, lr=LR, betas=(B1, B2), eps=EPS, weight_decay=0.01)
+    ref.load_state_dict(sd)
+    for q, a in zip(params, g):
+        q.grad = torch.from_numpy(a)
+    ref.step()
+    tp = _torch(p)
+    opt.step(tp, _torch(g))
+    for got, want in zip(tp, params):
+        np.testing.assert_allclose(got.numpy(), want.detach().numpy(), rtol=1e-5, atol=1e-9)
+    back = AdamW(_torch(p), LR, 0.01)
+    back.load_state_dict(opt.state_dict())
+    assert back.count == 6 and all(torch.equal(x, y) for x, y in zip(back.mu, opt.mu))
+
+
+def test_one_launch_takes_resnet152(rng):
+    """ResNet152's 467 tensors fit one launch's table (512 rows)."""
+    from rnagan_tpu_torch.models.resnet import resnet152
+
+    shapes = [tuple(q.shape) for q in resnet152(num_classes=2, device="meta").parameters()]
+    assert len(shapes) == 467 <= MAX_TENSORS
+    small = [(int(np.prod(s)) % 7 + 1,) for s in shapes]  # the count, not the size, is the point
+    p, g, mu, nu = _state(rng, small)
+    tp, ref = _torch(p), _torch(p)
+    fused_adam(tp, _torch(g), _torch(mu), _torch(nu), c1=0.5, c2=0.01, lr=LR, b1=B1, b2=B2, eps=EPS, wd=0.01)
+    adam_update_plain(ref, _torch(g), _torch(mu), _torch(nu), 0.5, 0.01, LR, B1, B2, EPS, 0.01)
+    assert all(torch.equal(a, b) for a, b in zip(tp, ref))

@@ -1,4 +1,5 @@
-"""The port's package rules: no JAX or pandas, CUDA by default, no library optimizer."""
+"""The port's package rules: no JAX or pandas (nor PIL or h5py at import), CUDA
+by default, no library optimizer."""
 
 import ast
 import subprocess
@@ -47,10 +48,19 @@ for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas", "rnagan_tpu"
 #: subpackages of the port and modules of each that must be among the imported
 SUBPACKAGES = {"core": ("checkpoint", "msgpack"), "data": ("rna", "store", "tiles", "patches", "tiler"),
                "cli": ("betavae_train", "gan_train", "generate", "fid", "sample", "interpolate",
-                       "representation", "metrics", "tile", "main"),
+                       "representation", "metrics", "tile", "main", "ml_experiment"),
                "eval": ("interpolate", "fid", "representation"), "losses": ("vae",),
-               "models": ("betavae", "inception", "sagan", "biggan"), "optim": ("scheduled",),
-               "train": ("vae_trainer",), "kernels": ("fused_adam",), "utils": ("images",)}
+               "models": ("betavae", "inception", "sagan", "biggan", "resnet", "fusion"),
+               "optim": ("scheduled", "adam"),
+               "train": ("vae_trainer", "ml_experiment", "ssl_trainer", "fusion_trainer"),
+               "kernels": ("fused_adam",), "utils": ("images",)}
+
+#: the card's machine has neither: a module imports them inside the function that reads files
+_IMPORT_ALL_NO_PIL_H5PY = """
+import sys
+for name in ("PIL", "h5py"):
+    sys.modules[name] = None
+""" + _IMPORT_ALL
 
 
 def _import_all(code):
@@ -75,6 +85,35 @@ def test_port_imports_with_forbidden_packages_blocked():
     """Every module of the port imports with jax, flax, optax, msgpack,
     pandas and rnagan_tpu made unimportable (``sys.modules[name] = None``)."""
     _import_all(_IMPORT_ALL_BLOCKED)
+
+
+def test_port_imports_without_pil_or_h5py():
+    """Every module of the port imports with PIL and h5py unimportable: the
+    JPEG and HDF5 readers import them inside their functions."""
+    _import_all(_IMPORT_ALL_NO_PIL_H5PY)
+
+
+@pytest.mark.parametrize("entry", ["tile_classifier", "simclr", "fusion", "cli", "main"])
+def test_resnet_entry_points_default_to_cuda(entry, tmp_path):
+    """The ML, SimCLR and fusion trainers and ``ml-experiment`` (its module
+    and through ``main``) resolve the device first: with no card they raise
+    unless given the CPU, before a tile is read."""
+    if torch.cuda.is_available():
+        pytest.skip("the card is present: the CUDA default does not raise here")
+    from rnagan_tpu_torch.cli import main as cli_main
+    from rnagan_tpu_torch.cli import ml_experiment
+    from rnagan_tpu_torch.core.config import MLConfig
+    from rnagan_tpu_torch.train.fusion_trainer import FusionConfig, FusionTrainer
+    from rnagan_tpu_torch.train.ml_experiment import TileClassifierTrainer
+    from rnagan_tpu_torch.train.ssl_trainer import SimCLRTrainer, SSLConfig
+
+    argv = ["--csv", str(tmp_path / "absent.csv")]
+    call = {"tile_classifier": lambda: TileClassifierTrainer(MLConfig()),
+            "simclr": lambda: SimCLRTrainer(SSLConfig()), "fusion": lambda: FusionTrainer(FusionConfig()),
+            "cli": lambda: ml_experiment.main(argv),
+            "main": lambda: cli_main.main(["ml-experiment", *argv])}[entry]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
 
 
 def test_entry_points_default_to_cuda():

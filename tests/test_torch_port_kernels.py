@@ -18,6 +18,7 @@ from jax.experimental.pallas import tpu as pltpu
 from rnagan_tpu.losses.rna_infusion import infused_noise_population, standardize_batch
 from rnagan_tpu.ops.quantize import pallas_tanh_to_uint8
 from rnagan_tpu_torch.kernels import _build
+from rnagan_tpu_torch.kernels import fused_adam as tadam
 from rnagan_tpu_torch.kernels import infusion as tinfusion
 from rnagan_tpu_torch.kernels import quant_matmul as tquant
 from rnagan_tpu_torch.kernels.infusion import infused_noise, philox4x32, philox_uniform, rows_per_thread
@@ -143,6 +144,7 @@ def test_wrapper_constants_match_the_kernels():
     cases = re.findall(r"case (\d+): err = launch_wgmma<(\d+)>", (_build.CSRC / "quant_matmul.cu").read_text())
     assert all(a == b for a, b in cases)
     assert tuple(int(a) for a, _ in cases) == tquant.WGMMA_TILES_N
+    assert tadam.MAX_TENSORS == _cu_constant("fused_adam.cu", "kMaxTensors")
 
 
 @pytest.mark.parametrize("kwargs", [{}, {"seed": 1, "u": torch.zeros(4, 8)},
