@@ -104,7 +104,22 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    ConvTranspose alone; tiles/s of ``quantized_head``, ``quantized_full`` and
    ``dcgan_up`` serving in float32 and bfloat16, and in float32 the last two
    checked at that width: every W8A8 layer exact against float64, W8A8
-   against the float path, and a few rows of each against the CPU.
+   against the float path, and a few rows of each against the CPU;
+12. the mesh (run before 11): ranks spawned with the backend named, two on
+   the one card over gloo (NCCL refuses two ranks on one device) or one a
+   card over NCCL on several, each running ``mesh_rank``: K1's group mode
+   (global batches of 128 and 8 rows x 2048, split over the ranks) against
+   its plain version and, concatenated, against the one-pass kernel on the
+   whole batch (1e-6 of max |out|), with its times; a small ``dcgan``
+   wganvae GAN's 3 steps against one rank in this process at the CPU mesh
+   tests' tolerances; ``GANConfig()`` at full width (bfloat16, global batch
+   8) for 1 + 3 steps, the K1 group-mode and K3 counters read around the 3
+   (6 and 2 launches a step), the step time and the bytes all-reduced a
+   step, finite losses, every rank's parameters bit-equal to rank 0's;
+   ``VAEConfig()`` at full width with its Linears split over 2 ranks, one
+   step against a one-rank step of the same state (``VAE_TOL``), the
+   gathered state too; one ``MLConfig()`` classifier step (ResNet50,
+   float32) whose loss is the one-rank step's within 1e-5.
 
 It prints a details line, the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -683,11 +698,16 @@ def warm_adam(state, gen):
     """Adam moments as at step 5 (nu far above (1-b2)*g^2), so one step's
     update is smooth in the gradient instead of the sign(g)*lr of a first step."""
     for opt in (state.g_opt, state.d_opt):
-        for mu, nu in zip(opt.mu, opt.nu):
-            mu.copy_(torch.randn(mu.shape, generator=gen, device=mu.device) * 1e-3)
-            nu.copy_((torch.rand(nu.shape, generator=gen, device=nu.device) + 0.5) * 1e-2)
-        opt.count = 5
+        warm_moments(opt, gen)
     state.step = 5
+
+
+def warm_moments(opt, gen):
+    """One Adam/AdamW's moments and count as :func:`warm_adam` sets them."""
+    for mu, nu in zip(opt.mu, opt.nu):
+        mu.copy_(torch.randn(mu.shape, generator=gen, device=mu.device) * 1e-3)
+        nu.copy_((torch.rand(nu.shape, generator=gen, device=nu.device) + 0.5) * 1e-2)
+    opt.count = 5
 
 
 def state_to(state, dev):
@@ -2259,6 +2279,466 @@ def small_config_matches_cpu(dev):
     return worst, share
 
 
+# ------------------------------------------------------------- phase 12: the mesh
+
+#: K1's group mode: (global rows, columns) split over the ranks
+K1_GROUP_SHAPES = ((128, 2048), (8, 2048))
+#: phase 12's small GAN (the CPU mesh tests' sizes) and its steps
+MESH_SMALL_STEPS = 3
+#: full-width GANConfig() steps a rank takes: warm-up, then counted and timed
+MESH_GAN_STEPS = (1, 3)
+#: the classifier's ranks may differ from one rank by this many times the
+#: change that reordering the batch makes to one rank's step (``reorder_floor``)
+REORDER_FACTOR = 3.0
+
+
+def mesh_layout():
+    """(ranks, backend): one rank a card over NCCL on two or more cards; two
+    ranks on the one card over gloo (NCCL refuses two ranks on one device)."""
+    cards = torch.cuda.device_count()
+    return (cards, "nccl") if cards >= 2 else (2, "gloo")
+
+
+def mesh_small_config():
+    from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig, VAEModelConfig
+
+    return GANConfig(model=GANModelConfig(encoding_dims=16, out_size=32, step_channels=8, compute_dtype="float32"),
+                     vae=VAEModelConfig(rna_features=20, z_dim=16, encoder_dims=(24, 16), decoder_dims=(24,)),
+                     batch_size=16, seed=7)
+
+
+def mesh_small_inputs():
+    """The small GAN's frozen VAE and batches, from a fixed seed on the CPU."""
+    from rnagan_tpu_torch.models.betavae import BetaVAE
+
+    cfg = mesh_small_config()
+    gen = torch.Generator().manual_seed(SEED + 12)
+    batches = [{"image": torch.rand(16, 32, 32, 3, generator=gen) * 2 - 1,
+                "rna_data": torch.randn(16, 20, generator=gen)} for _ in range(MESH_SMALL_STEPS)]
+    return BetaVAE(cfg.vae, seed=3).state_dict(), batches
+
+
+def mesh_small_steps(dev):
+    """``MESH_SMALL_STEPS`` steps of the small wganvae GAN from its seeded
+    init with Adam's moments as at step 5 (``warm_adam``: from zero moments
+    Adam's first steps are sign(g) * lr, and a gradient near 0 flips sign on
+    an ulp), every draw made by the trainer: the metrics and G's first kernel."""
+    from rnagan_tpu_torch.parallel.mesh import shard_batch
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+
+    vae_sd, batches = mesh_small_inputs()
+    tr = GANTrainer(mesh_small_config(), vae_sd, device=dev)
+    st = tr.init_state()
+    warm_adam(st, torch.Generator(device=tr.device).manual_seed(SEED + 16))
+    metrics = []
+    for batch in batches:
+        st, met = tr.train_step(st, {k: v.to(tr.device) for k, v in shard_batch(batch, tr.mesh).items()})
+        metrics.append({k: float(v) for k, v in met.items()})
+    return {"metrics": metrics, "g0": st.generator.model[0][0].weight.detach().cpu()}
+
+
+def mesh_ml_inputs(order=None):
+    """One global batch of ``MLConfig()`` (64 tiles of 224x224, a padded
+    row) with its flips, from a fixed seed on the CPU; ``order`` permutes
+    its rows (the same step, its sums taken in another order)."""
+    from rnagan_tpu_torch.core.config import MLConfig
+
+    cfg = MLConfig()
+    gen = torch.Generator().manual_seed(SEED + 13)
+    x, labels = drawn_tiles(gen, cfg.batch_size, cfg.image_size, "cpu")
+    mask = torch.ones(cfg.batch_size)
+    mask[-1] = 0.0
+    draws = {"flip_h": torch.rand(cfg.batch_size, generator=gen) < 0.5,
+             "flip_v": torch.rand(cfg.batch_size, generator=gen) < 0.5}
+    if order is not None:
+        x, labels, mask = x[order], labels[order], mask[order]
+        draws = {k: v[order] for k, v in draws.items()}
+    return cfg, x, labels, mask, draws
+
+
+def mesh_ml_step(dev, order=None):
+    """One ``MLConfig()`` classifier step (ResNet50 at float32, TF32 off) on
+    this rank's rows, from the seeded init with AdamW's moments as at step 5
+    (``warm_moments``), on ``mesh_ml_inputs(order)``: the global loss and
+    accuracy, K3's launches, and the parameters after the step."""
+    import functools
+
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.models.resnet import resnet50
+    from rnagan_tpu_torch.parallel.mesh import shard_batch
+    from rnagan_tpu_torch.train.ml_experiment import TileClassifierTrainer
+
+    cfg, x, labels, mask, draws = mesh_ml_inputs(order)
+    tr = TileClassifierTrainer(cfg, model=functools.partial(resnet50, num_classes=2, compute_dtype="float32"),
+                               device=dev)
+    st = tr.init_state()
+    warm_moments(st.opt, torch.Generator(device=tr.device).manual_seed(SEED + 17))
+    st.step = 5
+    x, labels, mask = (t.to(tr.device) for t in shard_batch((x, labels, mask), tr.mesh))
+    before = fused_adam.launches
+    st, met = tr.train_step(st, x, labels, mask, draws)
+    torch.cuda.synchronize()
+    params = [p.detach() for p in st.model.parameters()]
+    return {k: float(v) for k, v in met.items()} | {"k3_launches": fused_adam.launches - before}, params
+
+
+def reorder_floor(dev, ref):
+    """Per parameter tensor, the largest change that reordering the global
+    batch's rows (a seeded permutation, the reversal) makes to a one-rank
+    classifier step's result ``ref``: the same step, its sums taken in
+    another order. At random init ResNet50's 53 float32 BatchNorms (flax's
+    ``E[x^2] - E[x]^2``) make that step ill-conditioned: reordering alone
+    moves its BatchNorm biases' gradients by a few per cent of their largest."""
+    from rnagan_tpu_torch.core.config import MLConfig
+
+    n = MLConfig().batch_size
+    floor = [torch.zeros((), device=dev) for _ in ref]
+    shuffled = torch.randperm(n, generator=torch.Generator().manual_seed(SEED + 18))
+    for order in (shuffled, torch.arange(n - 1, -1, -1)):
+        _, params = mesh_ml_step(dev, order)
+        floor = [torch.maximum(f, (p - r).abs().max()) for f, p, r in zip(floor, params, ref)]
+    return floor
+
+
+def params_excess_over(got, ref, floor):
+    """The largest ``|got - ref|`` over its allowance, ``1e-5 |ref| + 1e-6 max
+    |ref|`` (the CPU mesh tests' bound, ``tests/test_torch_port_mesh_resnet.py::
+    _assert_steps_agree``) plus ``REORDER_FACTOR`` times the tensor's
+    ``reorder_floor``, over lists of parameters: above 1 fails."""
+    check(len(got) == len(ref) == len(floor), f"{len(got)} parameters against {len(ref)}")
+    worst = 0.0
+    for g, r, f in zip(got, ref, floor):
+        allow = 1e-5 * r.abs() + 1e-6 * float(r.abs().max()) + REORDER_FACTOR * f + 1e-30
+        worst = max(worst, float(((g.to(r.device) - r).abs() / allow).max()))
+    return worst
+
+
+def k1_group_inputs(n, d):
+    gen = torch.Generator().manual_seed(SEED + n)
+    return torch.randn(n, d, generator=gen) * 3, (torch.rand(n, d, generator=gen) * 2 - 1) * 0.3
+
+
+def k1_group_times(dev, group, mesh, n, d):
+    """K1's group mode on this rank's rows of a seeded (n, d) global batch:
+    the wrapper with its two all-reduces, the three launches alone (from a
+    CUDA graph) and the plain version, in ms, and the bound of the launches."""
+    from rnagan_tpu_torch.kernels import _build
+    from rnagan_tpu_torch.kernels.infusion import infused_noise, infused_noise_group_plain
+    from rnagan_tpu_torch.parallel.mesh import local_rows
+
+    z, _ = k1_group_inputs(n, d)
+    rows = local_rows(n, mesh)
+    zl, m = z[rows].to(dev).contiguous(), rows.stop - rows.start
+    lib = _build.library()
+    buf, sums, sq = torch.empty(m, d, device=dev), torch.zeros(d + 1, device=dev), torch.zeros(d, device=dev)
+    sums[d] = float(n)
+
+    def three_launches():  # the kernel's work without the all-reduces between
+        stream = torch.cuda.current_stream().cuda_stream
+        for phase in range(3):
+            _build.check("group", lib.rnagan_infused_noise_group(
+                zl.data_ptr(), d, None, buf.data_ptr(), sums.data_ptr(), sq.data_ptr(), m, d, rows.start, 3,
+                0.3, phase, stream))
+
+    out = {"rows_a_rank": m,
+           "ms": time_ms(lambda: infused_noise(zl, m, seed=3, group=group, row0=rows.start), iters=20),
+           "device_ms": graph_ms(three_launches),  # replayed from a CUDA graph: no host time between launches
+           "plain_ms": time_ms(lambda: infused_noise_group_plain(zl, m, group, seed=3, row0=rows.start),
+                               iters=20)}
+    # this rank's work: z in, out, the three (D,) buffers; ~10 operations an element
+    out["bound_ms"], out["bound_by"] = bound_ms(2 * m * d * 4 + 3 * d * 4, 10 * m * d)
+    return out
+
+
+def k1_group_rank(dev, group):
+    """K1's group mode on this rank's rows of each ``K1_GROUP_SHAPES`` batch,
+    seeded and from given uniforms, against its plain version (gated at 1e-6
+    of max |out|); its outputs (the caller holds their concatenation against
+    the one-pass kernel on the whole batch); and its times at each shape."""
+    from rnagan_tpu_torch.kernels.infusion import infused_noise, infused_noise_group_plain
+    from rnagan_tpu_torch.parallel.mesh import local_rows, make_mesh
+
+    mesh = make_mesh(device=dev)
+    out = {"outputs": {}, "max_abs_err": {}, "times": {}}
+    for n, d in K1_GROUP_SHAPES:
+        z, u = k1_group_inputs(n, d)
+        rows = local_rows(n, mesh)
+        zl, ul, m = z[rows].to(dev), u[rows].to(dev), rows.stop - rows.start
+        got = {"seed": infused_noise(zl, m, seed=3, group=group, row0=rows.start),
+               "u": infused_noise(zl, m, u=ul, group=group, row0=rows.start)}
+        plain = {"seed": infused_noise_group_plain(zl, m, group, seed=3, row0=rows.start),
+                 "u": infused_noise_group_plain(zl, m, group, u=ul, row0=rows.start)}
+        for k in got:
+            err = float((got[k] - plain[k]).abs().max())
+            scale = float(plain[k].abs().max())
+            check(err <= 1e-6 * scale, f"K1 group {k} at {n}x{d}: {err} against its plain version ({scale})")
+            out["max_abs_err"][f"{n}x{d},{k}"] = err
+        out["outputs"][f"{n}x{d}"] = {k: v.cpu() for k, v in got.items()}
+        out["times"][f"{n}x{d}"] = k1_group_times(dev, group, mesh, n, d)
+    return out
+
+
+class _AllReduceBytes:
+    """Counts the bytes ``torch.distributed.all_reduce`` sends from this rank
+    (every collective of the port's steps goes through it)."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist, self.inner, self.bytes = dist, dist.all_reduce, 0
+
+    def __enter__(self):
+        def counted(tensor, *args, **kwargs):
+            self.bytes += tensor.numel() * tensor.element_size()
+            return self.inner(tensor, *args, **kwargs)
+
+        self.dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.inner
+
+
+def replicas_equal(flat, group=None):
+    """Whether every rank's ``flat`` is bit-equal to rank 0's (a broadcast of
+    rank 0's copy, each rank's verdict summed over the group)."""
+    import torch.distributed as dist
+
+    ref = flat.clone()
+    dist.broadcast(ref, src=0, group=group)
+    bad = torch.tensor([0.0 if torch.equal(ref, flat) else 1.0], device=flat.device)
+    dist.all_reduce(bad, group=group)
+    return float(bad) == 0.0
+
+
+def mesh_gan_full_width(dev):
+    """``GANConfig()`` (wganvae, bfloat16) at full width, global batch 8 split
+    over the ranks: the K1 group-mode, one-pass and K3 launch counters set to 0
+    before the counted steps and read after (the main path of this phase),
+    the step time and the bytes all-reduced a step, finite losses, and every
+    rank's parameters bit-equal to rank 0's."""
+    from rnagan_tpu_torch.core.config import GANConfig, VAEModelConfig
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.kernels.infusion import infused_noise
+    from rnagan_tpu_torch.models.betavae import BetaVAE
+    from rnagan_tpu_torch.parallel.mesh import shard_batch
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+
+    cfg = GANConfig()
+    tr = GANTrainer(cfg, BetaVAE(VAEModelConfig(), seed=SEED, device=dev).state_dict(), device=dev)
+    st = tr.init_state()
+    gen = torch.Generator().manual_seed(SEED + 14)
+    batches = [shard_batch(random_batch(gen, cfg.batch_size, cfg, "cpu"), tr.mesh)
+               for _ in range(sum(MESH_GAN_STEPS))]
+    batches = [{k: v.to(tr.device) for k, v in b.items()} for b in batches]
+    for b in batches[:MESH_GAN_STEPS[0]]:
+        tr.train_step(st, b)
+    torch.cuda.synchronize()
+    infused_noise.launches = infused_noise.group_launches = fused_adam.launches = 0
+    with _AllReduceBytes() as reduced:
+        t0 = time.perf_counter()
+        metrics = [tr.train_step(st, b)[1] for b in batches[MESH_GAN_STEPS[0]:]]
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / MESH_GAN_STEPS[1]
+    steps = MESH_GAN_STEPS[1]
+    launches = {"infused_noise_group": infused_noise.group_launches, "infused_noise": infused_noise.launches,
+                "fused_adam": fused_adam.launches}
+    check(launches == {"infused_noise_group": 6 * steps, "infused_noise": 0, "fused_adam": 2 * steps},
+          f"mesh GAN launches {launches} in {steps} steps: expected K1's group kernel 3 a call, 2 calls a "
+          "step, and K3 2 a step")
+    last = {k: float(v) for k, v in metrics[-1].items()}
+    check(all(math.isfinite(float(v)) for m in metrics for v in m.values()), f"mesh GAN losses: {last}")
+    flat = torch.cat([p.detach().reshape(-1) for p in (*st.generator.parameters(), *st.discriminator.parameters())])
+    equal = replicas_equal(flat)
+    check(equal, "mesh GAN: a rank's parameters differ from rank 0's")
+    return {"step_ms": step_ms, "all_reduce_bytes_per_step": reduced.bytes / steps, "launches": launches,
+            "rows_a_rank": cfg.batch_size // tr.mesh.data, "last_metrics": last, "replicas_bit_equal": equal,
+            "params": flat.numel()}
+
+
+def _shard_rows(model, name):
+    """The rows of a one-device tensor that a model-split parameter or buffer
+    ``name`` of ``model`` holds (all of them when its module is not split)."""
+    owner = model.get_submodule(name.rpartition(".")[0]) if "." in name else model
+    split = getattr(owner, "model_split", None)
+    if split is None:
+        return slice(None)
+    j, size = split
+    k = getattr(owner, "out_features", None) or owner.num_features
+    return slice(j * k, (j + 1) * k)
+
+
+def mesh_vae_grid(dev):
+    """``VAEConfig()`` at full width on a (ranks/2 x 2) grid, (1 x 2) on one
+    card: every Linear whose width divides 2 split column-wise. One step on
+    the global batch of 128 (float32, TF32 off, given dropout mask and eps,
+    Adam moments as at step 5) against a one-rank step of the same state in
+    this process: each rank's shards within the VAE phase's bounds
+    (``VAE_TOL``) of their rows of the one-rank state, and the gathered
+    state_dict against the one-rank one; one K3 launch a rank."""
+    from rnagan_tpu_torch.core.config import MeshConfig, VAEConfig
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.parallel.mesh import Mesh, local_rows
+    from rnagan_tpu_torch.train.vae_trainer import VAETrainer
+
+    one_cfg = MeshConfig(data=1, model=1)
+    one = VAETrainer(VAEConfig(mesh=one_cfg), mesh=Mesh(one_cfg, 1, 0, 1, 1, 0, 0, None, None, torch.device(dev)))
+    grid = VAETrainer(VAEConfig(mesh=MeshConfig(model=2)), device=dev)
+    s1, s2 = one.init_state(), grid.init_state()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    for mu, nu in zip(s1.opt.rule.mu, s1.opt.rule.nu):
+        mu.copy_(torch.randn(mu.shape, generator=gen, device=dev) * 1e-3)
+        nu.copy_((torch.rand(nu.shape, generator=gen, device=dev) + 0.5) * 1e-2)
+    names = [n for n, _ in s2.model.named_parameters()]
+    for name, mu2, nu2, mu1, nu1 in zip(names, s2.opt.rule.mu, s2.opt.rule.nu, s1.opt.rule.mu, s1.opt.rule.nu):
+        rows = _shard_rows(s2.model, name)
+        mu2.copy_(mu1[rows])
+        nu2.copy_(nu1[rows])
+    for s in (s1, s2):
+        s.opt.count = s.opt.rule.count = s.step = 5
+    m = VAEConfig().model
+    x = torch.randn(128, m.rna_features, generator=gen, device=dev)
+    mask = torch.ones(128, device=dev)
+    draws = {"keep": torch.rand(128, m.rna_features, generator=gen, device=dev) < 0.5,
+             "eps": torch.randn(128, m.z_dim, generator=gen, device=dev)}
+    _, l1 = one.train_step(s1, x, mask, draws)
+    before = fused_adam.launches
+    rows = local_rows(len(x), grid.mesh)
+    _, l2 = grid.train_step(s2, x[rows], mask[rows], draws)
+    torch.cuda.synchronize()
+    launches = fused_adam.launches - before
+    check(launches == 1, f"VAE grid step launched K3 {launches} times")
+    worst = 0.0
+    full1 = dict(s1.model.named_parameters()) | dict(s1.model.named_buffers())
+    groups = [("params", n, t) for n, t in s2.model.named_parameters()] + [
+        ("stats", n, t) for n, t in s2.model.named_buffers() if "running" in n]
+    groups += [("moments", n, t) for n, t in zip(names, s2.opt.rule.mu)]
+    ref_mu = dict(zip([n for n, _ in s1.model.named_parameters()], s1.opt.rule.mu))
+    for group, name, t in groups:
+        y = (ref_mu[name] if group == "moments" else full1[name])[_shard_rows(s2.model, name)].detach()
+        rtol, share = VAE_TOL[group]
+        allow = rtol * y.abs() + share * float(y.abs().max()) + 1e-30
+        worst = max(worst, float(((t.detach() - y).abs() / allow).max()))
+    check(worst <= 1.0, f"VAE grid step: shards at {worst} x their tolerance of the one-rank step")
+    gathered = grid.full_state_dict(s2)
+    ref_sd = s1.model.state_dict()
+    gathered_worst = 0.0
+    for k, v in gathered.items():
+        y = ref_sd[k].float()
+        allow = 1e-5 * y.abs() + 1e-6 * float(y.abs().max()) + 1e-30
+        gathered_worst = max(gathered_worst, float(((v.float() - y).abs() / allow).max()))
+    check(gathered_worst <= 1.0, f"VAE grid: gathered state at {gathered_worst} x its tolerance")
+    loss_diff = max(abs(float(l1[k]) - float(l2[k])) / abs(float(l1[k])) for k in l1)
+    check(loss_diff <= 1e-5, f"VAE grid losses {loss_diff} relative from the one-rank step")
+    first = tuple(s2.model.encoder.encoder[1][0].weight.shape)
+    return {"state_excess": worst, "gathered_excess": gathered_worst, "loss_max_rel_diff": loss_diff,
+            "first_linear_shard": first, "k3_launches": launches}
+
+
+def mesh_rank(rank, world):
+    """Phase 12 on one rank (``parallel.launch.spawn``): K1's group mode, the
+    small GAN, the full-width GAN, the VAE grid and the classifier step."""
+    import torch.distributed as dist
+
+    from rnagan_tpu_torch.parallel.mesh import make_mesh
+
+    dev = make_mesh(device="cuda").device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    out = {"device": str(dev)}
+    t0 = time.perf_counter()
+    out["k1_group"] = k1_group_rank(dev, dist.group.WORLD)
+    out["small_gan"] = mesh_small_steps(dev)
+    out["times_s"] = {"k1_and_small": time.perf_counter() - t0}
+    torch.backends.cudnn.deterministic = False
+    t0 = time.perf_counter()
+    out["gan_full_width"] = mesh_gan_full_width(dev)
+    out["times_s"]["gan_full_width"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    out["vae_grid"] = mesh_vae_grid(dev)
+    out["times_s"]["vae_grid"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["ml"], params = mesh_ml_step(dev)
+    out["ml"]["replicas_bit_equal"] = replicas_equal(torch.cat([p.reshape(-1) for p in params]))
+    if rank == 0:  # the caller holds them against a one-rank step
+        out["ml_params"] = [p.cpu() for p in params]
+    out["times_s"]["ml"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_phase(dev):
+    """Phase 12: the mesh on the card. ``mesh_layout``'s ranks run
+    ``mesh_rank``; this process runs the one-rank references on ``dev`` (the
+    one-pass K1 on each whole batch, the small GAN's steps, the classifier's
+    step) and holds the ranks against them: K1's group outputs concatenated
+    within 1e-6 of max |out|, the small GAN at the CPU mesh tests'
+    tolerances (metrics rtol 5e-3, atol 2e-5 growing tenfold a step; G's
+    first kernel 5e-4), the classifier's loss 1e-5 relative (the CPU
+    tests' bound) and its parameters after the step within the CPU tests'
+    bound plus ``REORDER_FACTOR`` times what reordering the batch changes
+    in one rank's step (``params_excess_over``)."""
+    from rnagan_tpu_torch.kernels.infusion import infused_noise
+    from rnagan_tpu_torch.parallel.launch import spawn
+
+    world, backend = mesh_layout()
+    where = f"{world} ranks on cuda:0 over gloo" if backend == "gloo" else f"{world} ranks, one a card, over nccl"
+    print(f"phase 12: the mesh on the card: {where}" + (
+        " (one card: every collective goes through the host, so these times say nothing of multi-card "
+        "scaling)" if backend == "gloo" else ""))
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False  # as in the ranks
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    t0 = time.perf_counter()
+    ranks = spawn(mesh_rank, world, backend=backend, timeout=600)
+    spawn_s = time.perf_counter() - t0
+    print(f"phase 12 ranks done in {spawn_s:.1f} s; rank 0: " + json.dumps(
+        {k: v for k, v in ranks[0].items() if k not in ("k1_group", "small_gan", "ml_params")}
+        | {"k1_group": {k: v for k, v in ranks[0]["k1_group"].items() if k != "outputs"}}))
+    out = {"ranks": world, "backend": backend, "spawned_world_s": spawn_s,
+           "times_s_rank0": ranks[0]["times_s"]}
+    k1 = {}
+    for n, d in K1_GROUP_SHAPES:
+        z, u = k1_group_inputs(n, d)
+        ref = {"seed": infused_noise(z.to(dev), n, seed=3), "u": infused_noise(z.to(dev), n, u=u.to(dev))}
+        for k, r in ref.items():
+            got = torch.cat([o["k1_group"]["outputs"][f"{n}x{d}"][k] for o in ranks]).to(dev)
+            err, scale = float((got - r).abs().max()), float(r.abs().max())
+            check(err <= 1e-6 * scale, f"K1 group {k} at {n}x{d}: {err} from the one-pass kernel ({scale})")
+            k1[f"{n}x{d},{k}"] = err
+    out["k1_group"] = {"vs_one_pass_max_abs_err": k1,
+                       "vs_plain_max_abs_err": max(max(o["k1_group"]["max_abs_err"].values()) for o in ranks),
+                       "times": ranks[0]["k1_group"]["times"]}
+    ref = mesh_small_steps(dev)
+    for step, (a, b) in enumerate(zip(ref["metrics"], ranks[0]["small_gan"]["metrics"])):
+        for k in a:
+            check(abs(a[k] - b[k]) <= 5e-3 * abs(a[k]) + 2e-5 * 10**step,
+                  f"mesh small GAN step {step} {k}: world 1 {a[k]}, world {world} {b[k]}")
+    g0_diff = float((ranks[0]["small_gan"]["g0"] - ref["g0"]).abs().max())
+    check(g0_diff <= 5e-4, f"mesh small GAN: G's first kernel {g0_diff} from world 1")
+    check(all(o["small_gan"]["metrics"] == ranks[0]["small_gan"]["metrics"] for o in ranks),
+          "mesh small GAN: the ranks' metrics differ")
+    out["small_gan"] = {"g0_max_abs_diff": g0_diff, "metrics_world1": ref["metrics"],
+                        "metrics_mesh": ranks[0]["small_gan"]["metrics"]}
+    out["gan_full_width"] = ranks[0]["gan_full_width"]
+    out["vae_grid"] = [o["vae_grid"] for o in ranks]
+    ml_ref, ref_params = mesh_ml_step(dev)
+    ml = ranks[0]["ml"]
+    loss_diff = abs(ml["loss"] - ml_ref["loss"]) / abs(ml_ref["loss"])
+    check(loss_diff <= 1e-5, f"mesh classifier loss {ml['loss']} vs world 1 {ml_ref['loss']}")
+    params_excess = params_excess_over(ranks[0]["ml_params"], ref_params, reorder_floor(dev, ref_params))
+    check(params_excess <= 1.0, f"mesh classifier: parameters after the step at {params_excess} x their "
+          "tolerance of world 1's")
+    check(all(o["ml"]["replicas_bit_equal"] and o["ml"]["k3_launches"] == 1 for o in ranks),
+          "mesh classifier: replicas differ or K3 did not launch once")
+    out["ml"] = {"loss_rel_diff": loss_diff, "params_excess": params_excess, "world1": ml_ref, "mesh": ml}
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 12 done in {out['phase_s']:.1f} s: " + json.dumps(out))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2394,6 +2874,10 @@ def main():
            for name in ("ml", "ssl", "fusion")}))
     torch.cuda.empty_cache()
 
+    # ---- phase 12: the mesh (ranks spawned over gloo on one card, NCCL on several)
+    mesh_out = mesh_phase(dev)
+    torch.cuda.empty_cache()
+
     # ---- phase 11: timings (serving as in its first measurement: cuDNN deterministic)
     torch.backends.cudnn.deterministic = True
     torch.cuda.reset_peak_memory_stats()
@@ -2474,6 +2958,19 @@ def main():
         for arch in ("sagan", "biggan"):
             kernels[i]["launches"] += sn_phase[f"gan_train_{arch}"]["launches"][k]
             kernels[i][f"gan_train_{arch}_launches"] = sn_phase[f"gan_train_{arch}"]["launches"][k]
+    # K1's group mode: launches on the mesh's full-width GAN steps (rank 0's count)
+    k1g = mesh_out["k1_group"]
+    main_shape = f"{GANConfig().batch_size}x{gan_cfg.encoding_dims}"  # the full-width GAN step's launch
+    kernels.insert(1, {
+        "name": "infused_noise_group", "route": "cuda", "source": "rnagan_tpu_torch/csrc/infusion.cu",
+        "replaces": "rnagan_tpu/ops/infusion.py:46",
+        "launches": mesh_out["gan_full_width"]["launches"]["infused_noise_group"],
+        "max_abs_err": max(k1g["vs_plain_max_abs_err"], *k1g["vs_one_pass_max_abs_err"].values()),
+        **k1g["times"][main_shape], "library_ms": None, "global_shape": main_shape,
+        "other_shapes": {k: v for k, v in k1g["times"].items() if k != main_shape},
+        "mesh": f"{mesh_out['ranks']} ranks over {mesh_out['backend']}"})
+    kernels[3]["launches"] += mesh_out["gan_full_width"]["launches"]["fused_adam"]
+    kernels[3]["mesh_launches"] = mesh_out["gan_full_width"]["launches"]["fused_adam"]
     del w_bf16
 
     g_flops, v_flops = generator_flops(gan_cfg, BATCH), vae_encode_flops(vae_cfg, BATCH)
@@ -2530,7 +3027,7 @@ def main():
                "training_f32_k3_vs_plain": train_check, "training_small_vs_cpu": train_small,
                "training": training, "fused_adam_by_model": k3, "vae_training": vae_train,
                "vae_small_vs_cpu": vae_small, "data_fid_checkpoints": data_phase,
-               "attention_gans": sn_phase, "resnet_family": resnet_phase,
+               "attention_gans": sn_phase, "resnet_family": resnet_phase, "mesh": mesh_out,
                "k4_check": k4_errs, "k4_bytes": k4_bytes, "quantized_head_path": quantized,
                "serving_variants_vs_cpu": variants, "serving_options_b128": serving_options,
                "total_s": time.perf_counter() - t_start}

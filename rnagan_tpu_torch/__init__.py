@@ -1,7 +1,8 @@
-"""PyTorch/CUDA port of the RNA-GAN framework, for one NVIDIA Hopper card.
+"""PyTorch/CUDA port of the RNA-GAN framework, for NVIDIA Hopper cards.
 
 The JAX package ``rnagan_tpu`` is the reference; this package mirrors its
-module names (``core/``, ``models/``, ``losses/``, ``eval/``, ``train/``) and carries its
+module names (``core/``, ``models/``, ``losses/``, ``eval/``, ``train/``,
+``parallel/``: the trainers over a ``torch.distributed`` mesh) and carries its
 own copy of everything it needs: it imports ``torch``, ``numpy`` and the
 standard library only. The Pallas kernels of the reference become CUDA C++
 kernels under ``csrc/``, built with ``nvcc`` at their first launch and bound

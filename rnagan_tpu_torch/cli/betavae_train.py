@@ -9,7 +9,8 @@ split (per tissue 64/16/20) -> normalize (scaler fit on train) -> fit
 the config's ``save_dir``) -> test evaluation -> ``test_results.pkl`` there
 (inverse-scaled predictions and inputs, test ids and tissue labels).
 ``--checkpoint`` starts from a betaVAE ``.pt`` state_dict with a fresh
-optimizer, as the JAX CLI does.
+optimizer, as the JAX CLI does. Under torchrun every rank goes on the data
+axis (``--dist_backend``, NCCL by default); rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import os
 
 import numpy as np
 
-from rnagan_tpu_torch.cli.common import dump_pickle
+from rnagan_tpu_torch.cli.common import add_dist_arguments, dump_pickle, training_mesh
 
 
 def build_parser():
@@ -29,9 +30,10 @@ def build_parser():
     p.add_argument("--checkpoint", type=str, default=None, help="betaVAE .pt state_dict to start from")
     p.add_argument("--log", action="store_true", help="write a JSONL log (and tensorboardX if installed)")
     p.add_argument("--parallel", action="store_true",
-                   help="accepted for reference-CLI parity; training runs on one card")
+                   help="accepted for reference-CLI parity; under torchrun every rank trains")
     p.add_argument("--seed", type=int, default=99)
     p.add_argument("--device", type=str, default="cuda", help="torch device (default: cuda)")
+    add_dist_arguments(p)
     return p
 
 
@@ -45,7 +47,7 @@ def main(argv=None):
     from rnagan_tpu_torch.data.rna import load_tissue_splits, normalize_dfs, rna_matrix
     from rnagan_tpu_torch.train.vae_trainer import VAETrainer
 
-    device = resolve_device(args.device)  # before any data is read
+    resolve_device(args.device)  # before any data is read
     config = load_reference_json(args.config)
     print("-" * 10)
     print("Config for this experiment\n")
@@ -62,7 +64,7 @@ def main(argv=None):
 
     logger = MetricsLogger(log_dir=config.get("summary_path") if args.log else None,
                            use_tensorboard=args.log, run_name=config.get("flag", "betavae"))
-    trainer = VAETrainer(cfg, device=device, logger=logger)
+    trainer = VAETrainer(cfg, logger=logger, mesh=training_mesh(args, cfg.mesh))
     state = None
     if args.checkpoint:
         state = trainer.init_state()
@@ -74,12 +76,13 @@ def main(argv=None):
 
     test_losses, predictions = trainer.evaluate(rna_matrix(test), state)
     print("Test:", test_losses)
-    dump_pickle(os.path.join(save_dir, "test_results.pkl"), {
-        "predictions": scaler.inverse_transform(predictions),
-        "real": scaler.inverse_transform(rna_matrix(test)),
-        "test_ids": test.wsi_file_name if test.wsi_file_name is not None else np.arange(len(test)),
-        "test_labels": np.asarray(test_labels),
-    })
+    if trainer.mesh.writer:
+        dump_pickle(os.path.join(save_dir, "test_results.pkl"), {
+            "predictions": scaler.inverse_transform(predictions),
+            "real": scaler.inverse_transform(rna_matrix(test)),
+            "test_ids": test.wsi_file_name if test.wsi_file_name is not None else np.arange(len(test)),
+            "test_labels": np.asarray(test_labels),
+        })
     logger.close()
     return results
 

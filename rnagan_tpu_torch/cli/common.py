@@ -15,6 +15,24 @@ def dump_pickle(path: str, obj: Any) -> None:
         pickle.dump(obj, f)
 
 
+def add_dist_arguments(p) -> None:
+    """``--dist_backend`` of the training CLIs (read only under torchrun)."""
+    p.add_argument("--dist_backend", type=str, default="nccl", choices=("nccl", "gloo"),
+                   help="process-group backend under torchrun (nccl: one rank a card; gloo: CPU ranks "
+                        "with --device cpu, or several ranks on one card)")
+
+
+def training_mesh(args, mesh_cfg):
+    """The training mesh of a CLI: under torchrun the process group is joined
+    with ``--dist_backend`` and every rank goes on the data axis; outside it,
+    the one-device mesh on ``--device``."""
+    from rnagan_tpu_torch.parallel.launch import from_environment
+    from rnagan_tpu_torch.parallel.mesh import make_mesh
+
+    from_environment(args.dist_backend)
+    return make_mesh(mesh_cfg, args.device)
+
+
 def load_vae(checkpoint: str, model_cfg, device):
     """A trained betaVAE for the sampling CLIs: ``(model in eval mode, scaler
     or None, metadata)``. A ``.pt``/``.pth`` state_dict takes the

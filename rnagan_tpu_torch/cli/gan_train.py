@@ -17,12 +17,20 @@ InceptionV3 (seeded weights unless ``--inception_weights``; such an FID is
 not comparable with published ones) against ``--fid_images`` real tiles and
 keeps ``gan_best.model`` at the lowest. Returns ``fit``'s results with the
 data load's tiles, slides and seconds under ``"data"``.
+
+Data-parallel on several cards through torchrun (one rank a card, NCCL; the
+batch is the global batch, padded to a multiple of the ranks)::
+
+    torchrun --nproc_per_node 4 -m rnagan_tpu_torch.cli.gan_train --config ... \
+        [--dist_backend nccl]
 """
 
 from __future__ import annotations
 
 import argparse
 import time
+
+from rnagan_tpu_torch.cli.common import add_dist_arguments, training_mesh
 
 
 def build_parser():
@@ -60,6 +68,7 @@ def build_parser():
     p.add_argument("--adam_mu_dtype", type=str, default=None, choices=("bfloat16", "float32"),
                    help="dtype of Adam's first moment (default float32)")
     p.add_argument("--device", type=str, default="cuda", help="torch device (default: cuda)")
+    add_dist_arguments(p)
     return p
 
 
@@ -69,13 +78,16 @@ def main(argv=None):
     import numpy as np
 
     from rnagan_tpu_torch.cli.common import load_gan_dataframe
-    from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig, VAEModelConfig, load_reference_json
+    from rnagan_tpu_torch.core.config import (GANConfig, GANModelConfig, MeshConfig, VAEModelConfig,
+                                              load_reference_json)
     from rnagan_tpu_torch.core.device import resolve_device
     from rnagan_tpu_torch.data.patches import PatchBatches, load_patch_data
     from rnagan_tpu_torch.data.rna import Scaler, log_transform
     from rnagan_tpu_torch.train.gan_trainer import GANTrainer
 
-    device = resolve_device(args.device)  # before any data is read
+    resolve_device(args.device)  # before any data is read
+    mesh = training_mesh(args, MeshConfig())
+    device = mesh.device
     config = load_reference_json(args.config)
     print("-" * 10)
     print("Config for this experiment\n")
@@ -122,7 +134,7 @@ def main(argv=None):
         adam_mu_dtype=args.adam_mu_dtype, g_ema_decay=args.g_ema_decay,
         **({"clip": None} if args.no_clip else {}), seed=args.seed,
     )
-    trainer = GANTrainer(cfg, device=device, image_dir=args.image_dir, model_dir=args.model_dir)
+    trainer = GANTrainer(cfg, image_dir=args.image_dir, model_dir=args.model_dir, mesh=mesh)
     if with_rna and data.rna is not None and len(data.rna):
         trainer.set_z_population(data.rna)  # bundled for conditioning-preserving generation
     state = trainer.load_model(args.checkpoint) if args.checkpoint else None
@@ -147,7 +159,7 @@ def main(argv=None):
             return {"fid": calculate_fid(real01, fake, batch_size=min(32, len(real01)), extractor=extractor)}
 
     batches = PatchBatches(data, batch_size=cfg.batch_size, with_rna=with_rna,
-                           with_labels=conditional, seed=args.seed)
+                           with_labels=conditional, seed=args.seed, pad_to=mesh.data)
     state, results = trainer.fit(lambda e: batches.epoch(e), state=state, auto_resume=args.auto_resume,
                                  eval_fn=eval_fn, eval_every=args.fid_every,
                                  keep_best_metric="fid" if eval_fn else None)

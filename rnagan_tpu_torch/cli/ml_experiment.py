@@ -12,7 +12,9 @@ No pandas: the CSV is read with ``csv``; ``--max_tiles`` keeps
 read with PIL (imported inside the loader) and resized as the JAX CLI
 resizes them. ``--backbone_weights`` is a torchvision ResNet ``state_dict``
 (``torch.load(weights_only=True)``), with the JAX package's input-channel
-surgery (``models/resnet.py::state_dict_from_torchvision``).
+surgery (``models/resnet.py::state_dict_from_torchvision``). Under torchrun
+every rank goes on the data axis (``--dist_backend``, NCCL by default); rank 0
+writes ``--save_path``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import csv
 
 import numpy as np
 
-from rnagan_tpu_torch.cli.common import dump_pickle
+from rnagan_tpu_torch.cli.common import add_dist_arguments, dump_pickle, training_mesh
 
 
 def build_parser():
@@ -45,6 +47,7 @@ def build_parser():
     p.add_argument("--save_path", type=str, default="gbmvsluad_experiment_test.pkl")
     p.add_argument("--seed", type=int, default=99)
     p.add_argument("--device", type=str, default="cuda", help="torch device (default: cuda)")
+    add_dist_arguments(p)
     return p
 
 
@@ -88,7 +91,8 @@ def main(argv=None):
     from rnagan_tpu_torch.core.config import MLConfig
     from rnagan_tpu_torch.core.device import resolve_device
 
-    device = resolve_device(args.device)  # before anything is read
+    resolve_device(args.device)  # before anything is read
+    mesh = training_mesh(args, MLConfig().mesh)
 
     import torch
 
@@ -114,7 +118,8 @@ def main(argv=None):
                    batch_size=args.batch_size, image_size=args.image_size, lr=args.lr, seed=args.seed,
                    arch=args.arch)
     results = run_cv_experiment(images, labels, cfg, test_images01=test_images, test_labels=test_labels,
-                                backbone_variables=backbone_variables, device=device)
+                                backbone_variables=backbone_variables, mesh=mesh)
     print(f"mean accuracy {results['mean_accuracy']:.4f} | mean weighted F1 {results['mean_weighted_f1']:.4f}")
-    dump_pickle(args.save_path, {**results, "classes": classes})
+    if mesh.writer:
+        dump_pickle(args.save_path, {**results, "classes": classes})
     return results

@@ -14,7 +14,8 @@ unchanged. What a state_dict cannot hold goes beside it:
   caller's metadata.
 
 Every file is written to a temporary name and renamed, so a crash never
-leaves a torn checkpoint.
+leaves a torn checkpoint. Under a mesh only rank 0 writes (:func:`on_writer`,
+then a barrier); every rank reads.
 
 The JAX package's own format is here too: :func:`save_pytree` /
 :func:`load_pytree` and :func:`save_bundle` / :func:`load_bundle` are the
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from rnagan_tpu_torch.core import msgpack
+from rnagan_tpu_torch.parallel.collectives import barrier
 
 SCALER_NAME = "scaler.npz"
 
@@ -45,6 +47,14 @@ def _atomic(path: str, write) -> None:
     tmp = path + ".tmp"
     write(tmp)
     os.replace(tmp, path)
+
+
+def on_writer(mesh, write) -> None:
+    """``write()`` on the mesh's writer (rank 0), then a barrier, so no rank
+    reads a file before it is whole; ``write()`` alone without a mesh."""
+    if mesh is None or mesh.writer:
+        write()
+    barrier(mesh)
 
 
 def save_state_dict(path: str, state_dict: Dict[str, torch.Tensor]) -> None:

@@ -2,9 +2,10 @@
 
 Field names and defaults are the JAX package's, so a configuration moves
 between the two packages field for field. Knobs that only choose a TPU
-compute schedule with the same math (``GANModelConfig.convt_impl``) and
-the device mesh (``GANConfig.mesh``, ``VAEConfig.mesh``,
-ROADMAP A15) are not copied.
+compute schedule with the same math (``GANModelConfig.convt_impl``) are not
+copied. The device mesh is: :class:`MeshConfig` lays the ranks of a
+``torch.distributed`` process group out as (data, model)
+(``parallel/mesh.py``), and every training configuration carries one.
 """
 
 from __future__ import annotations
@@ -12,6 +13,20 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Rank layout (``rnagan_tpu/core/config.py:29-42``): a data axis over
+    which the batch is split and a model axis over which the β-VAE's Dense
+    layers are split column-wise. ``data=-1`` puts every rank of the process
+    group on the data axis (model axis size ``model``)."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    #: -1 = every rank of the process group on the data axis
+    data: int = -1
+    model: int = 1
 
 
 @dataclass(frozen=True)
@@ -46,6 +61,7 @@ class VAEConfig:
     cosine_steps: int = 500
     log_interval: int = 100
     seed: int = 99
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 @dataclass(frozen=True)
@@ -107,6 +123,7 @@ class GANConfig:
     g_ema_decay: Optional[float] = None
     sample_size: int = 64  # per-epoch sample grid (histopathology_gan.py:300)
     seed: int = 99
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 @dataclass(frozen=True)
@@ -127,7 +144,7 @@ class DataConfig:
 @dataclass(frozen=True)
 class MLConfig:
     """Downstream tile classification (reference ``ml_experiments.py:299,342-345,282``;
-    ``rnagan_tpu/train/ml_experiment.py:MLConfig`` without the mesh: one card)."""
+    ``rnagan_tpu/train/ml_experiment.py:MLConfig``)."""
 
     num_classes: int = 2
     lr: float = 3e-5
@@ -138,6 +155,7 @@ class MLConfig:
     image_size: int = 224
     seed: int = 99
     arch: str = "resnet50"
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 def load_reference_json(path: str) -> Dict[str, Any]:

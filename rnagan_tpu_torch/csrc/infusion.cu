@@ -38,6 +38,23 @@
 // Both: loads and stores coalesced along the column strip; no FMA contraction
 // on the uniform mapping (__fmul_rn/__fadd_rn), so the kernels and the plain
 // PyTorch version agree on every uniform bit for bit.
+//
+// Group mode (the batch split over the ranks of a data group, each holding
+// rows [row0, row0 + n) of a global batch): the standardization is over the
+// global batch, which no one launch sees. The wrapper runs three launches of
+// infused_noise_group with an all-reduce of a (D + 1,) float32 buffer after
+// each of the first two (torch.distributed, between launches):
+//   phase 0: x = u + z into out, the column sums of x into sums[0, D); the
+//            wrapper has put this rank's row count in sums[D], so the
+//            all-reduce gives the global count there too;
+//   phase 1: mean = sums[c] / N, the centered sums sum((x - mean)^2) into sq;
+//   phase 2: out = (x - mean) / sqrt(sq[c] / (N - 1) + 1e-12) in place.
+// The same two-pass arithmetic as the one-device kernels, with the Philox
+// counter (row0 + row, col, 0, 0): ranks that hold rows [row0, row0 + n)
+// together draw the uniforms one device draws for the global batch. The
+// loop kernel's layout: a block a strip of 32 columns, 8 warps over the
+// rank's rows, the column sums through shared memory. Bound by latency (at
+// the training batch a rank holds 4 rows); the one-device path never runs it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -213,6 +230,60 @@ infused_noise_loop(const float* __restrict__ z, long long z_row_stride,
   }
 }
 
+__global__ void __launch_bounds__(kCols * kRowGroups)
+infused_noise_group(const float* __restrict__ z, long long z_row_stride, const float* __restrict__ u,
+                    float* __restrict__ out, float* __restrict__ sums, float* __restrict__ sq, int n, int d,
+                    long long row0, uint32_t seed, float noise_range, int phase) {
+  __shared__ float partial[kRowGroups][kCols];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int col = blockIdx.x * kCols + tx;
+  const bool live = col < d;
+  float acc = 0.f;
+  if (phase == 0) {
+    if (live) {
+      for (int i = ty; i < n; i += kRowGroups) {
+        float r;
+        if (u != nullptr) {
+          r = u[(long long)i * d + col];
+        } else {
+          const uint32_t row = (uint32_t)(row0 + i);
+          const float u01 = (float)(philox_word0(row, (uint32_t)col, seed) >> 8) * (1.0f / 16777216.0f);
+          r = __fmul_rn(__fadd_rn(__fmul_rn(u01, 2.0f), -1.0f), noise_range);
+        }
+        const float x = __fadd_rn(r, z[(long long)i * z_row_stride + col]);
+        out[(long long)i * d + col] = x;
+        acc += x;
+      }
+    }
+  } else {
+    const float count = sums[d];  // the global row count, all-reduced with the sums
+    const float mean = live ? __fdiv_rn(sums[col], count) : 0.f;
+    if (phase == 2) {
+      if (!live) return;  // no barrier follows in this phase
+      const float denom = sqrtf(__fadd_rn(__fdiv_rn(sq[col], fmaxf(__fsub_rn(count, 1.0f), 1.0f)), 1e-12f));
+      for (int i = ty; i < n; i += kRowGroups) {
+        const long long k = (long long)i * d + col;
+        out[k] = __fdiv_rn(__fsub_rn(out[k], mean), denom);
+      }
+      return;
+    }
+    if (live) {
+      for (int i = ty; i < n; i += kRowGroups) {
+        const float c = __fsub_rn(out[(long long)i * d + col], mean);
+        acc = __fmaf_rn(c, c, acc);
+      }
+    }
+  }
+  partial[ty][tx] = acc;  // phases 0 and 1: the column's sum over the row groups
+  __syncthreads();
+  if (ty == 0 && live) {
+    float total = 0.f;
+#pragma unroll
+    for (int g = 0; g < kRowGroups; ++g) total += partial[g][tx];
+    (phase == 0 ? sums : sq)[col] = total;
+  }
+}
+
 template <int R>
 void launch_onepass(const float* z, long long z_row_stride, const float* u, const float* pop_mean,
                     const float* pop_std, float* out, int n, int d, unsigned int seed, float noise_range,
@@ -247,5 +318,16 @@ extern "C" int rnagan_infused_noise(const float* z, long long z_row_stride, cons
 #undef ONEPASS
     default: return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// One phase (0, 1 or 2) of the group mode; see the note at the top.
+extern "C" int rnagan_infused_noise_group(const float* z, long long z_row_stride, const float* u, float* out,
+                                          float* sums, float* sq, int n, int d, long long row0,
+                                          unsigned int seed, float noise_range, int phase, void* stream) {
+  if (phase < 0 || phase > 2 || n < 0 || d < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  infused_noise_group<<<(d + kCols - 1) / kCols, dim3(kCols, kRowGroups), 0, s>>>(
+      z, z_row_stride, u, out, sums, sq, n, d, row0, seed, noise_range, phase);
   return (int)cudaGetLastError();
 }

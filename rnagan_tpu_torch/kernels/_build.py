@@ -35,6 +35,8 @@ SIGNATURES = {
     # z, z_row_stride, u, pop_mean, pop_std, out, n, d, seed, noise_range, var_u,
     # rows_per_thread, stream
     "rnagan_infused_noise": [_P, _LL, _P, _P, _P, _P, _I, _I, _U, _F, _F, _I, _P],
+    # z, z_row_stride, u, out, sums, sq, n, d, row0, seed, noise_range, phase, stream
+    "rnagan_infused_noise_group": [_P, _LL, _P, _P, _P, _P, _I, _I, _LL, _U, _F, _I, _P],
     # x, out, n, hw, stream
     "rnagan_tanh_to_uint8": [_P, _P, _I, _I, _P],
     # table, count, mu_bf16, lr, b1, b2, 1-b1, 1-b2, eps, c1, c2, wd, stream

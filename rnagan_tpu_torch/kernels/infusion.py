@@ -19,6 +19,16 @@ Bound on the H100 (N=128, D=2048): 1 MiB in, 1 MiB out, 0.6 us at
 one-pass kernel (each thread keeps its rows in registers) for N up to
 ``ROW_GROUPS * REGISTER_ROWS[-1]`` and a three-pass loop kernel above, and
 :func:`rows_per_thread` picks one by N.
+
+Group mode (``group=`` a ``torch.distributed`` group of more than one rank):
+the batch is split over the group's ranks, this rank holding rows ``[row0,
+row0 + n)`` of the global batch, and the standardization is over the global
+batch (what pjit makes of the JAX package's batch statistics). Three
+launches of the group kernel with an all-reduce of a (D + 1,) buffer after
+each of the first two (column sums and row count, then centered sums); the
+Philox counter takes ``row0``, so the ranks draw the global batch's
+uniforms. :func:`infused_noise_group_plain` is its plain version; the
+one-device path is untouched.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from rnagan_tpu_torch.kernels import _build
 
@@ -60,10 +71,10 @@ def philox4x32(counter, key):
     return c0, c1, c2, c3
 
 
-def philox_uniform(seed: int, n: int, d: int, noise_range: float, device) -> torch.Tensor:
+def philox_uniform(seed: int, n: int, d: int, noise_range: float, device, row0: int = 0) -> torch.Tensor:
     """(n, d) float32 uniforms in [-noise_range, noise_range) from the
-    kernel's Philox stream."""
-    row = torch.arange(n, dtype=torch.int64, device=device)[:, None].expand(n, d)
+    kernel's Philox stream, rows ``[row0, row0 + n)`` of it."""
+    row = torch.arange(row0, row0 + n, dtype=torch.int64, device=device)[:, None].expand(n, d) & _MASK
     col = torch.arange(d, dtype=torch.int64, device=device)[None, :].expand(n, d)
     zero = torch.zeros((), dtype=torch.int64, device=device)
     w0 = philox4x32((row, col, zero, zero), (int(seed), 0))[0]
@@ -101,34 +112,68 @@ def infused_noise_plain(z: torch.Tensor, n: int, *, seed: Optional[int] = None,
     return standardize_batch(x)
 
 
+def infused_noise_group_plain(z: torch.Tensor, n: int, group, *, seed: Optional[int] = None,
+                              u: Optional[torch.Tensor] = None, noise_range: float = 0.3,
+                              row0: int = 0) -> torch.Tensor:
+    """The group kernel's function in PyTorch ops: this rank's rows ``[row0,
+    row0 + n)`` of the global batch's infused noise, standardized over the
+    global batch (two all-reduces over ``group``, as the kernel's wrapper)."""
+    if u is None:
+        u = philox_uniform(seed, n, z.shape[1], noise_range, z.device, row0)
+    x = u + z
+    sums = torch.cat([x.sum(dim=0), torch.full((1,), float(n), device=x.device)])
+    dist.all_reduce(sums, group=group)
+    count = sums[-1]
+    c = x - sums[:-1] / count
+    sq = (c * c).sum(dim=0)
+    dist.all_reduce(sq, group=group)
+    return c / torch.sqrt(sq / torch.clamp(count - 1.0, min=1.0) + 1e-12)
+
+
+def _check_inputs(z: torch.Tensor, n: int, d: int, **given: Optional[torch.Tensor]) -> None:
+    shapes = {"u": (n, d), "pop_mean": (d,), "pop_std": (d,)}
+    for name, t in (("z", z), *given.items()):
+        if t is None:
+            continue
+        if t.dtype != torch.float32 or t.device != z.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 tensor on {z.device}")
+        if name in shapes and tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} must have shape {shapes[name]}; got {tuple(t.shape)}")
+
+
+def _grouped(group) -> bool:
+    return group is not None and dist.get_world_size(group) > 1
+
+
 def infused_noise(z: torch.Tensor, n: int, *, seed: Optional[int] = None,
                   u: Optional[torch.Tensor] = None, noise_range: float = 0.3,
                   pop_mean: Optional[torch.Tensor] = None,
-                  pop_std: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  pop_std: Optional[torch.Tensor] = None, group=None, row0: int = 0) -> torch.Tensor:
     """(n, D) float32 infused noise from z_mean ``z`` of shape (n, D) or (1, D)
     (one patient broadcast over n rows). Exactly one of ``seed`` and ``u``
     (float32 (n, D), in [-noise_range, noise_range]). With ``pop_mean`` and
-    ``pop_std`` (D,) it normalizes with those instead of the batch statistics."""
+    ``pop_std`` (D,) it normalizes with those instead of the batch statistics.
+    With ``group`` (more than one rank) the rows are ``[row0, row0 + n)`` of
+    a global batch split over the group, standardized over all of it (the
+    group mode; ``n`` may differ between ranks, and be 0)."""
     if (seed is None) == (u is None):
         raise ValueError("pass exactly one of seed and u")
     if (pop_mean is None) != (pop_std is None):
         raise ValueError("pass pop_mean and pop_std together")
-    if z.ndim != 2 or z.shape[0] not in (1, n) or n < 1:
+    grouped = _grouped(group)
+    if grouped and pop_mean is not None:
+        raise ValueError("population statistics need no group: pass one or the other")
+    if z.ndim != 2 or z.shape[0] not in (1, n) or n < (0 if grouped else 1):
         raise ValueError(f"z must be (n, D) or (1, D) with n >= 1; got {tuple(z.shape)}, n={n}")
     d = z.shape[1]
+    if grouped:
+        return _infused_noise_group(z, n, group, seed, u, noise_range, row0)
     if z.device.type == "cpu":
         return infused_noise_plain(z, n, seed=seed, u=u, noise_range=noise_range,
                                    pop_mean=pop_mean, pop_std=pop_std)
     if z.device.type != "cuda":
         raise ValueError(f"infused_noise runs on CUDA or CPU tensors, not {z.device}")
-    for name, t, shape in (("z", z, None), ("u", u, (n, d)),
-                           ("pop_mean", pop_mean, (d,)), ("pop_std", pop_std, (d,))):
-        if t is None:
-            continue
-        if t.dtype != torch.float32 or t.device != z.device or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 tensor on {z.device}")
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}; got {tuple(t.shape)}")
+    _check_inputs(z, n, d, u=u, pop_mean=pop_mean, pop_std=pop_std)
     out = torch.empty((n, d), dtype=torch.float32, device=z.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(z.device):
@@ -142,3 +187,32 @@ def infused_noise(z: torch.Tensor, n: int, *, seed: Optional[int] = None,
 
 
 infused_noise.launches = 0
+#: launches of the group kernel (three a group-mode call)
+infused_noise.group_launches = 0
+
+
+def _infused_noise_group(z, n, group, seed, u, noise_range, row0) -> torch.Tensor:
+    if z.device.type == "cpu":
+        return infused_noise_group_plain(z, n, group, seed=seed, u=u, noise_range=noise_range, row0=row0)
+    if z.device.type != "cuda":
+        raise ValueError(f"infused_noise runs on CUDA or CPU tensors, not {z.device}")
+    d = z.shape[1]
+    _check_inputs(z, n, d, u=u)
+    out = torch.empty((n, d), dtype=torch.float32, device=z.device)
+    sums = torch.empty(d + 1, dtype=torch.float32, device=z.device)
+    sums[d:].fill_(float(n))  # this rank's row count, summed with the column sums
+    sq = torch.empty(d, dtype=torch.float32, device=z.device)
+    lib = _build.library()
+    seed32 = 0 if seed is None else int(seed) & _MASK
+    with torch.cuda.device(z.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for phase, reduced in ((0, sums), (1, sq), (2, None)):
+            err = lib.rnagan_infused_noise_group(
+                z.data_ptr(), 0 if z.shape[0] == 1 else d, None if u is None else u.data_ptr(),
+                out.data_ptr(), sums.data_ptr(), sq.data_ptr(), n, d, int(row0), seed32, noise_range,
+                phase, stream)
+            _build.check("rnagan_infused_noise_group", err)
+            infused_noise.group_launches += 1
+            if reduced is not None:
+                dist.all_reduce(reduced, group=group)
+    return out

@@ -12,6 +12,8 @@ from typing import Callable, Iterable
 import torch
 import torch.nn.functional as F
 
+from rnagan_tpu_torch.parallel import collectives
+
 
 def wasserstein_generator_loss(dgz: torch.Tensor) -> torch.Tensor:
     """-mean f(G(z)) (reference ``wgan_loss.py:24-25``)."""
@@ -24,22 +26,30 @@ def wasserstein_discriminator_loss(dx: torch.Tensor, dgz: torch.Tensor) -> torch
 
 
 def gradient_penalty(critic: Callable[[torch.Tensor], torch.Tensor], interpolate: torch.Tensor, *,
-                     per_sample: bool = True) -> torch.Tensor:
+                     per_sample: bool = True, group=None) -> torch.Tensor:
     """WGAN-GP penalty ``(||grad critic(x_hat)|| - 1)^2``.
 
     ``per_sample=True``: the norm of each interpolate's gradient, then the
     mean (Gulrajani et al.). ``per_sample=False``: one global norm over the
     whole batch's gradient (the reference's quirk, ``wgan_loss.py:43``).
     The gradient is taken with ``create_graph=True``, so the penalty's own
-    backward is the double backward through the critic."""
+    backward is the double backward through the critic.
+
+    With a data ``group`` (the batch split over its ranks, equal shares) it
+    returns this rank's share of the global-batch penalty: the mean of its
+    rows' per-sample terms, or the global norm's penalty (``sqrt`` of the
+    all-reduced squared sums), over the group size. The
+    critic's BatchNorm reduces over the group, so ``grad`` of this rank's
+    score sum is the gradient of the global sum at its rows."""
     x = interpolate.detach().requires_grad_(True)
     (grads,) = torch.autograd.grad(critic(x).sum(), x, create_graph=True)
     grads = grads.float()
+    size = collectives.group_size(group)
     if per_sample:
         norms = torch.sqrt((grads * grads).reshape(grads.shape[0], -1).sum(dim=1) + 1e-12)
-        return ((norms - 1.0) ** 2).mean()
-    norm = torch.sqrt((grads * grads).sum() + 1e-12)
-    return (norm - 1.0) ** 2
+        return ((norms - 1.0) ** 2).mean() / size
+    norm = torch.sqrt(collectives.all_reduce_sum((grads * grads).sum().reshape(1), group)[0] + 1e-12)
+    return (norm - 1.0) ** 2 / size
 
 
 def minimax_generator_loss(dgz: torch.Tensor, nonsaturating: bool = True) -> torch.Tensor:

@@ -11,6 +11,11 @@ Both noise functions take either a ``seed`` (Philox uniforms drawn inside the
 CUDA kernel, or by its plain version on the CPU) or the uniforms ``u``
 themselves, so tests can feed both packages identical draws. Both run through
 ``kernels.infusion.infused_noise``.
+
+Under a mesh the training step standardizes over the global batch, as pjit
+makes ``jnp.mean`` in the JAX package: :func:`infused_noise` takes the data
+group and this rank's first row in the global batch (K1's group mode).
+Serving stays on one device, as ``make_serving_fn`` does in the JAX package.
 """
 
 from __future__ import annotations
@@ -31,11 +36,14 @@ def encode_z_mean(vae: BetaVAE, gene: torch.Tensor) -> torch.Tensor:
 
 
 def infused_noise(z_mean: torch.Tensor, n: Optional[int] = None, *, seed: Optional[int] = None,
-                  u: Optional[torch.Tensor] = None, noise_range: float = 0.3) -> torch.Tensor:
+                  u: Optional[torch.Tensor] = None, noise_range: float = 0.3, group=None,
+                  row0: int = 0) -> torch.Tensor:
     """``standardize_batch(U(-r, r) + z_mean)``; ``z_mean`` (n, D) or (1, D)
-    broadcast over ``n`` rows (default: ``z_mean``'s rows)."""
+    broadcast over ``n`` rows (default: ``z_mean``'s rows). With ``group``
+    the rows are ``[row0, row0 + n)`` of a batch split over the group's
+    ranks, standardized over the whole of it."""
     n = z_mean.shape[0] if n is None else n
-    return _infusion_kernel(z_mean, n, seed=seed, u=u, noise_range=noise_range)
+    return _infusion_kernel(z_mean, n, seed=seed, u=u, noise_range=noise_range, group=group, row0=row0)
 
 
 def infused_noise_population(z_mean: torch.Tensor, pop_mean: torch.Tensor, pop_std: torch.Tensor,

@@ -8,7 +8,9 @@ of ``rnagan_tpu/train/vae_trainer.py:47-58``).
 
 The masked form takes the per-row MSE and KL and averages them over the rows
 whose mask is 1 (the wrap-padded duplicates of a short final batch count 0).
-Every value is a 0-dim float32 tensor.
+Every value is a 0-dim float32 tensor. With a data ``group`` (the batch
+split over its ranks) the count is the global one and each value is this
+rank's share: the shares sum over the group to the global loss.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+
+from rnagan_tpu_torch.parallel import collectives
 
 
 def _kl_rows(z_mean: torch.Tensor, z_logvar: torch.Tensor) -> torch.Tensor:
@@ -33,10 +37,11 @@ def beta_vae_loss(x: torch.Tensor, x_recons: torch.Tensor, z_mean: torch.Tensor,
 
 def masked_beta_vae_loss(x: torch.Tensor, x_recons: torch.Tensor, z_mean: torch.Tensor,
                          z_logvar: torch.Tensor, mask: torch.Tensor, beta: float,
-                         training: bool = True) -> Dict[str, torch.Tensor]:
-    """:func:`beta_vae_loss` over the rows where ``mask`` (N,) is 1."""
+                         training: bool = True, group=None) -> Dict[str, torch.Tensor]:
+    """:func:`beta_vae_loss` over the rows where ``mask`` (N,) is 1 (with
+    ``group``: this rank's share of it over the group's rows)."""
     mask = mask.float()
-    denom = torch.clamp(torch.sum(mask), min=1.0)
+    denom = collectives.global_count(mask, group)
     per_row_mse = torch.mean(torch.square(x_recons.float() - x.float()), dim=1)
     recons = torch.sum(per_row_mse * mask) / denom
     kl = torch.sum(_kl_rows(z_mean, z_logvar) * mask) / denom

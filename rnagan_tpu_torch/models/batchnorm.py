@@ -15,6 +15,15 @@ In eval mode the running statistics normalize. Torch's own BatchNorm differs
 on two counts: momentum 0.1 is the weight of the batch, and its running
 variance takes the *unbiased* batch variance. This module never mutates a
 buffer: it returns the new statistics and the caller decides which to keep.
+
+Under a mesh (``parallel/collectives.py::active``) the train-mode statistics
+are those of the global batch, as pjit makes them in the JAX package: each
+rank's sums of ``x`` and ``x^2`` go through one differentiable all-reduce of
+a (2, C) float32 buffer over the data group and are divided by the global
+row count, then ``var = max(E[x^2] - E[x]^2, 0)`` as on one device. Its
+backward all-reduces the statistics' gradients, so forward, backward and
+double backward are those of the one-rank batch. Without a data group the
+one-device arithmetic runs, bit for bit as before.
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import torch
+
+from rnagan_tpu_torch.parallel import collectives
 
 MOMENTUM = 0.9  # flax: weight of the old running statistics
 EPS = 1e-5
@@ -41,8 +52,15 @@ def batch_norm(x: torch.Tensor, scale: Optional[torch.Tensor], bias: Optional[to
     axes = [0, *range(2, x.ndim)]
     xf = x.float()
     if train:
-        m = xf.mean(axes)
-        v = torch.clamp((xf * xf).mean(axes) - m * m, min=0.0)
+        group = collectives.data_group()
+        if group is None:
+            m = xf.mean(axes)
+            v = torch.clamp((xf * xf).mean(axes) - m * m, min=0.0)
+        else:
+            count = xf.numel() // xf.shape[1] * collectives.group_size(group)  # equal shards
+            sums = collectives.all_reduce_sum(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]), group)
+            m, sq = sums[0] / count, sums[1] / count
+            v = torch.clamp(sq - m * m, min=0.0)
         new_mean = (MOMENTUM * mean + (1.0 - MOMENTUM) * m).detach()
         new_var = (MOMENTUM * var + (1.0 - MOMENTUM) * v).detach()
     else:

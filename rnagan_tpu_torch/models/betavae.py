@@ -27,6 +27,17 @@ forward reparametrizes in both modes, as the reference does.
 Parameters stay float32; ``cfg.compute_dtype="bfloat16"`` runs the layers in
 bfloat16 on cast copies of the weights and returns float32 latents, as the
 JAX model does.
+
+Tensor parallelism (``parallel/mesh.py::shard_dense_params`` on a mesh with a
+model axis): a split ``Linear`` holds this rank's block of output features
+and its ``BatchNorm1d`` the same block (statistics over the data group
+only). Megatron's column-parallel layer: the layer's input passes an
+identity whose backward sums the gradient over the model group (each rank
+differentiates only through its own columns), and its outputs, after the
+BatchNorm and activation, are gathered over the model group with a
+slice-backward gather, so every later op sees the whole activation (the
+heads' ``z_mean``/``z_logvar``, the 19,198-wide output). An unsplit layer
+runs as before.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ from torch import nn
 from rnagan_tpu_torch.core.config import VAEModelConfig
 from rnagan_tpu_torch.core.device import compute_dtype
 from rnagan_tpu_torch.models.batchnorm import batch_norm
+from rnagan_tpu_torch.parallel import collectives
 
 
 def dropout(x: torch.Tensor, rate: float, keep: Optional[torch.Tensor] = None,
@@ -80,9 +92,33 @@ def _block(fan_in: int, width: int, slope: float, device) -> nn.Sequential:
                          nn.LeakyReLU(slope))
 
 
+def _split_group(lin: nn.Linear):
+    """The model group of a split layer (``shard_dense_params``), else None."""
+    if getattr(lin, "model_split", None) is None:
+        return None
+    group = collectives.model_group()
+    if group is None:
+        raise ValueError("a model-split BetaVAE runs under its mesh (parallel.collectives.active)")
+    return group
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    """``lin`` in ``dt``; a split layer's input sums its gradient over the group."""
+    group = _split_group(lin)
+    if group is not None:
+        x = collectives.sum_gradients(x, group)
+    return F.linear(x, lin.weight.to(dt), lin.bias.to(dt))
+
+
+def _whole(lin: nn.Linear, y: torch.Tensor) -> torch.Tensor:
+    """A split layer's outputs gathered over the model group (the whole width)."""
+    group = _split_group(lin)
+    return y if group is None else collectives.gather(y, group, dim=-1)
+
+
 def _apply_block(block: nn.Sequential, x: torch.Tensor, dt: torch.dtype, slope: float) -> torch.Tensor:
     lin, bn = block[0], block[1]
-    x = F.linear(x, lin.weight.to(dt), lin.bias.to(dt))
+    x = _linear(lin, x, dt)
     if bn.training:
         x, mean, var = batch_norm(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, train=True)
         with torch.no_grad():
@@ -91,7 +127,7 @@ def _apply_block(block: nn.Sequential, x: torch.Tensor, dt: torch.dtype, slope: 
     else:
         x = F.batch_norm(x, bn.running_mean.to(dt), bn.running_var.to(dt), bn.weight.to(dt),
                          bn.bias.to(dt), False, bn.momentum, bn.eps)
-    return F.leaky_relu(x, slope)
+    return _whole(lin, F.leaky_relu(x, slope))
 
 
 class RNAEncoder(nn.Module):
@@ -157,8 +193,8 @@ class BetaVAE(nn.Module):
         In train mode the input dropout takes ``keep`` or draws it from ``generator``."""
         dt = self._dt
         x_encoded = self.encoder(x, dt, keep, generator)
-        z_mean = F.linear(x_encoded, self.z_mu.weight.to(dt), self.z_mu.bias.to(dt)).float()
-        z_logvar = F.linear(x_encoded, self.z_logvar.weight.to(dt), self.z_logvar.bias.to(dt)).float()
+        z_mean = _whole(self.z_mu, _linear(self.z_mu, x_encoded, dt)).float()
+        z_logvar = _whole(self.z_logvar, _linear(self.z_logvar, x_encoded, dt)).float()
         return z_mean, z_logvar, x_encoded
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
@@ -167,7 +203,7 @@ class BetaVAE(nn.Module):
         for block in self.decoder[:-1]:
             x = _apply_block(block, x, dt, self.cfg.leaky_slope)
         out = self.decoder[-1][0]
-        return torch.tanh(F.linear(x, out.weight.to(dt), out.bias.to(dt))).float()
+        return _whole(out, torch.tanh(_linear(out, x, dt))).float()
 
     @staticmethod
     def reparametrize(z_mean: torch.Tensor, z_logvar: torch.Tensor,

@@ -16,17 +16,24 @@ normalization, as in the JAX trainer), computed on the card from the uint8
 bags with the same float32 arithmetic. The RNA encoder's dropout mask comes
 from a ``core/rng.py`` generator per step (``"fusion"``) or is given as
 ``draws={"keep"}``.
+
+Under a mesh (``FusionConfig.mesh``; the data axis) the bags are split over
+the ranks: ``train_step`` takes this rank's bags of the global batch, the
+dropout mask is drawn (or given) for the global batch and sliced, every
+BatchNorm (the frozen stages' included) reduces over the data group, the
+masked cross-entropy is this rank's share and the trainable gradients are
+summed over the group before AdamW.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from rnagan_tpu_torch.core.device import resolve_device
+from rnagan_tpu_torch.core.config import MeshConfig
 from rnagan_tpu_torch.core.metrics import MetricsLogger, epoch_means
 from rnagan_tpu_torch.core.rng import SeedStream
 from rnagan_tpu_torch.data.batching import batch_indices
@@ -34,6 +41,8 @@ from rnagan_tpu_torch.data.patches import BagData
 from rnagan_tpu_torch.models.fusion import FusionModel
 from rnagan_tpu_torch.models.resnet import ResNet, resnet50
 from rnagan_tpu_torch.optim.adam import AdamW
+from rnagan_tpu_torch.parallel import collectives
+from rnagan_tpu_torch.parallel.mesh import Mesh, local_rows, make_mesh, module_tensors, replicated, shard_batch
 from rnagan_tpu_torch.train.ml_experiment import as_draw, load_adamw, masked_cross_entropy, unit_from_uint8
 
 #: top-level backbone modules frozen by ``freeze_backbone_early``
@@ -52,6 +61,7 @@ class FusionConfig:
     #: freeze every backbone stage except layer3/layer4 (+ heads), main.py:136-143
     freeze_backbone_early: bool = True
     seed: int = 99
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 @dataclass
@@ -75,14 +85,16 @@ def trainable_names(model: FusionModel, freeze_early: bool):
 
 
 class FusionTrainer:
-    """Fusion training on one card (``device="cuda"``, the default, raises
-    without CUDA). ``backbone`` builds the headless ResNet (called with
+    """Fusion training on one card, or data-parallel over ``mesh`` (default
+    ``make_mesh(cfg.mesh, device)``); ``device="cuda"``, the default, raises
+    without CUDA. ``backbone`` builds the headless ResNet (called with
     ``num_classes=0``, ``seed=`` and ``device=``; default ResNet50)."""
 
     def __init__(self, cfg: FusionConfig, *, backbone: Optional[Callable[..., ResNet]] = None,
-                 logger: Optional[MetricsLogger] = None, device="cuda"):
+                 logger: Optional[MetricsLogger] = None, device="cuda", mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh, device)
+        self.device = self.mesh.device
         self.backbone = backbone or resnet50
         self.logger = logger or MetricsLogger()
         self.seeds = SeedStream(cfg.seed)
@@ -96,6 +108,7 @@ class FusionTrainer:
         bb = self.backbone(num_classes=0, seed=self.seeds.seed("init"), device=self.device)
         model = FusionModel(bb, rna_features, cfg.rna_hidden_dims, cfg.num_classes,
                             seed=self.seeds.seed("init", stage=1), device=self.device)
+        replicated(module_tensors(model), self.mesh)
         names = set(trainable_names(model, cfg.freeze_backbone_early))
         params = []
         for n, p in model.named_parameters():
@@ -124,23 +137,33 @@ class FusionTrainer:
     def train_step(self, state: FusionTrainState, bags_u8, rna, labels, mask,
                    draws: Optional[Dict[str, Any]] = None) -> Tuple[FusionTrainState, Dict[str, torch.Tensor]]:
         """One step on uint8 ``bags_u8`` (B, bag, H, W, 3), ``rna`` (B, G),
-        int ``labels`` and ``mask``; ``draws`` may give ``keep``, the RNA
-        encoder's dropout mask (bool (B, G))."""
+        int ``labels`` and ``mask`` (under a mesh, this rank's bags of the
+        global batch); ``draws`` may give ``keep``, the RNA encoder's dropout
+        mask of the global batch (bool)."""
+        mesh = self.mesh
         x, r = self._inputs(bags_u8, rna)
         y = torch.as_tensor(labels).to(self.device, torch.int64)
         m = torch.as_tensor(mask).to(self.device, torch.float32)
         keep = (draws or {}).get("keep")
         gen = None
-        if keep is None:
+        if keep is not None:
+            keep = as_draw(keep)[local_rows(len(r) * mesh.data, mesh)].to(self.device)
+        elif mesh.data > 1:  # the global batch's mask, drawn as the encoder draws it
             gen = self.seeds.generator("fusion", state.step, device=self.device)
+            rate = state.model.rna_encoder.encoder[0].rate
+            keep = torch.rand((len(r) * mesh.data, r.shape[1]), generator=gen, device=self.device) < 1.0 - rate
+            keep = keep[local_rows(len(keep), mesh)]
         else:
-            keep = as_draw(keep).to(self.device)
+            gen = self.seeds.generator("fusion", state.step, device=self.device)
         model = state.model.train()
-        loss, acc = masked_cross_entropy(model(x, r, keep, gen), y, m)
-        params = [p for p in model.parameters() if p.requires_grad]
-        state.opt.step(params, torch.autograd.grad(loss, params))
+        with collectives.active(mesh):
+            loss, acc = masked_cross_entropy(model(x, r, keep, gen), y, m, mesh.data_group)
+            params = [p for p in model.parameters() if p.requires_grad]
+            grads = collectives.all_reduce_grads(torch.autograd.grad(loss, params), mesh.data_group)
+        state.opt.step(params, grads)
         state.step += 1
-        return state, {"loss": loss.detach(), "acc": acc.detach()}
+        return state, collectives.reduce_metrics({"loss": loss.detach(), "acc": acc.detach()},
+                                                 mesh.data_group)
 
     @torch.no_grad()
     def eval_step(self, state: FusionTrainState, bags_u8, rna) -> torch.Tensor:
@@ -155,7 +178,9 @@ class FusionTrainer:
         history = []
         for epoch in range(num_epochs or cfg.num_epochs):
             per_step = []
-            for idx, m in batch_indices(len(bags), cfg.batch_size, shuffle=True, seed=cfg.seed, epoch=epoch):
+            for idx, m in batch_indices(len(bags), cfg.batch_size, shuffle=True, seed=cfg.seed, epoch=epoch,
+                                        pad_to=self.mesh.data):
+                idx, m = shard_batch((idx, m), self.mesh)
                 state, metrics = self.train_step(state, bags.bags[idx], bags.rna[bags.slide_idx[idx]],
                                                  bags.labels[idx], m)
                 per_step.append(metrics)

@@ -38,6 +38,25 @@ test shows the two agree (``tests/test_gan_trainer.py:337``). For ``sagan``
 and ``biggan`` it raises the JAX package's ValueError (its closed-form
 statistics blend would corrupt the power-iteration state).
 
+Under a mesh (``parallel/mesh.py``; ``GANConfig.mesh``, every rank of the
+process group on the data axis by default) the step is data-parallel, with
+the numbers of the one-rank step on the global batch up to the order of
+reductions (the JAX package's sharding claim,
+``tests/test_sharding_equivalence.py:1-5``):
+
+* ``train_step`` takes this rank's rows of the global batch (``fit`` slices
+  them with ``shard_batch``) and every draw is made for the global batch and
+  sliced: K1's Philox rows from this rank's first global row (K1's group
+  mode, which standardizes over the global batch), the GP's eps and the
+  normal noise from generators of the global shape, ``draws``' arrays of
+  the global batch;
+* BatchNorm reduces its statistics over the data group; each rank's loss is
+  its share of the global loss (``parallel/collectives.py``), the gradients
+  are summed over the data group and every rank runs one K3 launch per model
+  on the same sums, so the replicas stay bit-equal;
+* the metrics are the global ones on every rank; only rank 0 writes sample
+  grids and bundles; every rank reads them.
+
 Unlike the JAX step, which is pure, ``train_step`` updates the state in place
 and returns it. ``fit`` writes a sample grid PNG and ``gan_last.model`` per
 epoch, synchronously (the JAX ``AsyncSaver`` works around a slow host link).
@@ -57,9 +76,8 @@ import numpy as np
 import torch
 
 from rnagan_tpu_torch import convert
-from rnagan_tpu_torch.core.checkpoint import load_bundle
+from rnagan_tpu_torch.core.checkpoint import load_bundle, on_writer
 from rnagan_tpu_torch.core.config import GANConfig, VAEModelConfig
-from rnagan_tpu_torch.core.device import resolve_device
 from rnagan_tpu_torch.core.rng import SeedStream
 from rnagan_tpu_torch.losses import gan as gan_losses
 from rnagan_tpu_torch.losses.rna_infusion import (encode_z_mean, infused_noise,
@@ -68,6 +86,8 @@ from rnagan_tpu_torch.models.batchnorm import Stats
 from rnagan_tpu_torch.models.betavae import BetaVAE
 from rnagan_tpu_torch.models.dcgan import make_discriminator, make_generator
 from rnagan_tpu_torch.optim.adam import Adam
+from rnagan_tpu_torch.parallel import collectives
+from rnagan_tpu_torch.parallel.mesh import Mesh, local_rows, make_mesh, module_tensors, replicated, shard_batch
 from rnagan_tpu_torch.utils.images import save_image_grid
 
 log = logging.getLogger(__name__)
@@ -113,14 +133,17 @@ def _copy_stats(stats: Stats) -> Stats:
 
 
 class GANTrainer:
-    """RNA-GAN training on one card (``device="cuda"``, the default, raises
-    without CUDA; the tests pass ``"cpu"``).
+    """RNA-GAN training on one card, or data-parallel over the ranks of a
+    ``mesh`` (default ``make_mesh(cfg.mesh, device)``: the one-card mesh
+    outside a process group). ``device="cuda"``, the default, raises without
+    CUDA; the tests pass ``"cpu"``.
 
     ``vae_state_dict`` is the frozen betaVAE of the wganvae loss family (or
     ``cfg.vae_checkpoint`` names its ``.pt`` or JAX bundle)."""
 
     def __init__(self, cfg: GANConfig, vae_state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                 device="cuda", image_dir: Optional[str] = None, model_dir: Optional[str] = None):
+                 device="cuda", image_dir: Optional[str] = None, model_dir: Optional[str] = None,
+                 mesh: Optional[Mesh] = None):
         if cfg.loss_type not in gan_losses.DISCRIMINATOR_LOSSES:
             raise ValueError(f"unknown loss_type {cfg.loss_type}")
         if cfg.model.critic == "projection" and cfg.loss_type != "wganvae":
@@ -132,7 +155,10 @@ class GANTrainer:
             raise ValueError("fused_critic_batch is unsupported for spectral-norm architectures "
                              "(sagan/biggan)")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh, device)
+        if self.mesh.model != 1:
+            raise ValueError("the GAN trainer splits the batch only: MeshConfig.model must be 1")
+        self.device = self.mesh.device
         self.image_dir = image_dir
         self.model_dir = model_dir
         self.seeds = SeedStream(cfg.seed)
@@ -156,6 +182,7 @@ class GANTrainer:
         g = make_generator(cfg.model, seed=self.seeds.seed("init", stage=0), device=dev)
         d = make_discriminator(cfg.model, seed=self.seeds.seed("init", stage=1), device=dev)
         betas = dict(b1=cfg.adam_b1, b2=cfg.adam_b2, mu_dtype=self._mu_dtype)
+        replicated(module_tensors(g) + module_tensors(d), self.mesh)
         return GANTrainState(
             step=0, generator=g, discriminator=d,
             g_stats=_copy_stats(g.bn_stats()), d_stats=_copy_stats(d.bn_stats()),
@@ -165,32 +192,41 @@ class GANTrainer:
                    if cfg.g_ema_decay is not None else None))
 
     # ------------------------------------------------------------------ noise
-    def _given(self, draws, key):
+    def _given(self, draws, key, rows: Optional[slice] = None):
+        """``draws[key]`` (the global batch's) on the device, this rank's ``rows``."""
         if draws is None:
             return None
-        return torch.as_tensor(draws[key], dtype=torch.float32).to(self.device).contiguous()
+        t = torch.as_tensor(draws[key], dtype=torch.float32)
+        return (t if rows is None else t[rows]).to(self.device).contiguous()
 
     def _noise(self, step: int, stage: str, n: int, z_mean, draws) -> torch.Tensor:
-        """A stage's noise prior: VAE-infused through K1 for wganvae (reference
-        ``wgan_loss.py:97-106``), standard normal otherwise. ``draws["u_<stage>"]``
-        holds the uniforms (or the normals) when given."""
-        given = self._given(draws, "u_" + stage)
+        """A stage's noise prior for this rank's ``n`` rows: VAE-infused through
+        K1 for wganvae (reference ``wgan_loss.py:97-106``), standard normal
+        otherwise. ``draws["u_<stage>"]`` holds the global batch's uniforms (or
+        normals) when given."""
+        mesh, rows = self.mesh, local_rows(n * self.mesh.data, self.mesh)
+        given = self._given(draws, "u_" + stage, rows)
         if self.cfg.loss_type == "wganvae":
+            kw = dict(noise_range=self.cfg.noise_range, group=mesh.data_group, row0=rows.start)
             if given is not None:
-                return infused_noise(z_mean, n, u=given, noise_range=self.cfg.noise_range)
-            return infused_noise(z_mean, n, seed=self.seeds.seed("train", step, _STAGES[stage]),
-                                 noise_range=self.cfg.noise_range)
+                return infused_noise(z_mean, n, u=given, **kw)
+            return infused_noise(z_mean, n, seed=self.seeds.seed("train", step, _STAGES[stage]), **kw)
         if given is not None:
             return given
         gen = self.seeds.generator("train", step, _STAGES[stage], self.device)
-        return torch.randn((n, self.cfg.model.encoding_dims), generator=gen, device=self.device)
+        noise = torch.randn((n * mesh.data, self.cfg.model.encoding_dims), generator=gen, device=self.device)
+        return noise[rows]
 
-    def _eps(self, step: int, shape, draws) -> torch.Tensor:
+    def _eps(self, step: int, n: Optional[int], draws) -> torch.Tensor:
+        """The GP's interpolation weights: (n, 1, 1, 1) for this rank's rows of
+        the global batch's draw, or one scalar (``n`` None)."""
+        rows = None if n is None else local_rows(n * self.mesh.data, self.mesh)
         given = self._given(draws, "eps")
-        if given is not None:
-            return given.reshape(shape)
-        gen = self.seeds.generator("train", step, _STAGES["eps"], self.device)
-        return torch.rand(shape, generator=gen, device=self.device)
+        if given is None:
+            gen = self.seeds.generator("train", step, _STAGES["eps"], self.device)
+            shape = () if n is None else (n * self.mesh.data, 1, 1, 1)
+            given = torch.rand(shape, generator=gen, device=self.device)
+        return given.reshape(()) if n is None else given.reshape(-1, 1, 1, 1)[rows]
 
     def _conditional(self) -> bool:
         m = self.cfg.model
@@ -211,12 +247,23 @@ class GANTrainer:
                    draws: Optional[Dict[str, Any]] = None):
         """One step on ``batch`` (``"image"`` (N, H, W, C) uint8 or float in
         [-1, 1]; ``"rna_data"`` (N, F) for wganvae; ``"labels"`` (N,) int for
-        condgan, into G and D at every stage, the GP's included). ``draws`` optionally
-        gives the stage noise ``u_d``, ``u_gp``, ``u_g`` (uniforms in
-        [-noise_range, noise_range] for wganvae, else normals) and ``eps``.
-        Returns ``(state, metrics)``, the state updated in place; the metrics
-        (``d_loss``, ``dx``, ``dgz``, ``gp``, ``g_loss``) are 0-dim float tensors."""
-        cfg, dev = self.cfg, self.device
+        condgan, into G and D at every stage, the GP's included): under a
+        mesh, this rank's N rows of the global batch. ``draws`` optionally
+        gives the global batch's stage noise ``u_d``, ``u_gp``, ``u_g``
+        (uniforms in [-noise_range, noise_range] for wganvae, else normals)
+        and ``eps``. Returns ``(state, metrics)``, the state updated in place;
+        the metrics (``d_loss``, ``dx``, ``dgz``, ``gp``, ``g_loss``, of the
+        global batch) are 0-dim float tensors."""
+        with collectives.active(self.mesh):
+            return self._train_step(state, batch, draws)
+
+    def _share(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's share of a mean over the global batch (the convention
+        of ``parallel/collectives.py``)."""
+        return x if self.mesh.data_group is None else x / self.mesh.data
+
+    def _train_step(self, state: GANTrainState, batch: Dict[str, Any], draws):
+        cfg, dev, group = self.cfg, self.device, self.mesh.data_group
         real = torch.as_tensor(batch["image"]).to(dev)
         if real.dtype == torch.uint8:
             real = real.float() / 127.5 - 1.0
@@ -244,16 +291,17 @@ class GANTrainer:
                                                   state.g_stats, True, labels=labels)
         dx, s1 = D(real, state.d_stats, True, cond, labels)
         dgz, s2 = D(fake, s1, True, cond, labels)
-        loss = gan_losses.DISCRIMINATOR_LOSSES[cfg.loss_type](dx, dgz)
-        metrics.update(d_loss=loss.detach(), dx=dx.detach().mean(), dgz=dgz.detach().mean())
+        loss = self._share(gan_losses.DISCRIMINATOR_LOSSES[cfg.loss_type](dx, dgz))
+        metrics.update(d_loss=loss.detach(), dx=self._share(dx.detach().mean()),
+                       dgz=self._share(dgz.detach().mean()))
         if fused_gp:
-            eps = self._eps(step, (n, 1, 1, 1), draws)
+            eps = self._eps(step, n, draws)
             interp = eps * real + (1.0 - eps) * fake
             gp = gan_losses.gradient_penalty(lambda x: D(x, s2, True, cond, labels)[0], interp,
-                                             per_sample=True)
+                                             per_sample=True, group=group)
             metrics["gp"] = gp.detach()
             loss = loss + cfg.gp_lambda * gp
-        state.d_opt.step(d_params, torch.autograd.grad(loss, d_params))
+        state.d_opt.step(d_params, collectives.all_reduce_grads(torch.autograd.grad(loss, d_params), group))
         state.d_stats = s2
 
         # ---------------- GP stage (a second D step: the reference's dynamics)
@@ -261,7 +309,7 @@ class GANTrainer:
             with torch.no_grad():
                 fake_gp, state.g_stats = G.forward_stats(
                     self._noise(step, "gp", n, z_mean, draws), state.g_stats, True, labels=labels)
-            eps = self._eps(step, (), draws)
+            eps = self._eps(step, None, draws)
             interp = eps * real + (1.0 - eps) * fake_gp
             kept: List[Stats] = []
 
@@ -270,8 +318,8 @@ class GANTrainer:
                 kept.append(s)
                 return out
 
-            gp = gan_losses.gradient_penalty(critic, interp, per_sample=False)
-            grads = torch.autograd.grad(cfg.gp_lambda * gp, d_params)
+            gp = gan_losses.gradient_penalty(critic, interp, per_sample=False, group=group)
+            grads = collectives.all_reduce_grads(torch.autograd.grad(cfg.gp_lambda * gp, d_params), group)
             state.d_stats = kept[0]
             state.d_opt.step(d_params, grads)
             metrics["gp"] = gp.detach()
@@ -281,8 +329,9 @@ class GANTrainer:
             fake, gs = G.forward_stats(self._noise(step, "g", n, z_mean, draws), state.g_stats, True,
                                        labels=labels)
             dgz, ds = D(fake, state.d_stats, True, cond, labels)
-            g_loss = gan_losses.GENERATOR_LOSSES[cfg.loss_type](dgz)
-            state.g_opt.step(g_params, torch.autograd.grad(g_loss, g_params))
+            g_loss = self._share(gan_losses.GENERATOR_LOSSES[cfg.loss_type](dgz))
+            state.g_opt.step(g_params, collectives.all_reduce_grads(torch.autograd.grad(g_loss, g_params),
+                                                                    group))
             state.g_stats, state.d_stats = gs, ds
             metrics["g_loss"] = g_loss.detach().float()
             if state.g_ema is not None:
@@ -293,7 +342,7 @@ class GANTrainer:
         else:
             metrics["g_loss"] = torch.zeros((), device=dev)
         state.step += 1
-        return state, metrics
+        return state, collectives.reduce_metrics(metrics, group)
 
     # -------------------------------------------------------------- sampling
     @torch.no_grad()
@@ -437,15 +486,19 @@ class GANTrainer:
             eval_fn=None, eval_every: int = 0,
             keep_best_metric: Optional[str] = None) -> Tuple[GANTrainState, Dict[str, Any]]:
         """Epoch loop (``rnagan_tpu/train/gan_trainer.py:512-608``).
-        ``batches_per_epoch_fn(epoch)`` yields batch dicts. Per epoch: the
+        ``batches_per_epoch_fn(epoch)`` yields global batch dicts (each rank
+        steps on its rows, ``shard_batch``; pad them to a multiple of the
+        data-axis size, ``pad_to``). Per epoch: the
         metric means (read from the card once, at the epoch's end),
         ``eval_fn(epoch, state, trainer) -> dict`` every ``eval_every`` epochs,
         a ``sample_size`` grid PNG into ``image_dir`` and ``gan_last.model``
         into ``model_dir``. ``auto_resume`` starts from
         ``model_dir/gan_last.model`` when it exists. ``keep_best_metric`` names
         an ``eval_fn`` scalar (lower is better): the state at its best value
-        is kept and written to ``model_dir/gan_best.model``."""
-        cfg = self.cfg
+        is kept and written to ``model_dir/gan_best.model``. Every rank runs
+        ``eval_fn`` and takes rank 0's numbers, so every rank keeps the same
+        best state; rank 0 writes the grids and bundles."""
+        cfg, mesh = self.cfg, self.mesh
         if state is None and auto_resume and self.model_dir:
             last = os.path.join(self.model_dir, "gan_last.model")
             if os.path.exists(last):
@@ -460,7 +513,7 @@ class GANTrainer:
             count = 0
             t0 = time.perf_counter()
             for batch in batches_per_epoch_fn(epoch):
-                state, metrics = self.train_step(state, batch)
+                state, metrics = self.train_step(state, shard_batch(batch, mesh))
                 for k, v in metrics.items():
                     sums[k] = sums[k] + v if k in sums else v
                 count += 1
@@ -470,20 +523,21 @@ class GANTrainer:
             means["steps_per_sec"] = count / max(epoch_s, 1e-9)
             means["step_ms_mean"] = 1e3 * epoch_s / max(count, 1)
             if eval_fn is not None and eval_every and (epoch + 1) % eval_every == 0:
-                means.update(eval_fn(epoch, state, self))
+                means.update(collectives.broadcast_scalars(eval_fn(epoch, state, self), mesh))
                 if keep_best_metric and means.get(keep_best_metric, math.inf) < best_val:
                     best_val, best_state, best_epoch = means[keep_best_metric], copy.deepcopy(state), epoch
             history.append(means)
             log.info("epoch %d: %s", epoch, " ".join(f"{k} {v:.4f}" for k, v in means.items()))
-            if self.image_dir and (epoch + 1) % sample_every == 0:
+            if self.image_dir and (epoch + 1) % sample_every == 0 and mesh.writer:
                 imgs = self.sample(state, cfg.sample_size, seed=self.seeds.seed("grid", epoch))
                 save_image_grid(imgs, os.path.join(self.image_dir, f"epoch_{epoch}.png"), nrow=8)
             if self.model_dir and (epoch + 1) % save_every == 0:
-                self.save_model(state, os.path.join(self.model_dir, "gan_last.model"), epoch=epoch)
+                on_writer(mesh, lambda: self.save_model(
+                    state, os.path.join(self.model_dir, "gan_last.model"), epoch=epoch))
         out: Dict[str, Any] = {"history": history}
         if best_state is not None:
             if self.model_dir:
-                self.save_model(best_state, os.path.join(self.model_dir, "gan_best.model"),
-                                epoch=best_epoch)
+                on_writer(mesh, lambda: self.save_model(
+                    best_state, os.path.join(self.model_dir, "gan_best.model"), epoch=best_epoch))
             out["best"] = {"state": best_state, "epoch": best_epoch, keep_best_metric: best_val}
         return state, out

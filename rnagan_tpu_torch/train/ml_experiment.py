@@ -16,6 +16,14 @@ donated buffers. The flips come from a ``core/rng.py`` generator per step
 (``"ml"``), or are given as ``draws={"flip_h", "flip_v"}`` (bool (N,)), which
 is how the tests hand both packages the same draws; ``fit_resident``'s
 per-epoch permutations likewise (``"ml_epoch"``, or ``draws["perms"]``).
+
+Under a mesh (``MLConfig.mesh``; the data axis) ``train_step`` takes this
+rank's rows of the global batch, the flips are drawn (or given) for the
+global batch and sliced, BatchNorm reduces over the data group, the masked
+cross-entropy is this rank's share over the global count and the gradients
+are summed over the data group before AdamW (``parallel/collectives.py``).
+``fit`` and ``fit_resident`` pad and slice the global batches; validation
+runs whole on every rank and rank 0's accuracy decides the best epoch.
 """
 
 from __future__ import annotations
@@ -29,12 +37,13 @@ import numpy as np
 import torch
 
 from rnagan_tpu_torch.core.config import MLConfig
-from rnagan_tpu_torch.core.device import resolve_device
 from rnagan_tpu_torch.core.metrics import MetricsLogger, epoch_means
 from rnagan_tpu_torch.core.rng import SeedStream
 from rnagan_tpu_torch.data.batching import batch_indices
 from rnagan_tpu_torch.models.resnet import ARCHS, ResNet
 from rnagan_tpu_torch.optim.adam import AdamW
+from rnagan_tpu_torch.parallel import collectives
+from rnagan_tpu_torch.parallel.mesh import Mesh, local_rows, make_mesh, module_tensors, replicated, shard_batch
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -84,12 +93,13 @@ def weighted_f1(y_true: np.ndarray, y_pred: np.ndarray, num_classes: int) -> flo
     return float(score)
 
 
-def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                         mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(loss, accuracy)`` over the valid rows (``mask`` 1), the JAX loss_fn's."""
+def masked_cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+                         group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(loss, accuracy)`` over the valid rows (``mask`` 1), the JAX loss_fn's;
+    with a data ``group``, this rank's shares of them over the global count."""
     logp = torch.log_softmax(logits.float(), dim=1)
     per = -logp.gather(1, labels[:, None])[:, 0]
-    count = torch.clamp(mask.sum(), min=1.0)
+    count = collectives.global_count(mask, group)
     acc = ((logits.argmax(1) == labels).float() * mask).sum() / count
     return (per * mask).sum() / count, acc
 
@@ -115,8 +125,9 @@ def flip_views(x: torch.Tensor, flip_h: torch.Tensor, flip_v: torch.Tensor) -> t
 
 
 class TileClassifierTrainer:
-    """Tile classifier on one card (``device="cuda"``, the default, raises
-    without CUDA). ``model`` builds the ResNet (called with ``seed=`` and
+    """Tile classifier on one card, or data-parallel over ``mesh`` (default
+    ``make_mesh(cfg.mesh, device)``); ``device="cuda"``, the default, raises
+    without CUDA. ``model`` builds the ResNet (called with ``seed=`` and
     ``device=``; default ``cfg.arch`` with ``cfg.num_classes``), anew for
     each ``init_state``; ``backbone_variables`` is a state_dict overlaid on
     it (a torchvision backbone through ``models/resnet.py::
@@ -124,9 +135,11 @@ class TileClassifierTrainer:
 
     def __init__(self, cfg: MLConfig, *, model: Optional[Callable[..., ResNet]] = None,
                  logger: Optional[MetricsLogger] = None,
-                 backbone_variables: Optional[Dict[str, torch.Tensor]] = None, device="cuda"):
+                 backbone_variables: Optional[Dict[str, torch.Tensor]] = None, device="cuda",
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh, device)
+        self.device = self.mesh.device
         self.model = model or partial(ARCHS[cfg.arch], num_classes=cfg.num_classes)
         self.logger = logger or MetricsLogger()
         self.seeds = SeedStream(cfg.seed)
@@ -140,6 +153,7 @@ class TileClassifierTrainer:
             extra = model.load_state_dict(self._backbone_variables, strict=False).unexpected_keys
             if extra:
                 raise ValueError(f"backbone_variables has entries the model lacks: {extra[:3]}")
+        replicated(module_tensors(model), self.mesh)
         return MLTrainState(0, model, AdamW(list(model.parameters()), self.cfg.lr, self.cfg.weight_decay))
 
     def state_from_jax(self, tree) -> MLTrainState:
@@ -169,21 +183,28 @@ class TileClassifierTrainer:
     def train_step(self, state: MLTrainState, images01, labels, mask,
                    draws: Optional[Dict[str, Any]] = None) -> Tuple[MLTrainState, Metrics]:
         """One step on NHWC ``images01`` in [0, 1] with int ``labels`` and
-        ``mask`` (1 on valid rows). ``draws`` may give ``flip_h``/``flip_v``."""
+        ``mask`` (1 on valid rows): under a mesh, this rank's rows of the
+        global batch. ``draws`` may give the global batch's ``flip_h``/``flip_v``."""
+        mesh = self.mesh
         x = self._tensor(images01)
         y, m = self._tensor(labels, torch.int64), self._tensor(mask)
         draws = draws or {}
+        n = len(x) * mesh.data
         if "flip_h" not in draws:
             gen = self.seeds.generator("ml", state.step, device=self.device)
-            draws = {"flip_h": torch.rand(len(x), generator=gen, device=self.device) < 0.5,
-                     "flip_v": torch.rand(len(x), generator=gen, device=self.device) < 0.5}
-        x = self.normalize(flip_views(x, as_draw(draws["flip_h"]), as_draw(draws["flip_v"])))
+            draws = {"flip_h": torch.rand(n, generator=gen, device=self.device) < 0.5,
+                     "flip_v": torch.rand(n, generator=gen, device=self.device) < 0.5}
+        rows = local_rows(n, mesh)
+        x = self.normalize(flip_views(x, as_draw(draws["flip_h"])[rows], as_draw(draws["flip_v"])[rows]))
         model = state.model.train()
-        loss, acc = masked_cross_entropy(model(self._nchw(x)), y, m)
-        params = list(model.parameters())
-        state.opt.step(params, torch.autograd.grad(loss, params))
+        with collectives.active(mesh):
+            loss, acc = masked_cross_entropy(model(self._nchw(x)), y, m, mesh.data_group)
+            params = list(model.parameters())
+            grads = collectives.all_reduce_grads(torch.autograd.grad(loss, params), mesh.data_group)
+        state.opt.step(params, grads)
         state.step += 1
-        return state, {"loss": loss.detach(), "acc": acc.detach()}
+        return state, collectives.reduce_metrics({"loss": loss.detach(), "acc": acc.detach()},
+                                                 mesh.data_group)
 
     @torch.no_grad()
     def eval_step(self, state: MLTrainState, images01) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -192,10 +213,12 @@ class TileClassifierTrainer:
         return logits.argmax(1), torch.log_softmax(logits.float(), dim=1)
 
     # ------------------------------------------------------------------ loops
-    def _batches(self, n: int, epoch: int, shuffle: bool):
-        yield from batch_indices(n, self.cfg.batch_size, shuffle=shuffle, seed=self.cfg.seed, epoch=epoch)
+    def _batches(self, n: int, epoch: int, shuffle: bool, pad_to: int = 1):
+        yield from batch_indices(n, self.cfg.batch_size, shuffle=shuffle, seed=self.cfg.seed, epoch=epoch,
+                                 pad_to=pad_to)
 
     def _keep_best(self, state, history, best_acc, best_state, epoch):
+        history[-1].update(collectives.broadcast_scalars(history[-1], self.mesh))  # one decision
         self.logger.scalars("ml", history[-1], epoch)
         if history[-1]["val_acc"] > best_acc:
             return history[-1]["val_acc"], copy.deepcopy(state)  # the next epoch updates `state` in place
@@ -210,7 +233,8 @@ class TileClassifierTrainer:
         best_acc, best_state, history = -1.0, None, []
         for epoch in range(self.cfg.num_epochs):
             per_step = []
-            for idx, mask in self._batches(len(images01), epoch, True):
+            for idx, mask in self._batches(len(images01), epoch, True, self.mesh.data):
+                idx, mask = shard_batch((idx, mask), self.mesh)
                 state, metrics = self.train_step(state, images01[idx], labels[idx], mask)
                 per_step.append(metrics)
             means = epoch_means(per_step) or {"loss": 0.0, "acc": 0.0}
@@ -235,7 +259,9 @@ class TileClassifierTrainer:
         val = torch.as_tensor(val_images_u8).to(self.device)
         n = images.shape[0]
         n_steps = max(n // batch, 1)
-        ones = torch.ones(batch, device=self.device)
+        if batch % self.mesh.data:
+            raise ValueError(f"batch_size {batch} does not split over {self.mesh.data} data ranks")
+        ones = torch.ones(batch // self.mesh.data, device=self.device)
         state = state if state is not None else self.init_state()
         draws = draws or {}
         flips = iter(draws.get("flips", ()))
@@ -248,6 +274,7 @@ class TileClassifierTrainer:
                 perm = torch.randperm(n, generator=gen, device=self.device)
             per_step = []
             for idx in perm[: n_steps * batch].reshape(n_steps, batch):
+                idx = shard_batch(idx, self.mesh)
                 state, metrics = self.train_step(state, unit_from_uint8(images[idx]), labs[idx], ones,
                                                  next(flips, None))
                 per_step.append(metrics)
@@ -299,15 +326,18 @@ def load_adamw(opt: AdamW, names: Sequence[str], opt_state) -> None:
 def run_cv_experiment(images01: np.ndarray, labels: np.ndarray, cfg: Optional[MLConfig] = None, *,
                       test_images01: Optional[np.ndarray] = None, test_labels: Optional[np.ndarray] = None,
                       backbone_variables: Optional[Dict[str, torch.Tensor]] = None,
-                      model: Optional[Callable[..., ResNet]] = None, device="cuda") -> Dict[str, Any]:
+                      model: Optional[Callable[..., ResNet]] = None, device="cuda",
+                      mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """The 5-fold CV protocol (reference ``ml_experiments.py:282-362``): per
     fold a fresh model trained on the other folds, its best-on-val state
     evaluated on the fold (and on a held-out test set when given, e.g. real
-    tiles for a model trained on synthetic ones)."""
+    tiles for a model trained on synthetic ones); data-parallel over
+    ``mesh`` when given."""
     cfg = cfg or MLConfig()
     results: Dict[str, Any] = {"folds": []}
     for f, (tr_idx, va_idx) in enumerate(stratified_folds(labels, cfg.folds, cfg.seed)):
-        trainer = TileClassifierTrainer(cfg, model=model, backbone_variables=backbone_variables, device=device)
+        trainer = TileClassifierTrainer(cfg, model=model, backbone_variables=backbone_variables, device=device,
+                                        mesh=mesh)
         state, _ = trainer.fit(images01[tr_idx], labels[tr_idx], images01[va_idx], labels[va_idx])
         fold = {"fold": f, **trainer.evaluate(images01[va_idx], labels[va_idx], state)}
         if test_images01 is not None:

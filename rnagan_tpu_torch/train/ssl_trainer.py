@@ -13,12 +13,23 @@ Each view's seven draws (``scale``, ``off_x``, ``off_y``, ``flip_h``,
 ``flip_v``, ``brightness``, ``contrast``, the values ``jax.random`` draws in
 ``augment_views``) come from a ``core/rng.py`` generator per step
 (``"ssl"``) or are given as ``draws={"a": {...}, "b": {...}}``.
+
+Under a mesh (``SSLConfig.mesh``; the data axis) each rank augments its rows
+of the global batch with its slice of the global draws, and NT-Xent runs
+over the **global** batch, as pjit makes it in the JAX package
+(``rnagan_tpu/train/ssl_trainer.py:14``): the projections of both views are
+gathered over the data group (the ``"sum"`` gather of
+``parallel/collectives.py``: every rank's anchors see every negative, and
+each rank's anchors are its share of the loss), BatchNorm reduces over the
+group and the gradients are summed over it. SimCLR never pads: ``fit``
+clamps the batch to the corpus, rounded down to a multiple of the data-axis
+size.
 """
 
 from __future__ import annotations
 
 import copy
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -26,12 +37,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rnagan_tpu_torch.core.device import resolve_device
+from rnagan_tpu_torch.core.config import MeshConfig
 from rnagan_tpu_torch.core.metrics import MetricsLogger, epoch_means
 from rnagan_tpu_torch.core.rng import SeedStream
 from rnagan_tpu_torch.data.batching import batch_indices
 from rnagan_tpu_torch.models.resnet import ResNet, lecun_normal_, resnet50
 from rnagan_tpu_torch.optim.adam import AdamW
+from rnagan_tpu_torch.parallel import collectives
+from rnagan_tpu_torch.parallel.mesh import Mesh, local_rows, make_mesh, module_tensors, replicated, shard_batch
 from rnagan_tpu_torch.train.ml_experiment import IMAGENET_MEAN, IMAGENET_STD, as_draw, flip_views, load_adamw
 
 VIEW_DRAWS = ("scale", "off_x", "off_y", "flip_h", "flip_v", "brightness", "contrast")
@@ -49,6 +62,7 @@ class SSLConfig:
     projection_dim: int = 128
     projection_hidden: int = 512
     seed: int = 99
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 class ProjectionHead(nn.Module):
@@ -88,20 +102,31 @@ class SSLTrainState:
     opt: AdamW
 
 
-def nt_xent_loss(z: torch.Tensor, temperature: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def nt_xent_loss(z: torch.Tensor, temperature: float, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """NT-Xent over 2N stacked views (first N = view A, last N = view B):
     ``(loss, contrastive accuracy)``. ``z @ z.T`` is a plain product
-    (``torch.matmul``), as the JAX package leaves it to XLA."""
-    n2 = z.shape[0]
-    n = n2 // 2
+    (``torch.matmul``), as the JAX package leaves it to XLA.
+
+    With a data ``group`` each rank holds its 2n rows (its n of view A, then
+    its n of view B) of the global batch: both views are gathered over the
+    group into the global [A; B], this rank's rows are the anchors against
+    every row, and the results are this rank's shares of the global loss and
+    accuracy (they sum over the group to the one-rank values)."""
+    n = z.shape[0] // 2
+    size = collectives.group_size(group)
+    index = 0 if group is None else torch.distributed.get_rank(group)
     z = z / (torch.linalg.vector_norm(z, dim=1, keepdim=True) + 1e-8)
-    sim = (z @ z.T) / temperature
-    sim = sim - 1e9 * torch.eye(n2, dtype=z.dtype, device=z.device)  # mask self-similarity
-    ar = torch.arange(n, device=z.device)
-    pos = torch.cat([ar + n, ar])  # the positive of i is i + n (mod 2n)
+    views = [collectives.gather(v, group, dim=0, backward="sum") for v in (z[:n], z[n:])]
+    everything = torch.cat(views)  # the global [A; B], 2N rows
+    big_n = n * size
+    mine = torch.cat([torch.arange(index * n, (index + 1) * n, device=z.device),
+                      torch.arange(big_n + index * n, big_n + (index + 1) * n, device=z.device)])
+    sim = (everything[mine] @ everything.T) / temperature
+    sim = sim - 1e9 * torch.nn.functional.one_hot(mine, 2 * big_n).to(z.dtype)  # mask self-similarity
+    pos = (mine + big_n) % (2 * big_n)
     logp = torch.log_softmax(sim, dim=1)
-    loss = -logp.gather(1, pos[:, None]).mean()
-    acc = (sim.argmax(1) == pos).float().mean()
+    loss = -logp.gather(1, pos[:, None]).sum() / (2 * big_n)
+    acc = (sim.argmax(1) == pos).float().sum() / (2 * big_n)
     return loss, acc
 
 
@@ -164,14 +189,16 @@ def augment_views(images01: torch.Tensor, draws: Dict[str, Any]) -> torch.Tensor
 
 
 class SimCLRTrainer:
-    """SimCLR on one card (``device="cuda"``, the default, raises without
-    CUDA). ``backbone`` builds the headless ResNet (called with ``seed=`` and
-    ``device=``; default ResNet50)."""
+    """SimCLR on one card, or data-parallel over ``mesh`` (default
+    ``make_mesh(cfg.mesh, device)``); ``device="cuda"``, the default, raises
+    without CUDA. ``backbone`` builds the headless ResNet (called with
+    ``seed=`` and ``device=``; default ResNet50)."""
 
     def __init__(self, cfg: SSLConfig, *, backbone: Optional[Callable[..., ResNet]] = None,
-                 logger: Optional[MetricsLogger] = None, device="cuda"):
+                 logger: Optional[MetricsLogger] = None, device="cuda", mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh, device)
+        self.device = self.mesh.device
         self.backbone = backbone or resnet50
         self.logger = logger or MetricsLogger()
         self.seeds = SeedStream(cfg.seed)
@@ -182,6 +209,7 @@ class SimCLRTrainer:
         bb = self.backbone(num_classes=0, seed=self.seeds.seed("init"), device=self.device)
         model = SimCLRModel(bb, self.cfg.projection_hidden, self.cfg.projection_dim,
                             seed=self.seeds.seed("init", stage=1), device=self.device)
+        replicated(module_tensors(model), self.mesh)
         return SSLTrainState(0, model, AdamW(list(model.parameters()), self.cfg.lr, self.cfg.weight_decay))
 
     def state_from_jax(self, tree) -> SSLTrainState:
@@ -197,35 +225,45 @@ class SimCLRTrainer:
 
     def train_step(self, state: SSLTrainState, images01,
                    draws: Optional[Dict[str, Dict[str, Any]]] = None) -> Tuple[SSLTrainState, Dict[str, torch.Tensor]]:
-        """One step on NHWC ``images01`` in [0, 1]: views A and B, normalized
-        as the downstream classifier normalizes, through the model in train
-        mode, NT-Xent, AdamW."""
+        """One step on NHWC ``images01`` in [0, 1] (under a mesh, this rank's
+        rows of the global batch): views A and B, normalized as the downstream
+        classifier normalizes, through the model in train mode, NT-Xent,
+        AdamW. ``draws`` may give the global batch's view draws."""
+        mesh = self.mesh
         x = torch.as_tensor(images01).to(self.device, torch.float32)
+        n = len(x) * mesh.data
         if draws is None:
             gen = self.seeds.generator("ssl", state.step, device=self.device)
-            draws = {v: draw_view(len(x), self.cfg.crop_scale_min, gen, self.device) for v in "ab"}
-        both = torch.cat([augment_views(x, draws["a"]), augment_views(x, draws["b"])])
+            draws = {v: draw_view(n, self.cfg.crop_scale_min, gen, self.device) for v in "ab"}
+        rows = local_rows(n, mesh)
+        mine = {v: {k: as_draw(draws[v][k])[rows] for k in VIEW_DRAWS} for v in "ab"}
+        both = torch.cat([augment_views(x, mine["a"]), augment_views(x, mine["b"])])
         both = (both - self._mean) / self._std
         model = state.model.train()
-        loss, acc = nt_xent_loss(model(both.permute(0, 3, 1, 2)).float(), self.cfg.temperature)
-        params = list(model.parameters())
-        state.opt.step(params, torch.autograd.grad(loss, params))
+        with collectives.active(mesh):
+            loss, acc = nt_xent_loss(model(both.permute(0, 3, 1, 2)).float(), self.cfg.temperature,
+                                     mesh.data_group)
+            params = list(model.parameters())
+            grads = collectives.all_reduce_grads(torch.autograd.grad(loss, params), mesh.data_group)
+        state.opt.step(params, grads)
         state.step += 1
-        return state, {"loss": loss.detach(), "contrastive_acc": acc.detach()}
+        return state, collectives.reduce_metrics({"loss": loss.detach(), "contrastive_acc": acc.detach()},
+                                                 mesh.data_group)
 
     def fit(self, images01: np.ndarray, *, num_epochs: Optional[int] = None,
             state: Optional[SSLTrainState] = None) -> Tuple[SSLTrainState, Dict[str, Any]]:
         """Epochs of full batches: NT-Xent takes every row as a real negative,
-        so the batch is clamped to the corpus and the remainder dropped."""
-        cfg = self.cfg
+        so the batch is clamped to the corpus (rounded down to a multiple of
+        the data-axis size) and the remainder dropped."""
+        cfg, mesh = self.cfg, self.mesh
         state = state if state is not None else self.init_state()
         n = len(images01)
-        bs = min(cfg.batch_size, n)
+        bs = min(cfg.batch_size, n) // mesh.data * mesh.data
         if bs == 0:
-            raise ValueError("an empty corpus cannot fill a batch")
+            raise ValueError(f"a corpus of {n} images cannot fill one batch over {mesh.data} data ranks")
         history = []
         for epoch in range(num_epochs or cfg.num_epochs):
-            per_step = [self.train_step(state, images01[idx])[1]
+            per_step = [self.train_step(state, images01[shard_batch(idx, mesh)])[1]
                         for idx, _ in batch_indices(n, bs, shuffle=True, seed=cfg.seed, epoch=epoch,
                                                     drop_remainder=True)]
             history.append(epoch_means(per_step))

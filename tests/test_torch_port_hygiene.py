@@ -53,7 +53,8 @@ SUBPACKAGES = {"core": ("checkpoint", "msgpack"), "data": ("rna", "store", "tile
                "models": ("betavae", "inception", "sagan", "biggan", "resnet", "fusion"),
                "optim": ("scheduled", "adam"),
                "train": ("vae_trainer", "ml_experiment", "ssl_trainer", "fusion_trainer"),
-               "kernels": ("fused_adam",), "utils": ("images",)}
+               "kernels": ("fused_adam",), "utils": ("images",),
+               "parallel": ("mesh", "collectives", "launch")}
 
 #: the card's machine has neither: a module imports them inside the function that reads files
 _IMPORT_ALL_NO_PIL_H5PY = """

@@ -623,12 +623,11 @@ def test_configs_from_json_match_jax():
     raw = tcfg.load_reference_json(os.path.join(REPO, "configs", "betavae_tissues.json"))
     t, j = tcfg.vae_config_from_json(raw), jcfg.vae_config_from_json(raw)
     assert dataclasses.asdict(t.model) == dataclasses.asdict(j.model)
-    assert {k: v for k, v in dataclasses.asdict(j).items() if k not in ("model", "mesh")} == \
+    assert {k: v for k, v in dataclasses.asdict(j).items() if k != "model"} == \
         {k: v for k, v in dataclasses.asdict(t).items() if k != "model"}
     assert dataclasses.asdict(tcfg.data_config_from_json(raw, 7)) == \
         dataclasses.asdict(jcfg.data_config_from_json(raw, 7))
-    assert dataclasses.asdict(tcfg.VAEConfig()) == {k: v for k, v in dataclasses.asdict(jcfg.VAEConfig()).items()
-                                                    if k != "mesh"}
+    assert dataclasses.asdict(tcfg.VAEConfig()) == dataclasses.asdict(jcfg.VAEConfig())
 
 
 # ------------------------------------------------------ sampling, interpolation
