@@ -119,7 +119,22 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    ``VAEConfig()`` at full width with its Linears split over 2 ranks, one
    step against a one-rank step of the same state (``VAE_TOL``), the
    gathered state too; one ``MLConfig()`` classifier step (ResNet50,
-   float32) whose loss is the one-rank step's within 1e-5.
+   float32) whose loss is the one-rank step's within 1e-5;
+13. the synthetic corpus, the quality run and ``export_torch`` (run after
+   12): ``SyntheticCorpus`` (16 slides x 64 tiles, 19,198 genes, 256x256) on
+   the card and on the CPU, the same Philox words and batch ids, a batch of
+   32 tiles within 1e-5, the render's time at batch 32 and 64, its host
+   enqueue time, launches and peak memory; ``tools/quality_run_torch.py``'s
+   functions at full width, cut (2 VAE epochs of the full-width bfloat16
+   beta-VAE, one epoch of 16 steps of ``dcgan`` at 256x256 and batch 32 for
+   wganvae and for wgan, FID on 128 + 128 tiles): K1 and K3 twice a step
+   under wganvae, K3 twice and K1 never under wgan, finite losses and FID;
+   the wganvae state through ``state_to_jax`` and the msgpack bundle back,
+   bit-equal, and through ``export_torch`` both ways with G's output
+   unchanged; the quality run's knobs (``compat_reference_gp``,
+   ``n_critic=2`` over two steps, the EMA, the projection critic,
+   ``dcgan_up`` and ``condgan`` at 64x64) as small steps on the card
+   against the CPU (``train_small_matches_cpu``).
 
 It prints a details line, the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -689,9 +704,12 @@ def random_batch(gen, n, cfg, dev, size=256):
 
 
 def training_draws(gen, n, cfg, dev):
+    """A step's draws: the stages' uniforms and the GP's eps, one scalar
+    under ``compat_reference_gp``."""
     d, r = cfg.model.encoding_dims, cfg.noise_range
     u = lambda: (torch.rand(n, d, generator=gen, device=dev) * 2 - 1) * r  # noqa: E731
-    return {"u_d": u(), "u_gp": u(), "u_g": u(), "eps": torch.rand(n, 1, 1, 1, generator=gen, device=dev)}
+    eps_shape = () if cfg.compat_reference_gp else (n, 1, 1, 1)
+    return {"u_d": u(), "u_gp": u(), "u_g": u(), "eps": torch.rand(eps_shape, generator=gen, device=dev)}
 
 
 def warm_adam(state, gen):
@@ -719,6 +737,8 @@ def state_to(state, dev):
     st.d_stats = [(m.to(dev), v.to(dev)) for m, v in st.d_stats]
     for opt in (st.g_opt, st.d_opt):
         opt.mu, opt.nu = [t.to(dev) for t in opt.mu], [t.to(dev) for t in opt.nu]
+    if st.g_ema is not None:
+        st.g_ema = [t.to(dev) for t in st.g_ema]
     return st
 
 
@@ -842,18 +862,31 @@ def open_gates(module, gen):
                     lin.weight.normal_(0.0, 0.3 * lin.in_features ** -0.5, generator=gen)
 
 
-def train_small_matches_cpu(dev, gen, arch="dcgan", remat_check=False, **model_kw):
-    """A small configuration's step of ``arch`` on the card against the same
-    step on the CPU (whose plain versions the CPU tests hold against the JAX
-    package); ``condgan``, and ``biggan`` with classes, with labels; SAGAN
-    and BigGAN with their attention gates and projections drawn
-    (``open_gates``). cuDNN and the CPU sum convolutions in other orders: the
-    state within the CPU tests' bounds (``STATE_TOL``), metrics within 1e-3
-    relative + 1e-5. The card's step launches K1 and K3 twice each (the D
-    and G stages), as ``dcgan``'s does. ``remat_check``: the same step again
-    on the card, plain and with ``remat`` (recomputed blocks), bit-equal to
-    each other (the first card step ran before them: cuDNN's first call may
-    choose other algorithms)."""
+def expected_launches(cfg, first_step, steps):
+    """K1 and K3 launches of ``steps`` wganvae steps from ``first_step``: a
+    D stage each, a GP stage each under ``compat_reference_gp``, and a G
+    stage on every ``n_critic``-th step (``GANTrainer._train_step``)."""
+    n = 0
+    for step in range(first_step, first_step + steps):
+        n += 1 + int(cfg.compat_reference_gp) + int(cfg.n_critic <= 1 or step % cfg.n_critic == cfg.n_critic - 1)
+    return {"fused_adam": n, "infused_noise": n}
+
+
+def train_small_matches_cpu(dev, gen, arch="dcgan", remat_check=False, cfg_kw=None, steps=1, **model_kw):
+    """A small configuration's ``steps`` steps of ``arch`` (``GANConfig``
+    fields ``cfg_kw``, ``GANModelConfig`` fields ``model_kw``) on the card
+    against the same steps on the CPU (whose plain versions the CPU tests
+    hold against the JAX package), each step on the same batch and draws;
+    ``condgan``, and ``biggan`` with classes, with labels; SAGAN and BigGAN
+    with their attention gates and projections drawn (``open_gates``).
+    cuDNN and the CPU sum convolutions in other orders: the state (the EMA
+    of G's weights too, at the parameters' bound) within the CPU tests'
+    bounds (``STATE_TOL``), metrics within 1e-3 relative + 1e-5. The card's
+    steps launch K1 and K3 as :func:`expected_launches` counts (twice each
+    for one plain step: the D and G stages). ``remat_check``: the same step
+    again on the card, plain and with ``remat`` (recomputed blocks),
+    bit-equal to each other (the first card step ran before them: cuDNN's
+    first call may choose other algorithms)."""
     from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig, VAEModelConfig
     from rnagan_tpu_torch.kernels.fused_adam import fused_adam
     from rnagan_tpu_torch.kernels.infusion import infused_noise
@@ -864,7 +897,7 @@ def train_small_matches_cpu(dev, gen, arch="dcgan", remat_check=False, **model_k
               num_classes=3 if arch == "condgan" else 0, compute_dtype="float32")
     cfg = GANConfig(model=GANModelConfig(**{**kw, **model_kw}),
                     vae=VAEModelConfig(rna_features=256, z_dim=64, encoder_dims=(128, 96, 64),
-                                       decoder_dims=(96, 128)))
+                                       decoder_dims=(96, 128)), **(cfg_kw or {}))
     cpu_gen = torch.Generator().manual_seed(SEED)
     vae = BetaVAE(cfg.vae, seed=3)
     randomize(vae, cpu_gen)
@@ -876,22 +909,30 @@ def train_small_matches_cpu(dev, gen, arch="dcgan", remat_check=False, **model_k
     warm_adam(s_cpu, cpu_gen)
     s_card = state_to(s_cpu, dev)
     s_again = [state_to(s_cpu, dev) for _ in range(2)] if remat_check else []
-    batch = random_batch(cpu_gen, cfg.batch_size, cfg, "cpu", size=32)
+    batch = random_batch(cpu_gen, cfg.batch_size, cfg, "cpu", size=cfg.model.out_size)
     if cfg.model.num_classes:
         batch["labels"] = torch.randint(0, cfg.model.num_classes, (cfg.batch_size,), generator=cpu_gen)
     draws = training_draws(cpu_gen, cfg.batch_size, cfg, "cpu")
-    _, m_cpu = cpu.train_step(s_cpu, batch, draws)
+    first_step = s_cpu.step
+    cpu_metrics = [cpu.train_step(s_cpu, batch, draws)[1] for _ in range(steps)]
     before = (fused_adam.launches, infused_noise.launches)
-    _, m_card = card.train_step(s_card, batch, draws)
+    card_metrics = [card.train_step(s_card, batch, draws)[1] for _ in range(steps)]
     launches = {"fused_adam": fused_adam.launches - before[0], "infused_noise": infused_noise.launches - before[1]}
-    name = f"{arch} {model_kw}" if model_kw else arch
-    check(launches == {"fused_adam": 2, "infused_noise": 2}, f"small {name} step launches {launches}")
+    name = " ".join(str(part) for part in (arch, cfg_kw or "", model_kw or "") if part)
+    check(launches == expected_launches(cfg, first_step, steps), f"small {name} step launches {launches}")
     excess = state_excess(s_card, s_cpu)
-    for k in m_cpu:
-        a, b = float(m_cpu[k]), float(m_card[k])
-        check(abs(a - b) <= 1e-3 * abs(a) + 1e-5, f"small {name} training step {k}: CPU {a}, card {b}")
+    for m_cpu, m_card in zip(cpu_metrics, card_metrics):
+        for k in m_cpu:
+            a, b = float(m_cpu[k]), float(m_card[k])
+            check(abs(a - b) <= 1e-3 * abs(a) + 1e-5, f"small {name} training step {k}: CPU {a}, card {b}")
     check(excess <= 1.0, f"small {name} training step: card vs CPU state at {excess} x its tolerance")
     out = {"state_excess": excess, "state_max_abs_diff": state_diff(s_card, s_cpu), "launches": launches}
+    if s_cpu.g_ema is not None:
+        rtol, atol, _ = STATE_TOL["params"]
+        ema_excess = max(float(((x.cpu() - y).abs() / (atol + rtol * y.abs())).max())
+                         for x, y in zip(s_card.g_ema, s_cpu.g_ema, strict=True))
+        check(ema_excess <= 1.0, f"small {name}: card vs CPU EMA of G at {ema_excess} x its tolerance")
+        out["ema_excess"] = ema_excess
     if remat_check:
         plain, remat = s_again
         for net in (remat.generator, remat.discriminator):
@@ -1051,6 +1092,7 @@ def profile_training(step, steps=3):
         cats[kernel_category(e.key)] = cats.get(kernel_category(e.key), 0.0) + dev_ms(e)
     top = sorted(kernels, key=dev_ms, reverse=True)[:10]
     return {"wall_ms_per_step": wall_ms / steps, "device_busy_ms_per_step": busy,
+            "launches_per_step": sum(e.count for e in kernels) / steps,
             "device_idle_share": 1.0 - busy * steps / wall_ms,
             "by_category_ms": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
             "top_kernels": [(e.key[:90], dev_ms(e), e.count // steps) for e in top]}
@@ -2739,6 +2781,255 @@ def mesh_phase(dev):
     return out
 
 
+# ------------------------------------ phase 13: the synthetic corpus and export
+
+#: phase 13's corpus: ``SyntheticCorpus`` at the quality run's widths (19,198
+#: genes, 256x256 tiles), its scale cut from 200 slides x 600 tiles
+SYN_SLIDES, SYN_TILES, SYN_GENES, SYN_SIZE, SYN_BATCH = 16, 64, 19198, 256, 32
+#: the quality run, cut: VAE pre-train epochs, GAN steps of its one epoch
+#: (of 32), FID images a side (of 512)
+QUALITY_VAE_EPOCHS, QUALITY_STEPS, QUALITY_FID_N = 2, 16, 128
+#: the quality run's knobs never run on the card before (ROADMAP A22), as
+#: small steps against the CPU: (arch, GANConfig fields, GANModelConfig fields, steps)
+A22_CASES = (("dcgan", {"compat_reference_gp": True}, {}, 1),
+             ("dcgan", {"n_critic": 2}, {}, 2),
+             ("dcgan", {"g_ema_decay": 0.999}, {}, 1),
+             ("dcgan", {}, {"critic": "projection"}, 1),
+             ("dcgan_up", {}, {"out_size": 64}, 1),
+             ("condgan", {}, {"out_size": 64}, 1))
+
+
+def quality_tool():
+    """``tools/quality_run_torch.py``, imported from the checkout."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "quality_run_torch.py")
+    spec = importlib.util.spec_from_file_location("quality_run_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def render_card_vs_cpu(dev):
+    """The corpus on the card and on the CPU: the same Philox words for a
+    batch's tiles and the same batch ids, pixels within 1e-5; the render's
+    device time (CUDA events) at batch 32 and 64, its host time to enqueue,
+    its launches and device busy share (profiler) and its peak memory."""
+    from rnagan_tpu_torch.data import synthetic as syn
+
+    t0 = time.perf_counter()
+    card = syn.SyntheticCorpus(SYN_SLIDES, SYN_TILES, SYN_GENES, SYN_SIZE, device=dev)
+    cpu = syn.SyntheticCorpus(SYN_SLIDES, SYN_TILES, SYN_GENES, SYN_SIZE, device="cpu")
+    torch.cuda.synchronize()
+    out = {"corpora_s": time.perf_counter() - t0}
+    sl, ti = cpu.batch_ids(SEED, SYN_BATCH)
+    sl_card, ti_card = card.batch_ids(SEED, SYN_BATCH)
+    check(torch.equal(sl_card.cpu(), sl) and torch.equal(ti_card.cpu(), ti), "batch ids differ card vs CPU")
+    sl, ti = sl[0], ti[0]
+    ids = ti + sl * cpu.id_stride
+    slots = [(slot, math.prod(shape) + math.prod(shape) % 2)
+             for slot, shape, _ in syn.tile_draw_spec(SYN_SIZE, 96).values()]
+    words_card = syn.philox_words(card.seed, syn.STREAM_RENDER, ids.to(dev), slots)
+    words_cpu = syn.philox_words(cpu.seed, syn.STREAM_RENDER, ids, slots)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(words_card, words_cpu)), "Philox words differ card vs CPU")
+    del words_card, words_cpu
+    tiles_card = card.render(sl, ti)
+    t0 = time.perf_counter()
+    tiles_cpu = cpu.render(sl, ti)
+    out["cpu_render_s_b32"] = time.perf_counter() - t0
+    err = float((tiles_card.cpu() - tiles_cpu).abs().max())
+    check(tiles_card.shape == (SYN_BATCH, SYN_SIZE, SYN_SIZE, 3) and err <= 1e-5,
+          f"card render vs CPU: {err} (shape {tuple(tiles_card.shape)})")
+    out.update(pixels_max_abs_err=err,
+               latents_max_abs_diff=float((card.slides.s.cpu() - cpu.slides.s).abs().max()),
+               expression_max_rel_diff=float(((card.expression.cpu() - cpu.expression).abs()
+                                              / cpu.expression.abs().clamp(min=1e-6)).max()))
+    del tiles_cpu, cpu
+    sl64, ti64 = (t[0] for t in card.batch_ids(SEED + 1, 64))
+    out["ms_b32"] = time_ms(lambda: card.render(sl, ti), iters=10)
+    out["ms_b64"] = time_ms(lambda: card.render(sl64, ti64), iters=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        card.render(sl, ti)
+    out["host_enqueue_ms_b32"] = (time.perf_counter() - t0) * 1e3 / 5
+    torch.cuda.synchronize()
+    prof = profile_training(lambda: card.render(sl, ti), steps=3)
+    out["profile_b32"] = {k: prof.get(k) for k in ("wall_ms_per_step", "device_busy_ms_per_step",
+                                                   "device_idle_share", "launches_per_step")}
+    for n, (s, t) in ((32, (sl, ti)), (64, (sl64, ti64))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        card.render(s, t)
+        torch.cuda.synchronize()
+        out[f"peak_mib_b{n}"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    print(f"phase 13 render: {json.dumps(out)}")
+    return out
+
+
+def quality_run_cut(dev, tmp, render_ms):
+    """``tools/quality_run_torch.py``'s functions at full width, cut: the
+    corpus, the expression normalized on the host, the full-width beta-VAE
+    (bfloat16) pre-trained ``QUALITY_VAE_EPOCHS`` epochs, then for wganvae
+    and wgan a ``GANConfig`` ``dcgan`` at 256x256, batch 32, through
+    ``GANTrainer.fit``: 2 warm-up steps, then one epoch of ``QUALITY_STEPS``
+    steps with the FID probe (``QUALITY_FID_N`` images a side) as its
+    ``eval_fn``, the K1 and K3 counters set to 0 before it and read when the
+    probe starts. wganvae launches K1 and K3 twice a step (D and G stages),
+    wgan K3 twice and K1 never. Returns the records and the wganvae trainer
+    and state."""
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.kernels.infusion import infused_noise
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+
+    q = quality_tool()
+
+    def args_for(loss_type):
+        return q.parse_args(["--loss_type", loss_type, "--slides", str(SYN_SLIDES), "--tiles_per_slide",
+                             str(SYN_TILES), "--genes", str(SYN_GENES), "--size", str(SYN_SIZE), "--batch",
+                             str(SYN_BATCH), "--vae_epochs", str(QUALITY_VAE_EPOCHS), "--fid_n",
+                             str(QUALITY_FID_N), "--fid_batch", "64", "--epochs", "1", "--no_ckpt",
+                             "--workdir", tmp, "--device", str(dev)])
+
+    out = {"cuts": {"slides": f"{SYN_SLIDES} of 200", "tiles_per_slide": f"{SYN_TILES} of 600",
+                    "vae_epochs": f"{QUALITY_VAE_EPOCHS} of 200", "epochs": "1 of 24 (wganvae) / 39 (wgan)",
+                    "steps_per_epoch": f"{QUALITY_STEPS} of {SYN_SLIDES * SYN_TILES // SYN_BATCH}",
+                    "fid_n": f"{QUALITY_FID_N} of 512"}}
+    args = args_for("wganvae")
+    t0 = time.perf_counter()
+    corpus = q.build_corpus(args, dev)
+    expr_norm, _ = q.normalized_expression(corpus)
+    out["corpus_and_normalization_s"] = time.perf_counter() - t0
+    vae_sd, vae_cfg, out["vae_pretrain_s"] = q.train_vae(args, expr_norm, dev)
+    check(vae_cfg.rna_features == SYN_GENES and vae_cfg.compute_dtype == "bfloat16", f"VAE config {vae_cfg}")
+    kept = None
+    for loss_type in ("wganvae", "wgan"):
+        a = args_for(loss_type)
+        cfg = q.make_config(a, vae_cfg)
+        tr = GANTrainer(cfg, vae_sd if loss_type == "wganvae" else None, device=dev)
+        expr_dev = torch.as_tensor(expr_norm).to(dev) if loss_type == "wganvae" else None
+        t0 = time.perf_counter()
+        probe = q.make_fid_probe(tr, corpus, expr_dev, a)
+        torch.cuda.synchronize()
+        rec = {"fid_setup_s": time.perf_counter() - t0, "fid_floor_real_vs_real": probe.floor}
+        state, _ = tr.fit(lambda _e: corpus.batches(1000, a.batch, 2, cfg.seed, expr_dev), num_epochs=1,
+                          state=tr.init_state())  # warm-up: cuDNN's first calls
+        seen = {}
+
+        def fid_probe(_epoch, st, _tr, probe=probe):
+            torch.cuda.synchronize()
+            seen["train"] = {"infused_noise": infused_noise.launches, "fused_adam": fused_adam.launches}
+            t1 = time.perf_counter()
+            fid = probe(st, 0)
+            torch.cuda.synchronize()
+            seen["fid_s"] = time.perf_counter() - t1
+            seen["probe"] = {"infused_noise": infused_noise.launches - seen["train"]["infused_noise"]}
+            return {"fid": fid}
+
+        torch.cuda.synchronize()
+        infused_noise.launches = fused_adam.launches = 0
+        state, res = tr.fit(lambda _e: corpus.batches(0, a.batch, QUALITY_STEPS, cfg.seed, expr_dev),
+                            num_epochs=1, state=state, eval_fn=fid_probe, eval_every=1, keep_best_metric="fid")
+        rec.update(q.epoch_record(res["history"][0], 0, QUALITY_STEPS, seen["fid_s"]))
+        per_step = 2 if loss_type == "wganvae" else 0
+        want = {"infused_noise": per_step * QUALITY_STEPS, "fused_adam": 2 * QUALITY_STEPS}
+        check(seen["train"] == want, f"quality run {loss_type}: launches {seen['train']}, expected {want}")
+        if loss_type == "wgan":
+            check(seen["probe"]["infused_noise"] == 0, f"wgan FID probe launched K1 {seen['probe']}")
+        values = [rec["d_loss"], rec["g_loss"], rec["gp"], rec["fid"], probe.floor]
+        check(all(math.isfinite(v) for v in values) and "best" in res, f"quality run {loss_type}: {rec}")
+        check(state.step == 2 + QUALITY_STEPS, f"quality run {loss_type}: step {state.step}")
+        rec.update(launches=seen["train"], probe_launches=seen["probe"], render_ms_b32=render_ms,
+                   render_share_of_step=render_ms / rec["step_ms"])
+        out[loss_type] = rec
+        print(f"phase 13 quality run, {loss_type}: " + json.dumps(rec))
+        if loss_type == "wganvae":
+            kept = (tr, state)
+        del probe, res
+        torch.cuda.empty_cache()
+    return out, kept
+
+
+def export_round_trip(dev, tr, state, tmp):
+    """The quality run's wganvae state through ``state_to_jax`` ->
+    ``save_bundle`` -> ``load_bundle`` -> ``state_from_jax``: every tensor,
+    count and the step bit-equal. Then ``cli/export_torch.py`` from that
+    bundle to a torchgan ``.model`` and from the ``.model`` back to a
+    native bundle: G's eval output on fixed noise from each, loaded through
+    ``GANTrainer.load_model``, equal to the state's."""
+    from types import SimpleNamespace
+
+    from rnagan_tpu_torch.cli import export_torch
+    from rnagan_tpu_torch.cli.generate import _load_trainer
+    from rnagan_tpu_torch.core.checkpoint import load_bundle, save_bundle
+
+    out = {}
+    native = os.path.join(tmp, "gan_state.msgpack")
+    t0 = time.perf_counter()
+    save_bundle(native, tr.state_to_jax(state), {"epoch": 0})
+    out["state_to_jax_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = tr.state_from_jax(load_bundle(native)[0])
+    out["load_state_from_jax_s"] = time.perf_counter() - t0
+    unequal = [group for group, x, y in state_pairs(state, back) if not torch.equal(x, y.to(x.device))]
+    check(not unequal and back.step == state.step and back.g_opt.count == state.g_opt.count
+          and back.d_opt.count == state.d_opt.count,
+          f"native round trip: {len(unequal)} tensors differ ({sorted(set(unequal))}), step {back.step}")
+    out["bundle_mib"] = os.path.getsize(native) / 2**20
+    del back
+    m = tr.cfg.model
+    config = os.path.join(tmp, "export.json")
+    cfg_json = {"img_size": m.out_size, "encoding_dims": m.encoding_dims, "step_channels": m.step_channels,
+                "compute_dtype": m.compute_dtype}
+    with open(config, "w") as f:
+        json.dump(cfg_json, f)
+    torchgan, native_again = os.path.join(tmp, "gan.model"), os.path.join(tmp, "gan_again.msgpack")
+    t0 = time.perf_counter()
+    export_torch.main(["--config", config, "--checkpoint", native, "--out", torchgan, "--device", str(dev)])
+    export_torch.main(["--config", config, "--checkpoint", torchgan, "--out", native_again, "--to_native",
+                       "--device", str(dev)])
+    out["export_torch_both_s"] = time.perf_counter() - t0
+    noise = torch.randn(8, m.encoding_dims, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+
+    @torch.no_grad()
+    def g_out(st):
+        return st.generator.forward_stats(noise, st.g_stats, False)[0]
+
+    g_out(state)  # cuDNN's first call may choose other algorithms than later ones
+    ref = g_out(state)
+    args = SimpleNamespace(gan_type=None, seed=99, device=str(dev))
+    for name, path in (("torchgan", torchgan), ("native", native_again)):
+        _, st = _load_trainer(cfg_json, path, None, args)
+        diff = float((g_out(st) - ref).abs().max())
+        check(diff == 0.0 and st.step == state.step, f"export_torch {name}: G's output moved by {diff}")
+        out[f"{name}_g_output_max_abs_diff"] = diff
+        del st
+        torch.cuda.empty_cache()
+    return out
+
+
+def synthetic_and_export(dev):
+    """Phase 13: the render card against CPU, the quality run at full width
+    (cut), the export round trip, and the A22 knobs as small steps."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"render": render_card_vs_cpu(dev)}
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
+    with tempfile.TemporaryDirectory() as tmp:
+        out["quality_run"], (tr, state) = quality_run_cut(dev, tmp, out["render"]["ms_b32"])
+        torch.backends.cudnn.deterministic = True
+        out["export"] = export_round_trip(dev, tr, state, tmp)
+        del tr, state
+    torch.cuda.empty_cache()
+    out["a22_small_vs_cpu"] = {
+        " ".join(str(p) for p in (arch, ck or "", mk or "") if p): train_small_matches_cpu(
+            dev, None, arch, cfg_kw=ck, steps=steps, **mk) for arch, ck, mk, steps in A22_CASES}
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2878,6 +3169,11 @@ def main():
     mesh_out = mesh_phase(dev)
     torch.cuda.empty_cache()
 
+    # ---- phase 13: the synthetic corpus on the card, the quality run (cut), export_torch, the A22 knobs
+    syn_phase = synthetic_and_export(dev)
+    print(f"synthetic corpus, quality run and export on {smi}: " + json.dumps(syn_phase))
+    torch.cuda.empty_cache()
+
     # ---- phase 11: timings (serving as in its first measurement: cuDNN deterministic)
     torch.backends.cudnn.deterministic = True
     torch.cuda.reset_peak_memory_stats()
@@ -2971,6 +3267,10 @@ def main():
         "mesh": f"{mesh_out['ranks']} ranks over {mesh_out['backend']}"})
     kernels[3]["launches"] += mesh_out["gan_full_width"]["launches"]["fused_adam"]
     kernels[3]["mesh_launches"] = mesh_out["gan_full_width"]["launches"]["fused_adam"]
+    for i, k in ((0, "infused_noise"), (3, "fused_adam")):  # the quality run's epochs, wganvae and wgan
+        runs = {t: syn_phase["quality_run"][t]["launches"][k] for t in ("wganvae", "wgan")}
+        kernels[i]["launches"] += sum(runs.values())
+        kernels[i]["quality_run_launches"] = runs
     del w_bf16
 
     g_flops, v_flops = generator_flops(gan_cfg, BATCH), vae_encode_flops(vae_cfg, BATCH)
@@ -3028,6 +3328,7 @@ def main():
                "training": training, "fused_adam_by_model": k3, "vae_training": vae_train,
                "vae_small_vs_cpu": vae_small, "data_fid_checkpoints": data_phase,
                "attention_gans": sn_phase, "resnet_family": resnet_phase, "mesh": mesh_out,
+               "synthetic_and_export": syn_phase,
                "k4_check": k4_errs, "k4_bytes": k4_bytes, "quantized_head_path": quantized,
                "serving_variants_vs_cpu": variants, "serving_options_b128": serving_options,
                "total_s": time.perf_counter() - t_start}

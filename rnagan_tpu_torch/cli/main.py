@@ -6,8 +6,7 @@
 Device-taking commands read ``--device`` (default ``cuda``) where the JAX
 ones read ``--platform``; ``metrics`` and ``tile`` run on the host and take
 neither. ``metrics`` joins the table, which the JAX dispatcher leaves to
-``python -m rnagan_tpu.cli.metrics``. ``export-torch`` is not ported yet: it
-exits with code 2 and names its ROADMAP item.
+``python -m rnagan_tpu.cli.metrics``.
 """
 
 from __future__ import annotations
@@ -27,27 +26,20 @@ COMMANDS = {
     "ml-experiment": ("rnagan_tpu_torch.cli.ml_experiment", "downstream classification (ml_experiments.py)"),
     "tile": ("rnagan_tpu_torch.cli.tile", "WSI preprocessing (patch_gen_grid.py)"),
     "metrics": ("rnagan_tpu_torch.cli.metrics", "MetricsLogger JSONL viewer"),
-    "export-torch": (None, "GAN checkpoint <-> torchgan .model conversion"),
+    "export-torch": ("rnagan_tpu_torch.cli.export_torch", "GAN checkpoint <-> torchgan .model conversion"),
 }
-
-#: commands of the JAX dispatcher the port does not have yet, by ROADMAP item
-NOT_PORTED = {"export-torch": "A16 (export_torch: the port-state -> flax-tree converters)"}
 
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if not argv or argv[0] in ("-h", "--help"):
         print("usage: rnagan <command> [args]\n\ncommands:")
-        for name, (module, desc) in COMMANDS.items():
-            print(f"  {name:16s} {desc}{'' if module else '  (not ported yet)'}")
+        for name, (_, desc) in COMMANDS.items():
+            print(f"  {name:16s} {desc}")
         return 0
     cmd = argv[0]
     if cmd not in COMMANDS:
         print(f"unknown command: {cmd}")
-        return 2
-    if cmd in NOT_PORTED:
-        print(f"{cmd} is not ported yet: ROADMAP {NOT_PORTED[cmd]}; "
-              f"run python -m rnagan_tpu.cli.main {cmd}", file=sys.stderr)
         return 2
     # a command's main returns its results for programmatic use; the exit
     # code stays 0 unless it raises, as the JAX dispatcher's

@@ -33,7 +33,9 @@ Adam moments (optax ``mu``/``nu`` trees) move by the same layout transforms,
 in the order of the port's ``parameters()``, which is torchgan's. A JAX
 ``VAETrainState`` moves both ways in flax's state-dict form
 (``serialization.to_state_dict``): params, ``batch_stats`` and the optax
-chain of ``make_optimizer``.
+chain of ``make_optimizer``. The GAN's nets move back too
+(``generator_state_dict_to_jax``, ``discriminator_state_dict_to_jax``,
+``sn_state_to_jax``; ``GANTrainer.state_to_jax`` builds the whole state).
 
 The loaders read:
 
@@ -72,6 +74,13 @@ def _put_bn(sd: StateDict, prefix: str, params, stats) -> None:
     sd[prefix + ".num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
 
 
+def _bn_to_jax(sd: StateDict, prefix: str):
+    """The inverse of :func:`_put_bn`: ``({"scale", "bias"}, {"mean", "var"})``."""
+    vec = _FROM_TORCH["vec"]
+    return ({"scale": vec(sd[prefix + ".weight"]), "bias": vec(sd[prefix + ".bias"])},
+            {"mean": vec(sd[prefix + ".running_mean"]), "var": vec(sd[prefix + ".running_var"])})
+
+
 def betavae_state_dict_from_jax(cfg: VAEModelConfig, variables: Dict[str, Any]) -> StateDict:
     """JAX ``{'params', 'batch_stats'}`` of ``BetaVAE`` -> the port's (and the
     reference's) torch state_dict."""
@@ -89,6 +98,12 @@ def betavae_state_dict_from_jax(cfg: VAEModelConfig, variables: Dict[str, Any]) 
 def convt_kernel_to_torch(k) -> torch.Tensor:
     """flax ConvTranspose HWIO -> torch ConvTranspose2d (in, out, kH, kW), flipped."""
     return _t(np.asarray(k)[::-1, ::-1].transpose(2, 3, 0, 1))
+
+
+def convt_kernel_from_torch(w) -> np.ndarray:
+    """The inverse of :func:`convt_kernel_to_torch`: (in, out, kH, kW) ->
+    HWIO, both spatial axes flipped back."""
+    return np.ascontiguousarray(_f32(w).transpose(2, 3, 0, 1)[::-1, ::-1])
 
 
 #: architectures whose nets keep the flax names (``models/sagan.py``, ``models/biggan.py``)
@@ -156,6 +171,11 @@ def conv_kernel_to_torch(k) -> torch.Tensor:
     return _t(np.asarray(k).transpose(3, 2, 0, 1))
 
 
+def conv_kernel_from_torch(w) -> np.ndarray:
+    """The inverse of :func:`conv_kernel_to_torch`: OIHW -> HWIO."""
+    return np.ascontiguousarray(_f32(w).transpose(2, 3, 1, 0))
+
+
 def discriminator_state_dict_from_jax(cfg: GANModelConfig, params: Dict[str, Any],
                                       stats: Dict[str, Any]) -> StateDict:
     """JAX ``DCGANDiscriminator`` params/batch_stats -> torchgan ``model.<b>.0|1``
@@ -182,13 +202,82 @@ def discriminator_state_dict_from_jax(cfg: GANModelConfig, params: Dict[str, Any
     return sd
 
 
+def _set(tree: Dict[str, Any], path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
+
+
+def sn_state_to_jax(cfg: GANModelConfig, net: str, sd: StateDict):
+    """The inverse of :func:`sn_state_dict_from_jax`: a SAGAN or BigGAN
+    ``net``'s state_dict -> ``(params, batch_stats)`` numpy trees in the flax
+    layout, spectral norm's ``u``/``sigma`` included (``num_batches_tracked``,
+    which flax does not keep, is dropped)."""
+    from rnagan_tpu_torch.models.sagan import flax_source
+
+    module = _layout(cfg, net)
+    trees: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for key in module.state_dict():
+        col, path, kind = flax_source(module, key)
+        if kind != "count":
+            _set(trees[col], path, _FROM_TORCH[kind](sd[key]))
+    return trees["params"], trees["batch_stats"]
+
+
+def generator_state_dict_to_jax(cfg: GANModelConfig, sd: StateDict):
+    """The inverse of :func:`generator_state_dict_from_jax`: ``(params,
+    batch_stats)`` numpy trees (``sagan``/``biggan``: :func:`sn_state_to_jax`)."""
+    if cfg.arch in SN_ARCHS:
+        return sn_state_to_jax(cfg, "generator", sd)
+    if cfg.arch not in ("dcgan", "condgan", "dcgan_up"):
+        raise ValueError(f"unknown gan arch {cfg.arch!r}")
+    r = num_repeats(cfg.out_size)
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for b in range(r + 2):
+        w = sd[f"model.{b}.0.weight"]
+        if cfg.arch == "dcgan_up" and b > 0:
+            name, leaf = f"Conv_{b - 1}", {"kernel": conv_kernel_from_torch(w)}
+        else:
+            name, leaf = f"ConvTranspose_{b}", {"kernel": convt_kernel_from_torch(w)}
+        if f"model.{b}.0.bias" in sd:
+            leaf["bias"] = _FROM_TORCH["vec"](sd[f"model.{b}.0.bias"])
+        params[name] = leaf
+        if cfg.batchnorm and b <= r:
+            bp, bs = _bn_to_jax(sd, f"model.{b}.1")
+            params[f"_BN_{b}"], stats[f"_BN_{b}"] = {"BatchNorm_0": bp}, {"BatchNorm_0": bs}
+    return params, stats
+
+
+def discriminator_state_dict_to_jax(cfg: GANModelConfig, sd: StateDict):
+    """The inverse of :func:`discriminator_state_dict_from_jax`: ``(params,
+    batch_stats)`` numpy trees (``sagan``/``biggan``: :func:`sn_state_to_jax`)."""
+    if cfg.arch in SN_ARCHS:
+        return sn_state_to_jax(cfg, "discriminator", sd)
+    if cfg.arch not in ("dcgan", "dcgan_up", "condgan"):
+        raise ValueError(f"unknown gan arch {cfg.arch!r}")
+    r = num_repeats(cfg.out_size)
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for b in range(r + 2):
+        leaf = {"kernel": conv_kernel_from_torch(sd[f"model.{b}.0.weight"])}
+        if f"model.{b}.0.bias" in sd:
+            leaf["bias"] = _FROM_TORCH["vec"](sd[f"model.{b}.0.bias"])
+        params[f"Conv_{b}"] = leaf
+        if cfg.batchnorm and 1 <= b <= r:
+            bp, bs = _bn_to_jax(sd, f"model.{b}.1")
+            params[f"_BN_{b - 1}"], stats[f"_BN_{b - 1}"] = {"BatchNorm_0": bp}, {"BatchNorm_0": bs}
+    if cfg.critic == "projection":
+        params["cond_proj"] = {"kernel": _FROM_TORCH["dense"](sd["cond_proj.weight"])}
+    return params, stats
+
+
 # ------------------------------------------------- parameter lists, moments
 
 _TO_TORCH = {"convt": convt_kernel_to_torch, "conv": conv_kernel_to_torch,
              "dense": lambda a: _t(np.asarray(a).T), "vec": _t}
-_FROM_TORCH = {"convt": lambda a: a.transpose(2, 3, 0, 1)[::-1, ::-1],
-               "conv": lambda a: a.transpose(2, 3, 1, 0), "dense": lambda a: a.T,
-               "vec": lambda a: a}
+_FROM_TORCH = {"convt": convt_kernel_from_torch, "conv": conv_kernel_from_torch,
+               "dense": lambda a: np.ascontiguousarray(_f32(a).T), "vec": lambda a: _f32(a).copy()}
 
 
 def param_paths(cfg: GANModelConfig, net: str):
@@ -254,7 +343,7 @@ def param_list_to_jax(cfg: GANModelConfig, net: str, tensors) -> Dict[str, Any]:
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(_FROM_TORCH[kind](t.detach().float().cpu().numpy()))
+        node[path[-1]] = _FROM_TORCH[kind](t)
     return tree
 
 
@@ -310,7 +399,7 @@ def vae_param_list_to_jax(cfg: VAEModelConfig, tensors) -> Dict[str, Any]:
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = np.ascontiguousarray(_FROM_TORCH[kind](t.detach().float().cpu().numpy()))
+        node[path[-1]] = _FROM_TORCH[kind](t)
     return tree
 
 

@@ -132,6 +132,11 @@ def _copy_stats(stats: Stats) -> Stats:
     return [(m.detach().clone(), v.detach().clone()) for m, v in stats]
 
 
+def _map_leaves(fn, tree):
+    """``fn`` over the leaves of a tree of dicts."""
+    return {k: _map_leaves(fn, v) for k, v in tree.items()} if isinstance(tree, dict) else fn(tree)
+
+
 class GANTrainer:
     """RNA-GAN training on one card, or data-parallel over the ranks of a
     ``mesh`` (default ``make_mesh(cfg.mesh, device)``: the one-card mesh
@@ -474,6 +479,36 @@ class GANTrainer:
             self.z_pop = tuple(torch.as_tensor(np.array(tree["z_pop"][k], np.float32)).to(self.device)
                                for k in ("mean", "std"))
         return state
+
+    def state_to_jax(self, state: GANTrainState) -> Dict[str, Any]:
+        """The inverse of :meth:`state_from_jax`: the trees the JAX
+        ``GANTrainer.save_model`` bundles (``rnagan_tpu/train/gan_trainer.py:448-463``),
+        numpy leaves in the flax layout, ``mu`` in this trainer's
+        ``adam_mu_dtype`` (a bfloat16 ``mu`` as ``torch.bfloat16`` CPU tensors,
+        which ``core/checkpoint.py::save_bundle`` writes as flax does), counts
+        and the step int32; ``g_ema`` when the EMA is on and ``z_pop`` when set.
+        ``core/checkpoint.py::save_bundle(path, trainer.state_to_jax(state))``
+        writes a bundle the JAX ``load_model`` reads."""
+        m = self.cfg.model
+        trees: Dict[str, Any] = {}
+        for key, net, module, stats, opt in (
+                ("g", "generator", state.generator, state.g_stats, state.g_opt),
+                ("d", "discriminator", state.discriminator, state.d_stats, state.d_opt)):
+            to_jax = convert.generator_state_dict_to_jax if key == "g" else convert.discriminator_state_dict_to_jax
+            params, stats_tree = to_jax(m, self._state_dict(module, stats))
+            mu, nu = convert.adam_moments_to_jax(m, net, opt.mu, opt.nu)
+            if self._mu_dtype == torch.bfloat16:  # exact: the float32 values came from bfloat16
+                mu = _map_leaves(lambda a: torch.from_numpy(a).to(torch.bfloat16), mu)
+            trees.update({f"{key}_params": params, f"{key}_stats": stats_tree,
+                          f"{key}_opt": {"0": {"count": np.asarray(opt.count, np.int32), "mu": mu, "nu": nu},
+                                         "1": {}}})
+        trees["step"] = np.asarray(state.step, np.int32)
+        if state.g_ema is not None:
+            trees["g_ema"] = convert.param_list_to_jax(m, "generator", state.g_ema)
+        if self.z_pop is not None:
+            trees["z_pop"] = {k: t.detach().cpu().numpy().astype(np.float32)
+                              for k, t in zip(("mean", "std"), self.z_pop)}
+        return trees
 
     # ------------------------------------------------------------------- fit
     def _sync(self) -> None:

@@ -11,9 +11,9 @@
 * ``metrics``: prints what the JAX viewer prints.
 * ``representation``, ``generate`` and ``fid`` take ``--gan_type sagan`` /
   ``biggan`` bundles.
-* ``main`` dispatches, and refuses the command not ported yet
-  (``export-torch``) with code 2; ``ml-experiment`` runs
-  (``test_torch_port_resnet.py``).
+* ``main`` dispatches every command of the JAX table; ``ml-experiment`` runs
+  (``test_torch_port_resnet.py``), ``export-torch`` too
+  (``test_torch_port_export.py``).
 
 The CSVs hold integer counts: pandas' float parser and Python's ``float()``
 can differ by an ulp on other values.
@@ -305,8 +305,9 @@ def test_main_dispatches(ws, capsys, tmp_path):
     assert all(name in listed for name in jmain.COMMANDS)
     assert set(main.COMMANDS) == set(jmain.COMMANDS) | {"metrics"}  # the JAX table, and metrics
     assert main.main(["nope"]) == 2
-    assert main.main(["export-torch", "--help"]) == 2
-    assert "A16" in capsys.readouterr().err
+    with pytest.raises(SystemExit) as exit_:  # export-torch is ported: argparse prints its help
+        main.main(["export-torch", "--help"])
+    assert exit_.value.code == 0 and "--to_native" in capsys.readouterr().out
     with pytest.raises(SystemExit) as exit_:  # ml-experiment is ported: argparse prints its help
         main.main(["ml-experiment", "--help"])
     assert exit_.value.code == 0 and "--backbone_weights" in capsys.readouterr().out

@@ -46,9 +46,10 @@ for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas", "rnagan_tpu"
 """ + _IMPORT_ALL
 
 #: subpackages of the port and modules of each that must be among the imported
-SUBPACKAGES = {"core": ("checkpoint", "msgpack"), "data": ("rna", "store", "tiles", "patches", "tiler"),
+SUBPACKAGES = {"core": ("checkpoint", "msgpack"),
+               "data": ("rna", "store", "tiles", "patches", "tiler", "synthetic"),
                "cli": ("betavae_train", "gan_train", "generate", "fid", "sample", "interpolate",
-                       "representation", "metrics", "tile", "main", "ml_experiment"),
+                       "representation", "metrics", "tile", "main", "ml_experiment", "export_torch"),
                "eval": ("interpolate", "fid", "representation"), "losses": ("vae",),
                "models": ("betavae", "inception", "sagan", "biggan", "resnet", "fusion"),
                "optim": ("scheduled", "adam"),
@@ -86,6 +87,33 @@ def test_port_imports_with_forbidden_packages_blocked():
     """Every module of the port imports with jax, flax, optax, msgpack,
     pandas and rnagan_tpu made unimportable (``sys.modules[name] = None``)."""
     _import_all(_IMPORT_ALL_BLOCKED)
+
+
+#: the port's quality-run tool, imported with the forbidden packages blocked:
+#: it imports the port, numpy and the standard library only
+_IMPORT_TOOL_BLOCKED = """
+import importlib.util, sys
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas", "rnagan_tpu"):
+    sys.modules[name] = None
+spec = importlib.util.spec_from_file_location("quality_run_torch", "tools/quality_run_torch.py")
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+args = tool.parse_args(["--smoke", "--device", "cpu"])
+import rnagan_tpu_torch.cli.export_torch, rnagan_tpu_torch.data.synthetic
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas", "rnagan_tpu"))
+assert not bad, bad
+print(args.size, args.genes)
+"""
+
+
+def test_quality_tool_imports_no_jax():
+    """``tools/quality_run_torch.py`` imports (and parses its flags) with
+    jax, flax, optax, msgpack, pandas and rnagan_tpu unimportable."""
+    res = subprocess.run([sys.executable, "-c", _IMPORT_TOOL_BLOCKED], cwd=REPO, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.split() == ["32", "64"]
 
 
 def test_port_imports_without_pil_or_h5py():
@@ -135,18 +163,27 @@ def test_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("entry", ["inception_extractor", "gan_train", "fid", "sample", "interpolate",
-                                   "representation", "main_gan_train", "sagan_trainer", "biggan_trainer"])
+                                   "representation", "main_gan_train", "sagan_trainer", "biggan_trainer",
+                                   "synthetic_corpus", "export_torch", "main_export_torch", "quality_run_torch"])
 def test_data_and_fid_entry_points_default_to_cuda(entry):
-    """The Inception extractor, the SAGAN and BigGAN trainers and the CLIs
-    that take ``--device`` resolve the device first: with no card they raise
-    unless given the CPU, before any data is read (``metrics`` and ``tile``
-    run on the host and take no device)."""
+    """The Inception extractor, the SAGAN and BigGAN trainers, the synthetic
+    corpus, the CLIs that take ``--device`` and the quality-run tool resolve
+    the device first: with no card they raise unless given the CPU, before
+    any data is read (``metrics`` and ``tile`` run on the host and take no
+    device)."""
     if torch.cuda.is_available():
         pytest.skip("the card is present: the CUDA default does not raise here")
     import dataclasses
 
-    from rnagan_tpu_torch.cli import fid, gan_train, interpolate, main, representation, sample
+    import importlib.util
+
+    from rnagan_tpu_torch.cli import export_torch, fid, gan_train, interpolate, main, representation, sample
+    from rnagan_tpu_torch.data.synthetic import SyntheticCorpus
     from rnagan_tpu_torch.eval.fid import InceptionExtractor
+
+    spec = importlib.util.spec_from_file_location("quality_run_torch", REPO / "tools" / "quality_run_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
 
     config = str(REPO / "configs" / "gan_run_lung.json")
     vae = str(REPO / "configs" / "betavae_tissues.json")
@@ -164,7 +201,13 @@ def test_data_and_fid_entry_points_default_to_cuda(entry):
             "representation": lambda: representation.main(["--config", config, "--checkpoint", "a.model",
                                                             "--checkpoint2", "b.model", "--vae", "v.pt"]),
             "main_gan_train": lambda: main.main(["gan-train", "--config", config, "--gan_type", "biggan"]),
-            "sagan_trainer": trainer("sagan"), "biggan_trainer": trainer("biggan")}[entry]
+            "sagan_trainer": trainer("sagan"), "biggan_trainer": trainer("biggan"),
+            "synthetic_corpus": lambda: SyntheticCorpus(n_slides=2, tiles_per_slide=2, n_genes=8, size=16),
+            "export_torch": lambda: export_torch.main(["--config", config, "--checkpoint", "a.model",
+                                                       "--out", "b.model"]),
+            "main_export_torch": lambda: main.main(["export-torch", "--config", config, "--checkpoint", "a.model",
+                                                    "--out", "b.msgpack", "--to_native"]),
+            "quality_run_torch": lambda: tool.main(["--smoke"])}[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
 

@@ -395,7 +395,7 @@ def test_cli_matches_jax_cli(tmp_path, monkeypatch):
     assert sorted(got) == sorted(ref) and got["classes"] == list(ref["classes"]) == ["LUAD", "GBM"]
     assert got["folds"] == ref["folds"]
     assert got["mean_accuracy"] == ref["mean_accuracy"] and got["mean_weighted_f1"] == ref["mean_weighted_f1"]
-    assert "ml-experiment" not in tmain.NOT_PORTED
+    assert tmain.COMMANDS["ml-experiment"][0] == "rnagan_tpu_torch.cli.ml_experiment"
 
 
 @pytest.mark.parametrize("max_tiles", [3, 5])
