@@ -134,7 +134,25 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    unchanged; the quality run's knobs (``compat_reference_gp``,
    ``n_critic=2`` over two steps, the EMA, the projection critic,
    ``dcgan_up`` and ``condgan`` at 64x64) as small steps on the card
-   against the CPU (``train_small_matches_cpu``).
+   against the CPU (``train_small_matches_cpu``);
+14. the experiment tools (run after 13): ``tools/representation_run_torch.py``,
+   ``conditioning_panel_torch.py``, ``ml_experiment_run_torch.py``,
+   ``make_lmdb_corpus_torch.py`` and ``data_plane_run_torch.py`` through their
+   ``main``, in-process, at full width (the beta-VAE's widths in bfloat16,
+   ``dcgan`` at 256x256, float32 InceptionV3, ResNet50 at 224x224 in
+   bfloat16) with only counts cut: a workdir of the VAE and three GAN
+   bundles (init states, G redrawn at O(1) activations); the representation
+   run (4 patients x 16 tiles, projection critic), ``--ceiling_only`` and the
+   panel (4 patients x 5 columns, both arms), K1 counted exactly (one launch
+   a generation call), statistics finite, the z delta above 0, the ``.npy``
+   shapes and the panel's size; the ML CV (16 slides, 8 + 4 tiles a slide, 2
+   folds x 1 epoch, batch 64), its three arms, K1 once a chunk of 64 and K3
+   once a classifier step; the LMDB corpus (4 slides x 64 tiles, a store
+   read back bit-equal to the render) and the data-plane run (batch 32, 8
+   resident steps, the overlap A/B of 4 steps, one streamed epoch), K1 and
+   K3 twice a GAN step and K3 once a VAE step; the render, generation and
+   float32 Inception rates of those runs timed alone. ``demo_e2e_torch`` stays a
+   CPU test (``tests/test_torch_port_demo.py``): the card's machine has no PIL.
 
 It prints a details line, the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -2799,15 +2817,15 @@ A22_CASES = (("dcgan", {"compat_reference_gp": True}, {}, 1),
              ("condgan", {}, {"out_size": 64}, 1))
 
 
-def quality_tool():
-    """``tools/quality_run_torch.py``, imported from the checkout."""
-    import importlib.util
+def tool(name):
+    """``tools/<name>.py``, imported from the checkout (the tools import one
+    another by name, so their directory goes on the path)."""
+    import importlib
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "quality_run_torch.py")
-    spec = importlib.util.spec_from_file_location("quality_run_torch", path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+    return importlib.import_module(name)
 
 
 def render_card_vs_cpu(dev):
@@ -2883,7 +2901,7 @@ def quality_run_cut(dev, tmp, render_ms):
     from rnagan_tpu_torch.kernels.infusion import infused_noise
     from rnagan_tpu_torch.train.gan_trainer import GANTrainer
 
-    q = quality_tool()
+    q = tool("quality_run_torch")
 
     def args_for(loss_type):
         return q.parse_args(["--loss_type", loss_type, "--slides", str(SYN_SLIDES), "--tiles_per_slide",
@@ -3027,6 +3045,274 @@ def synthetic_and_export(dev):
         " ".join(str(p) for p in (arch, ck or "", mk or "") if p): train_small_matches_cpu(
             dev, None, arch, cfg_kw=ck, steps=steps, **mk) for arch, ck, mk, steps in A22_CASES}
     out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# ------------------------------------------------- phase 14: the experiment tools
+
+#: phase 14's corpus flags: phase 13's corpus (16 slides x 64 tiles, 19,198
+#: genes, 256x256), cut from the tools' 200 (100) slides x 600 (300) tiles
+TOOL_CORPUS = ["--slides", "16", "--tiles_per_slide", "64", "--genes", "19198", "--size", "256"]
+#: A26: patients and tiles a patient (of 50 x 64), the panel's patients and noise columns (6 x 5)
+REP_PATIENTS, REP_TILES, PANEL_PATIENTS, PANEL_COLS = 4, 16, 4, 5
+#: A27: the CV's cut (of 25 + 10 tiles a slide, 5 folds x 40 epochs at batch 64)
+ML_ARGS = ["--tiles_per_slide_cls", "8", "--test_tiles_per_slide", "4", "--folds", "2", "--epochs", "1",
+           "--batch", "64"]
+#: A28: the LMDB corpus (of 200 slides x 600 tiles) and the data-plane run's cut
+LMDB_ARGS = ["--slides", "4", "--tiles_per_slide", "64", "--genes", "19198", "--size", "256", "--batch", "64"]
+DATA_PLANE_ARGS = ["--epochs", "1", "--batch", "32", "--max_patches_total", "64", "--vae_epochs", "2",
+                   "--host_probe_batches", "8", "--resident_steps", "8", "--overlap_ab", "4"]
+
+
+def flag(argv, name):
+    return int(argv[argv.index(name) + 1])
+
+
+class Launches:
+    """K1's and K3's launch counters set to 0 on entry and read on exit."""
+
+    def __enter__(self):
+        from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+        from rnagan_tpu_torch.kernels.infusion import infused_noise
+
+        self._k = {"infused_noise": infused_noise, "fused_adam": fused_adam}
+        torch.cuda.synchronize()
+        for k in self._k.values():
+            k.launches = 0
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        self.wall_s = time.perf_counter() - self.t0
+        self.counts = {name: k.launches for name, k in self._k.items()}
+
+
+def tools_workdir(dev, tmp, gen):
+    """What a quality run leaves in its workdir, at full width: the beta-VAE
+    (``VAEModelConfig()`` widths, bfloat16) as ``vae_pretrain.pt`` and the
+    ``wganvae_proj``, ``wganvae`` and ``wgan`` bundles of ``GANModelConfig()``
+    through ``GANTrainer.save_model``, from init states whose generators
+    are redrawn at O(1) activations (``randomize``: DCGAN's init gives
+    tiles of one grey level, which no patient's z could move)."""
+    from rnagan_tpu_torch.core.checkpoint import save_state_dict
+    from rnagan_tpu_torch.models.betavae import BetaVAE
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+
+    rep = tool("representation_run_torch")
+    args = rep.parse_args(TOOL_CORPUS)
+    vae_cfg = tool("quality_run_torch").vae_model_config(args)
+    vae_sd = BetaVAE(vae_cfg, seed=SEED + 14, device=dev).state_dict()
+    t0 = time.perf_counter()
+    save_state_dict(os.path.join(tmp, "vae_pretrain.pt"), vae_sd)
+    for name, critic in (("wganvae_proj", "projection"), ("wganvae", "unconditional"), ("wgan", None)):
+        rna_cfg, gan_cfg = rep.gan_configs(args, vae_cfg, critic or "unconditional")
+        tr = GANTrainer(rna_cfg if critic else gan_cfg, vae_sd if critic else None, device=dev)
+        state = tr.init_state()
+        randomize(state.generator, gen)
+        state.g_stats = [(m.clone(), v.clone()) for m, v in state.generator.bn_stats()]
+        tr.save_model(state, os.path.join(tmp, f"{name}_last.model"))
+        del tr, state
+    torch.cuda.synchronize()
+    sizes = {f: os.path.getsize(os.path.join(tmp, f)) / 2**20 for f in sorted(os.listdir(tmp))}
+    return {"write_s": time.perf_counter() - t0, "mib": sizes}
+
+
+def conditioning_proof(dev, tmp):
+    """A26: ``representation_run_torch.main`` (the projection arm), then
+    ``--ceiling_only``, then ``conditioning_panel_torch.main`` for both arms,
+    K1 counted around each: one launch per RNA-GAN generation call (the
+    patients of both condition modes, the z-sensitivity's patients and its
+    rerun, the panel's rows)."""
+    rep, panel = tool("representation_run_torch"), tool("conditioning_panel_torch")
+    out_dir = os.path.join(tmp, "reps")
+    argv = [*TOOL_CORPUS, "--workdir", tmp, "--out", out_dir, "--patients", str(REP_PATIENTS),
+            "--tiles_per_patient", str(REP_TILES), "--rna_name", "wganvae_proj", "--critic", "projection",
+            "--device", str(dev)]
+    z_calls = min(8, REP_PATIENTS) + 1
+    out = {}
+    with Launches() as full:
+        result = rep.main(argv)
+    with Launches() as ceiling:
+        again = rep.main([*argv, "--ceiling_only"])
+    with Launches() as panels:
+        paths = panel.main([*TOOL_CORPUS, "--workdir", tmp, "--out", os.path.join(tmp, "grids"), "--patients",
+                            str(PANEL_PATIENTS), "--noise_cols", str(PANEL_COLS), "--device", str(dev)])
+    want = {"representation": 2 * REP_PATIENTS + z_calls, "ceiling_only": z_calls, "panel": 2 * PANEL_PATIENTS}
+    got = {"representation": full.counts, "ceiling_only": ceiling.counts, "panel": panels.counts}
+    for name, n in want.items():
+        check(got[name] == {"infused_noise": n, "fused_adam": 0}, f"A26 {name}: launches {got[name]}, K1 {n} wanted")
+    for res in (result, again):
+        values = [v for key in ("rnagan_population", "rnagan_reference_mode", "gan_control", "real_vs_real_ceiling",
+                                "z_sensitivity") for v in res[key].values()]
+        check(all(math.isfinite(v) for v in values), f"A26: a statistic is not finite: {res}")
+    zs = result["z_sensitivity"]
+    check(zs["cross_patient_pixel_delta_same_noise"] > 0 and math.isfinite(zs["ratio"]),
+          f"A26: the patient's z does not reach the tiles: {zs}")
+    import numpy as np
+
+    for sub in ("", "reference_mode"):
+        for source in ("real", "rnagan", "gan"):
+            shape = np.load(os.path.join(out_dir, sub, f"representations_{source}.npy")).shape
+            check(shape == (REP_PATIENTS, 2048), f"A26 representations_{source}.npy {sub}: {shape}")
+    side = flag(TOOL_CORPUS, "--size") + 2  # a tile and the grid's padding
+    for path in paths.values():
+        with open(path, "rb") as f:
+            head = f.read(24)  # the PNG's IHDR: width, height
+        size = (int.from_bytes(head[16:20], "big"), int.from_bytes(head[20:24], "big"))
+        check(size == ((PANEL_COLS + 1) * side + 2, PANEL_PATIENTS * side + 2), f"A26 panel {path}: {size}")
+    out.update(launches={k: v["infused_noise"] for k, v in got.items()},
+               wall_s={"representation": full.wall_s, "ceiling_only": ceiling.wall_s, "panel": panels.wall_s},
+               stats={k: result[k] for k in ("rnagan_population", "rnagan_reference_mode", "gan_control",
+                                             "real_vs_real_ceiling", "z_sensitivity")})
+    print(f"phase 14 A26: {json.dumps(out)}")
+    return out
+
+
+def ml_cut(dev, tmp):
+    """A27: ``ml_experiment_run_torch.main`` on the ``wganvae`` bundle:
+    ``real``, ``rnagan_synthetic`` and ``mixed``, none skipped; K1 once a
+    generation chunk of 64, K3 once a classifier step (``fit_resident``: an
+    epoch's ``max(n // batch, 1)`` steps a fold)."""
+    import numpy as np
+
+    from rnagan_tpu_torch.core.config import MLConfig
+    from rnagan_tpu_torch.data.synthetic import SyntheticCorpus
+    from rnagan_tpu_torch.train.ml_experiment import stratified_folds
+
+    ml = tool("ml_experiment_run_torch")
+    argv = [*TOOL_CORPUS, *ML_ARGS, "--workdir", tmp, "--out", os.path.join(tmp, "ml.json"),
+            "--ckpt_name", "wganvae", "--device", str(dev)]
+    args = ml.parse_args(argv)
+    tissue = SyntheticCorpus(args.slides, args.tiles_per_slide, 8, 16, seed=args.corpus_seed,
+                             device=dev).slides.tissue.cpu().numpy()
+    check(set(tissue.tolist()) == {0, 1}, f"A27: the {args.slides} slides hold one tissue: {tissue}")
+    labels = tissue[np.repeat(np.arange(args.slides), args.tiles_per_slide_cls)]
+    steps = 0
+    for arm_labels in (labels, labels, np.concatenate([labels, labels])):
+        for tr, _ in stratified_folds(arm_labels, args.folds, MLConfig().seed):
+            steps += args.epochs * max(len(tr) // args.batch, 1)
+    with Launches() as run:
+        result = ml.main(argv)
+    want = {"infused_noise": math.ceil(len(labels) / 64), "fused_adam": steps}
+    check(run.counts == want, f"A27: launches {run.counts}, expected {want}")
+    check(all(k in result for k in ("real", "rnagan_synthetic", "mixed"))
+          and not any(k.endswith("_skipped") for k in result), f"A27: arms {sorted(result)}")
+    for arm in ("real", "rnagan_synthetic", "mixed"):
+        accs = [f[k] for f in result[arm]["folds"] for k in ("accuracy", "weighted_f1")]
+        accs += [f["test"][k] for f in result[arm]["folds"] for k in ("accuracy", "weighted_f1")]
+        check(all(0.0 <= a <= 1.0 for a in accs), f"A27 {arm}: {result[arm]}")
+    out = {"launches": run.counts, "wall_s": run.wall_s,
+           **{arm: {k: v for k, v in result[arm].items() if k.startswith("mean")}
+              for arm in ("real", "rnagan_synthetic", "mixed")},
+           "fold_wall_s": {arm: [f["wall_s"] for f in result[arm]["folds"]]
+                           for arm in ("real", "rnagan_synthetic", "mixed")}}
+    print(f"phase 14 A27: {json.dumps(out)}")
+    return out
+
+
+def tool_rates(dev, tmp):
+    """The tools' device work at full width timed alone (host clock around
+    synchronized calls, after a warm call): A27's render of its real pool to
+    224x224 uint8, its generation of the synthetic pool (VAE encode, K1, G in
+    eval mode, the resize, chunks of 64) and A26's float32 InceptionV3 on a
+    batch of 64 rendered tiles."""
+    import numpy as np
+
+    ml, rep = tool("ml_experiment_run_torch"), tool("representation_run_torch")
+    q = tool("quality_run_torch")
+    args = ml.parse_args([*TOOL_CORPUS, *ML_ARGS, "--workdir", tmp, "--ckpt_name", "wganvae", "--device", str(dev)])
+    corpus = q.build_corpus(args, dev)
+    expr_norm, _ = q.normalized_expression(corpus)
+    ids = np.repeat(np.arange(args.slides), args.tiles_per_slide_cls)
+    tiles = np.tile(np.arange(args.tiles_per_slide_cls), args.slides)
+    trainer, state, _ = ml.load_generator(args, dev)
+    extractor = rep.make_extractor(rep.parse_args(TOOL_CORPUS), dev)
+    images01 = (corpus.render(ids[:64], tiles[:64]) + 1.0) * 0.5
+
+    def per_s(fn, n, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return n * reps / (time.perf_counter() - t0)
+
+    out = {"render_tiles_per_s": per_s(lambda: ml.render_set_u8(corpus, ids, tiles, args.image_size), len(ids)),
+           "generate_tiles_per_s": per_s(
+               lambda: ml.generate_set_u8(trainer, state, expr_norm, ids, args.image_size), len(ids)),
+           "inception_f32_images_per_s": per_s(lambda: extractor(images01, 64), 64),
+           "tiles": len(ids), "image_size": args.image_size}
+    print(f"phase 14 rates: {json.dumps(out)}")
+    return out
+
+
+def lmdb_data_plane(dev, tmp):
+    """A28: ``make_lmdb_corpus_torch.main`` (tiles/s; one store read back
+    equal to the render, bit for bit, after the BGR flip and back), then
+    ``data_plane_run_torch.main`` on it: the VAE pre-train (K3 once a
+    step), then every GAN step, resident and streamed, with K1 and K3 twice."""
+    import numpy as np
+
+    from rnagan_tpu_torch.data.store import LMDBTileStore
+    from rnagan_tpu_torch.data.synthetic import SyntheticCorpus
+
+    mk, dp = tool("make_lmdb_corpus_torch"), tool("data_plane_run_torch")
+    corpus_dir = os.path.join(tmp, "corpus")
+    with Launches() as write:
+        written = mk.main([*LMDB_ARGS, "--out", corpus_dir, "--device", str(dev)])
+    args = mk.parse_args(LMDB_ARGS)
+    check(write.counts == {"infused_noise": 0, "fused_adam": 0} and written["slides_written"] == args.slides,
+          f"A28 corpus: {written}, launches {write.counts}")
+    corpus = SyntheticCorpus(args.slides, args.tiles_per_slide, args.genes, args.size, device=dev)
+    rendered = corpus.render(np.zeros(args.tiles_per_slide, np.int64), np.arange(args.tiles_per_slide))
+    want = torch.clamp((rendered + 1.0) * 127.5 + 0.5, 0.0, 255.0).to(torch.uint8).cpu().numpy()
+    with LMDBTileStore(os.path.join(corpus_dir, "slide0000", "slide0000.db")) as st:
+        tiles, keys = st.load_tiles(st.keys())  # the reader swaps the stored BGR to RGB
+    check(len(keys) == args.tiles_per_slide and np.array_equal(tiles, want), "A28: slide 0 read back differs")
+    del corpus, rendered
+
+    argv = [*DATA_PLANE_ARGS, "--corpus", corpus_dir, "--out", os.path.join(tmp, "data_plane.json"),
+            "--device", str(dev)]
+    with Launches() as run:
+        result = dp.main(argv)
+    batches = result["meta"]["tiles"] // flag(argv, "--batch")
+    ab_steps = 2 * 3 * (1 + min(flag(argv, "--overlap_ab"), batches - 1))
+    gan_steps = 1 + flag(argv, "--resident_steps") + ab_steps + flag(argv, "--epochs") * batches
+    vae_steps = flag(argv, "--vae_epochs") * max(args.slides // min(64, args.slides), 1)
+    want = {"infused_noise": 2 * gan_steps, "fused_adam": 2 * gan_steps + vae_steps}
+    check(run.counts == want, f"A28: launches {run.counts}, expected {want}")
+    losses = [v for e in result["epochs"] for v in (e["d_loss"], e["g_loss"])]
+    check(losses and all(math.isfinite(v) for v in losses), f"A28: losses {result['epochs']}")
+    out = {"write": {"tiles_per_s": written["tiles_per_s"], "seconds": written["seconds"]},
+           "launches": run.counts, "gan_steps": gan_steps, "wall_s": {"corpus": write.wall_s, "data_plane": run.wall_s},
+           **{k: result.get(k) for k in ("host_pipeline_tiles_per_s", "host_ms_per_batch", "device_put_ms",
+                                         "resident_step_ms", "e2e_step_ms", "inflation_vs_resident",
+                                         "overlap_ab_ms", "epochs")}}
+    print(f"phase 14 A28: {json.dumps(out)}")
+    return out
+
+
+def experiment_tools(dev):
+    """Phase 14: the JAX repository's experiment tools, ported as
+    ``tools/*_torch.py``, run in-process at full width on the card with
+    only counts cut; their bundles (~5.5 GB) live in a temporary directory."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = False, False
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["workdir"] = tools_workdir(dev, tmp, torch.Generator(device=dev).manual_seed(SEED + 14))
+        out["a26"] = conditioning_proof(dev, tmp)
+        out["a27"] = ml_cut(dev, tmp)
+        out["rates"] = tool_rates(dev, tmp)
+        out["a28"] = lmdb_data_plane(dev, tmp)
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    out["wall_s"] = {"workdir": out["workdir"]["write_s"], **{f"a26_{k}": v for k, v in out["a26"]["wall_s"].items()},
+                     "a27": out["a27"]["wall_s"], **{f"a28_{k}": v for k, v in out["a28"]["wall_s"].items()}}
     return out
 
 
@@ -3174,6 +3460,10 @@ def main():
     print(f"synthetic corpus, quality run and export on {smi}: " + json.dumps(syn_phase))
     torch.cuda.empty_cache()
 
+    # ---- phase 14: the experiment tools (A26-A28) at full width, counts cut
+    tools_phase = experiment_tools(dev)
+    print(f"experiment tools on {smi}: wall s {json.dumps(tools_phase['wall_s'])}; phase {tools_phase['phase_s']:.1f} s")
+
     # ---- phase 11: timings (serving as in its first measurement: cuDNN deterministic)
     torch.backends.cudnn.deterministic = True
     torch.cuda.reset_peak_memory_stats()
@@ -3271,6 +3561,16 @@ def main():
         runs = {t: syn_phase["quality_run"][t]["launches"][k] for t in ("wganvae", "wgan")}
         kernels[i]["launches"] += sum(runs.values())
         kernels[i]["quality_run_launches"] = runs
+    # the experiment tools: A26's generation calls, A27's generation and
+    # classifier steps, A28's VAE pre-train and GAN steps
+    tool_runs = {"infused_noise": {**{f"a26_{k}": v for k, v in tools_phase["a26"]["launches"].items()},
+                                     "a27": tools_phase["a27"]["launches"]["infused_noise"],
+                                     "a28": tools_phase["a28"]["launches"]["infused_noise"]},
+                   "fused_adam": {"a27": tools_phase["a27"]["launches"]["fused_adam"],
+                                  "a28": tools_phase["a28"]["launches"]["fused_adam"]}}
+    for i, k in ((0, "infused_noise"), (3, "fused_adam")):
+        kernels[i]["launches"] += sum(tool_runs[k].values())
+        kernels[i]["tool_launches"] = tool_runs[k]
     del w_bf16
 
     g_flops, v_flops = generator_flops(gan_cfg, BATCH), vae_encode_flops(vae_cfg, BATCH)
@@ -3328,7 +3628,7 @@ def main():
                "training": training, "fused_adam_by_model": k3, "vae_training": vae_train,
                "vae_small_vs_cpu": vae_small, "data_fid_checkpoints": data_phase,
                "attention_gans": sn_phase, "resnet_family": resnet_phase, "mesh": mesh_out,
-               "synthetic_and_export": syn_phase,
+               "synthetic_and_export": syn_phase, "experiment_tools": tools_phase,
                "k4_check": k4_errs, "k4_bytes": k4_bytes, "quantized_head_path": quantized,
                "serving_variants_vs_cpu": variants, "serving_options_b128": serving_options,
                "total_s": time.perf_counter() - t_start}

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import os
 import threading
+import weakref
 from dataclasses import dataclass
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -209,6 +210,8 @@ class StreamingPatchBatches:
         self.emit_uint8 = emit_uint8
         #: a callable run on each batch in the prefetch thread (e.g. a copy to the card)
         self.transfer = transfer
+        #: the epochs' workers that may still run (a worker keeps its Prefetcher alive)
+        self._prefetchers: "weakref.WeakSet[Prefetcher]" = weakref.WeakSet()
         rng = np.random.RandomState(seed)
         self._entries: List[Tuple[str, bytes, int, int]] = []  # (db, key, label, slide)
         self._rna_rows: List[np.ndarray] = []
@@ -261,6 +264,10 @@ class StreamingPatchBatches:
             self._prewarm_thread.join(timeout)
 
     def close(self):
+        """Stops every epoch's worker (an epoch left unfinished still decodes
+        ahead), then closes the stores."""
+        for prefetcher in list(self._prefetchers):
+            prefetcher.close()
         for s in self._stores.values():
             s.close()
         self._stores.clear()
@@ -307,7 +314,9 @@ class StreamingPatchBatches:
                                         seed=self.seed, epoch=epoch, pad_to=self.pad_to):
                 yield self._make_batch(idx)
 
-        return Prefetcher(gen(), depth=self.prefetch_depth, transfer=self.transfer)
+        prefetcher = Prefetcher(gen(), depth=self.prefetch_depth, transfer=self.transfer)
+        self._prefetchers.add(prefetcher)
+        return prefetcher
 
 
 # -------------------------------------------------------------------- bags

@@ -58,16 +58,20 @@ class Prefetcher:
     ``histopathology_gan.py:164-168``). ``transfer``, when given, is applied
     to each item on the worker (e.g. a pinned copy to the card), so the copy
     of batch N+1 overlaps the step on batch N. An exception on the worker is
-    raised at the consumer's next ``next()``."""
+    raised at the consumer's next ``next()``. A consumer that stops early
+    calls :meth:`close` before the iterator's sources go away."""
 
     def __init__(self, iterator: Iterator, depth: int = 2, transfer: Optional[Callable] = None):
         self._q: "queue.Queue" = queue.Queue(maxsize=depth)
         self._sentinel = object()
         self._err: Optional[BaseException] = None
+        self._stop = threading.Event()
 
         def run():
             try:
                 for item in iterator:
+                    if self._stop.is_set():
+                        break
                     self._q.put(transfer(item) if transfer is not None else item)
             except BaseException as e:  # handed to the consumer, re-raised there
                 self._err = e
@@ -76,6 +80,17 @@ class Prefetcher:
 
         self._thread = threading.Thread(target=run, daemon=True)
         self._thread.start()
+
+    def close(self) -> None:
+        """Stops the worker once the item it is on is made, drops what it
+        holds and waits for it to end."""
+        self._stop.set()
+        while self._thread.is_alive():
+            try:
+                self._q.get(timeout=0.01)
+            except queue.Empty:
+                pass
+        self._thread.join()
 
     def __iter__(self):
         return self

@@ -2,6 +2,7 @@
 by default, no library optimizer."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -116,6 +117,95 @@ def test_quality_tool_imports_no_jax():
     assert res.stdout.split() == ["32", "64"]
 
 
+#: the JAX repository's experiment tools, ported, each run at its ``--smoke`` shapes on the CPU
+#: with the forbidden packages blocked; the A26/A27 tools read a workdir of
+#: random-init checkpoints written here first (``GANTrainer.save_model``,
+#: ``save_state_dict``). ``demo_e2e_torch`` only imports and parses its flags:
+#: its step 1 writes PNG slides with PIL.
+_EXPERIMENT_TOOL_BLOCKED = """
+import importlib, os, sys, tempfile
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas", "rnagan_tpu"):
+    sys.modules[name] = None
+sys.path.insert(0, "tools")
+import torch
+torch.set_num_threads(2)
+name = sys.argv[1]
+tool = importlib.import_module(name)
+tmp = tempfile.mkdtemp()
+if name == "demo_e2e_torch":
+    args = tool.build_parser().parse_args([tmp, "--device", "cpu"])
+else:
+    args = tool.parse_args(["--smoke", "--device", "cpu"])
+    argv = ["--smoke", "--device", "cpu"]
+    if name in ("representation_run_torch", "conditioning_panel_torch", "ml_experiment_run_torch"):
+        import quality_run_torch, representation_run_torch as rep
+        from rnagan_tpu_torch.core.checkpoint import save_state_dict
+        from rnagan_tpu_torch.models.betavae import BetaVAE
+        from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+        vae_cfg = quality_run_torch.vae_model_config(args)
+        vae_sd = BetaVAE(vae_cfg, seed=0).state_dict()
+        save_state_dict(os.path.join(tmp, "vae_pretrain.pt"), vae_sd)
+        for ckpt, critic in (("wganvae_proj", "projection"), ("wganvae", "unconditional")):
+            cfg, gan_cfg = rep.gan_configs(args, vae_cfg, critic)
+            tr = GANTrainer(cfg, vae_sd, device="cpu")
+            tr.save_model(tr.init_state(), os.path.join(tmp, ckpt + "_last.model"))
+        tr = GANTrainer(gan_cfg, device="cpu")
+        tr.save_model(tr.init_state(), os.path.join(tmp, "wgan_last.model"))
+        argv += ["--workdir", tmp, "--out", os.path.join(tmp, "out.json" if name.startswith("ml") else "out")]
+    elif name == "make_lmdb_corpus_torch":
+        argv += ["--out", os.path.join(tmp, "corpus")]
+    else:
+        argv += ["--corpus", os.path.join(tmp, "corpus"), "--out", os.path.join(tmp, "dp.json")]
+    tool.main(argv)
+bad = sorted(m for m, mod in sys.modules.items() if mod is not None
+             and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "msgpack", "pandas", "rnagan_tpu"))
+assert not bad, bad
+print("ok", args.device)
+"""
+
+EXPERIMENT_TOOLS = ("representation_run_torch", "conditioning_panel_torch", "ml_experiment_run_torch",
+                "make_lmdb_corpus_torch", "data_plane_run_torch", "demo_e2e_torch")
+
+
+@pytest.mark.parametrize("tool", EXPERIMENT_TOOLS)
+def test_experiment_tools_run_without_jax(tool):
+    """Each ported experiment tool imports, parses its flags and runs its
+    ``--smoke`` entry (the demo: imports and parses) with jax, flax, optax,
+    msgpack, pandas and rnagan_tpu unimportable."""
+    env = {**os.environ, "OMP_NUM_THREADS": "2", "MKL_NUM_THREADS": "2"}
+    res = subprocess.run([sys.executable, "-c", _EXPERIMENT_TOOL_BLOCKED, tool], cwd=REPO, capture_output=True,
+                         text=True, timeout=180, env=env)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.split()[-2:] == ["ok", "cpu"]
+
+
+def _jax_flags(name):
+    """``{flag: default}`` of the JAX tool's ``add_argument`` calls, read from its source."""
+    flags = {}
+    for node in ast.walk(ast.parse((REPO / "tools" / f"{name}.py").read_text())):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "add_argument":
+            kw = {k.arg: ast.literal_eval(k.value) for k in node.keywords if k.arg in ("default", "action")}
+            flags[node.args[0].value] = kw.get("default", False if kw.get("action") == "store_true" else None)
+    return flags
+
+
+@pytest.mark.parametrize("tool", [t for t in EXPERIMENT_TOOLS if t != "demo_e2e_torch"])
+def test_experiment_tools_keep_the_jax_flags(tool):
+    """Every flag of the JAX twin with its default, ``--device`` (default
+    ``cuda``) for ``--platform``; the only other flags are ``--device`` and ``--smoke``."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(tool, REPO / "tools" / f"{tool}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    port = {a.option_strings[0]: a.default for a in module.build_parser()._actions if a.option_strings}
+    port.pop("-h")
+    jax_flags = _jax_flags(tool.removesuffix("_torch"))
+    jax_flags.pop("--platform", None)
+    assert port.pop("--device") == "cuda" and port.pop("--smoke") is False
+    assert port == jax_flags
+
+
 def test_port_imports_without_pil_or_h5py():
     """Every module of the port imports with PIL and h5py unimportable: the
     JPEG and HDF5 readers import them inside their functions."""
@@ -164,13 +254,14 @@ def test_entry_points_default_to_cuda():
 
 @pytest.mark.parametrize("entry", ["inception_extractor", "gan_train", "fid", "sample", "interpolate",
                                    "representation", "main_gan_train", "sagan_trainer", "biggan_trainer",
-                                   "synthetic_corpus", "export_torch", "main_export_torch", "quality_run_torch"])
+                                   "synthetic_corpus", "export_torch", "main_export_torch", "quality_run_torch",
+                                   *EXPERIMENT_TOOLS])
 def test_data_and_fid_entry_points_default_to_cuda(entry):
     """The Inception extractor, the SAGAN and BigGAN trainers, the synthetic
-    corpus, the CLIs that take ``--device`` and the quality-run tool resolve
-    the device first: with no card they raise unless given the CPU, before
-    any data is read (``metrics`` and ``tile`` run on the host and take no
-    device)."""
+    corpus, the CLIs that take ``--device``, the quality-run tool and the
+    ported experiment tools resolve the device first: with no card they
+    raise unless given the CPU, before any data is read or written
+    (``metrics`` and ``tile`` run on the host and take no device)."""
     if torch.cuda.is_available():
         pytest.skip("the card is present: the CUDA default does not raise here")
     import dataclasses
@@ -181,9 +272,13 @@ def test_data_and_fid_entry_points_default_to_cuda(entry):
     from rnagan_tpu_torch.data.synthetic import SyntheticCorpus
     from rnagan_tpu_torch.eval.fid import InceptionExtractor
 
-    spec = importlib.util.spec_from_file_location("quality_run_torch", REPO / "tools" / "quality_run_torch.py")
-    tool = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(tool)
+    def tool_module(name):
+        spec = importlib.util.spec_from_file_location(name, REPO / "tools" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    tool = tool_module("quality_run_torch")
 
     config = str(REPO / "configs" / "gan_run_lung.json")
     vae = str(REPO / "configs" / "betavae_tissues.json")
@@ -207,7 +302,10 @@ def test_data_and_fid_entry_points_default_to_cuda(entry):
                                                        "--out", "b.model"]),
             "main_export_torch": lambda: main.main(["export-torch", "--config", config, "--checkpoint", "a.model",
                                                     "--out", "b.msgpack", "--to_native"]),
-            "quality_run_torch": lambda: tool.main(["--smoke"])}[entry]
+            "quality_run_torch": lambda: tool.main(["--smoke"]),
+            "demo_e2e_torch": lambda: tool_module(entry).main([str(REPO / "runs" / "absent_demo")]),
+            "data_plane_run_torch": lambda: tool_module(entry).main(["--smoke", "--corpus", "absent_corpus"])}.get(
+                entry, lambda: tool_module(entry).main(["--smoke"]))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
 

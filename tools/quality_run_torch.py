@@ -139,13 +139,23 @@ def train_vae(args, expr_norm, device):
     return best.model.state_dict(), model_cfg, seconds
 
 
+def vae_model_config(args):
+    """The beta-VAE of a run (bfloat16): full width, or with ``--smoke`` the
+    JAX tool's small one. The downstream tools build theirs here, so they
+    load the ``vae_pretrain.pt`` a run of the same flags wrote."""
+    from rnagan_tpu_torch.core.config import VAEModelConfig
+
+    if args.smoke:
+        return VAEModelConfig(rna_features=args.genes, z_dim=32, encoder_dims=(48, 32), decoder_dims=(48,),
+                              compute_dtype="bfloat16")
+    return VAEModelConfig(rna_features=args.genes, compute_dtype="bfloat16")
+
+
 def smoke_vae(args):
     """A small random-init beta-VAE (the JAX tool's ``--smoke`` shapes)."""
-    from rnagan_tpu_torch.core.config import VAEModelConfig
     from rnagan_tpu_torch.models.betavae import BetaVAE
 
-    cfg = VAEModelConfig(rna_features=args.genes, z_dim=32, encoder_dims=(48, 32), decoder_dims=(48,),
-                         compute_dtype="bfloat16")
+    cfg = vae_model_config(args)
     return BetaVAE(cfg, seed=0).state_dict(), cfg
 
 
