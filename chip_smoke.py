@@ -152,7 +152,28 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    resident steps, the overlap A/B of 4 steps, one streamed epoch), K1 and
    K3 twice a GAN step and K3 once a VAE step; the render, generation and
    float32 Inception rates of those runs timed alone. ``demo_e2e_torch`` stays a
-   CPU test (``tests/test_torch_port_demo.py``): the card's machine has no PIL.
+   CPU test (``tests/test_torch_port_demo.py``): the card's machine has no PIL;
+15. the training step as one program (run after 14; float32 checks with TF32
+   off and cuDNN deterministic): K1 with its seed in device memory (int64
+   scalar, int32 (1,)) at 8, 32 and 128 x 2048 bit-equal to the host-int
+   launch and within 1e-5 of its plain version, K3 with ``corr`` in device
+   memory bit-equal to its plain version and to the host floats (both on
+   the ``kernels`` line, timed at the main path's shapes); small ``dcgan``,
+   ``dcgan_up``, ``condgan`` and a ``wgan`` with clip, ``n_critic=2``, the EMA
+   and ``compat_reference_gp``, with given draws and drawn ones, 3 steps
+   captured (``GANTrainer.train_step``, a CUDA graph) against the same 3 eager
+   (``train_step_eager``) from one state: bit-equal; ``GANConfig()`` at full
+   width (bfloat16, batch 8): 10 captured steps with the K1 and K3 counters
+   set to 0 before them and read after (2 launches a step each), bit-equal
+   to 10 eager steps, the graph pool's memory, then (cuDNN as PyTorch
+   defaults it) 10 alternating pairs of eager and captured runs of 5 steps,
+   one captured step under ``torch.profiler`` (device busy ms, idle share,
+   exactly 2 K1 and 2 K3 kernel executions); an ``AsyncSaver`` bundle written
+   while 5 steps replay, byte-equal to ``save_model``'s; and the quality
+   run's epoch at full width (256x256, batch 32, 32 steps with
+   ``--steps_per_dispatch 16``) for wganvae and wgan, captured against eager:
+   bit-equal losses and state, K1 and K3 twice a step (K1 never under wgan),
+   the step's ms both ways and the render's share.
 
 It prints a details line, the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -825,8 +846,8 @@ def plain_adam():
     from rnagan_tpu_torch.optim import adam as adam_module
 
     kernel = adam_module.fused_adam
-    adam_module.fused_adam = lambda p, g, mu, nu, *, c1, c2, lr, b1, b2, eps, wd=0.0: adam_update_plain(
-        p, g, mu, nu, c1, c2, lr, b1, b2, eps, wd)
+    adam_module.fused_adam = lambda p, g, mu, nu, *, c1, c2, lr, b1, b2, eps, wd=0.0, corr=None: adam_update_plain(
+        p, g, mu, nu, c1, c2, lr, b1, b2, eps, wd, corr=corr)
     try:
         yield
     finally:
@@ -1105,14 +1126,16 @@ def profile_training(step, steps=3):
     busy = sum(dev_ms(e) for e in kernels)
     if busy == 0.0:
         return {"device_time": "not measured: the profiler recorded no device time"}
-    cats = {}
+    cats, counts = {}, {}
     for e in kernels:
         cats[kernel_category(e.key)] = cats.get(kernel_category(e.key), 0.0) + dev_ms(e)
+        counts[kernel_category(e.key)] = counts.get(kernel_category(e.key), 0) + e.count / steps
     top = sorted(kernels, key=dev_ms, reverse=True)[:10]
     return {"wall_ms_per_step": wall_ms / steps, "device_busy_ms_per_step": busy,
             "launches_per_step": sum(e.count for e in kernels) / steps,
             "device_idle_share": 1.0 - busy * steps / wall_ms,
             "by_category_ms": dict(sorted(cats.items(), key=lambda kv: -kv[1])),
+            "executions_per_step": counts,
             "top_kernels": [(e.key[:90], dev_ms(e), e.count // steps) for e in top]}
 
 
@@ -2949,7 +2972,8 @@ def quality_run_cut(dev, tmp, render_ms):
         infused_noise.launches = fused_adam.launches = 0
         state, res = tr.fit(lambda _e: corpus.batches(0, a.batch, QUALITY_STEPS, cfg.seed, expr_dev),
                             num_epochs=1, state=state, eval_fn=fid_probe, eval_every=1, keep_best_metric="fid")
-        rec.update(q.epoch_record(res["history"][0], 0, QUALITY_STEPS, seen["fid_s"]))
+        h = res["history"][0]
+        rec.update(q.epoch_record(h, 0, QUALITY_STEPS, h["step_ms_mean"] * QUALITY_STEPS / 1e3, seen["fid_s"]))
         per_step = 2 if loss_type == "wganvae" else 0
         want = {"infused_noise": per_step * QUALITY_STEPS, "fused_adam": 2 * QUALITY_STEPS}
         check(seen["train"] == want, f"quality run {loss_type}: launches {seen['train']}, expected {want}")
@@ -3316,6 +3340,392 @@ def experiment_tools(dev):
     return out
 
 
+# ----------------------------------------- phase 15: the training step as one program
+
+#: rows of phase 15's K1 device-seed checks: the GAN step's batch, the quality run's, serving's
+K1_DEVICE_SEED_ROWS = (8, 32, 128)
+#: GANConfig() steps compared captured against eager (the main path of the
+#: phase), and the timing: alternating pairs of runs, steps a run
+CAPTURED_STEPS, TIMED_PAIRS, STEPS_A_RUN = 10, 10, 5
+#: the quality epoch: 16 slides x 64 tiles at batch 32 (32 steps), in chunks of 16
+QUALITY_EPOCH_ARGS = ["--slides", "16", "--tiles_per_slide", "64", "--genes", "19198", "--size", "256",
+                      "--batch", "32", "--steps_per_dispatch", "16"]
+#: the small configurations captured against eager: name -> (arch, GANConfig fields)
+CAPTURED_SMALL = {"dcgan": ("dcgan", {}), "dcgan_up": ("dcgan_up", {}), "condgan": ("condgan", {}),
+                  "wgan_clip_ncritic2_ema_compat_gp": ("dcgan", {"loss_type": "wgan", "n_critic": 2,
+                                                                 "g_ema_decay": 0.999,
+                                                                 "compat_reference_gp": True})}
+
+
+def launch_counts():
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.kernels.infusion import infused_noise
+
+    return {"infused_noise": infused_noise.launches, "fused_adam": fused_adam.launches}
+
+
+def count_since(before):
+    return {k: v - before[k] for k, v in launch_counts().items()}
+
+
+def check_device_operands(dev, gen):
+    """K1 with its seed in device memory (an int64 scalar and an int32 (1,))
+    at ``K1_DEVICE_SEED_ROWS`` x 2048: bit-equal to the launch with the same
+    host int, within 1e-5 of its plain version with the same tensor seed
+    (the column sums' order differs, as in phase 2), and that plain version
+    bit-equal to the plain version with the int. K3 with ``corr`` in device
+    memory on the training generator's parameters, float32 and bfloat16 mu:
+    bit-equal to its plain version with the same tensor and to the kernel
+    with the host floats. Then both timed at the main path's shapes (K1 at
+    8 x 2048; K3 over G's and D's parameters, one launch each) beside their
+    plain versions, bounds and, for K3, ``torch.optim.Adam(fused=True)``."""
+    from rnagan_tpu_torch.core.config import GANModelConfig
+    from rnagan_tpu_torch.kernels.fused_adam import adam_update_plain, fused_adam
+    from rnagan_tpu_torch.kernels.infusion import infused_noise, infused_noise_plain
+    from rnagan_tpu_torch.models.dcgan import DCGANDiscriminator, DCGANGenerator
+
+    k1 = {}
+    for n in K1_DEVICE_SEED_ROWS:
+        z = torch.randn(n, 2048, generator=gen, device=dev) * 3
+        for rows in (n, 1):  # a batch of z, and one patient broadcast over n rows
+            host = infused_noise(z[:rows], n, seed=77)
+            for name, seed in (("int64", torch.full((), 77, dtype=torch.int64, device=dev)),
+                               ("int32", torch.full((1,), 77, dtype=torch.int32, device=dev))):
+                got = infused_noise(z[:rows], n, seed=seed)
+                plain = infused_noise_plain(z[:rows], n, seed=seed)
+                check(torch.equal(got, host), f"K1 device seed ({name}, n={n}) differs from the int seed")
+                check(torch.equal(plain, infused_noise_plain(z[:rows], n, seed=77)),
+                      f"K1 plain version: tensor seed ({name}) differs from the int")
+                k1[f"{n}x2048,z_rows{rows},{name}"] = float((got - plain).abs().max())
+    k1_err = max(k1.values())
+    check(k1_err <= 1e-5, f"K1 with a device seed differs from its plain version: {k1}")
+
+    nets = {name: [tuple(p.shape) for p in net(GANModelConfig(), device=dev).parameters()]
+            for name, net in (("G", DCGANGenerator), ("D", DCGANDiscriminator))}
+    c1, c2 = adam_corrections(6)
+    corr = torch.tensor([c1, c2], dtype=torch.float32, device=dev)
+    k3 = {}
+    for mu_dtype in (torch.float32, torch.bfloat16):
+        a = adam_inputs(nets["G"], dev, gen, mu_dtype)
+        b, h = ([[t.clone() for t in ts] for ts in a] for _ in range(2))
+        fused_adam(*a, corr=corr, **ADAM_HP)
+        adam_update_plain(*b, None, None, **ADAM_HP, corr=corr)
+        fused_adam(*h, c1=c1, c2=c2, **ADAM_HP)
+        for i, name in ((0, "p"), (2, "mu"), (3, "nu")):
+            k3[f"{name}_{str(mu_dtype)[6:]}_vs_plain_ulps"] = max(ulps(x, y) for x, y in zip(a[i], b[i]))
+            k3[f"{name}_{str(mu_dtype)[6:]}_vs_host_floats_ulps"] = max(ulps(x, y) for x, y in zip(a[i], h[i]))
+        del a, b, h
+    check(max(k3.values()) == 0, f"K3 with a device corr differs: {k3}")
+
+    z8 = torch.randn(8, 2048, generator=gen, device=dev) * 3
+    seed = torch.full((), 3, dtype=torch.int64, device=dev)
+    k1_bound, k1_by = bound_ms(2 * 8 * 2048 * 4 + 8, 10 * 8 * 2048)  # z in, out, the seed; ~10 flops an element
+    k1_times = {"ms": time_ms(lambda: infused_noise(z8, 8, seed=seed), iters=200),
+                "device_ms": graph_ms(lambda: infused_noise(z8, 8, seed=seed)),
+                "plain_ms": time_ms(lambda: infused_noise_plain(z8, 8, seed=seed), iters=50),
+                "bound_ms": k1_bound, "bound_by": k1_by, "library_ms": None}
+    k3_times = {key: 0.0 for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
+    for shapes in nets.values():
+        a = adam_inputs(shapes, dev, gen, torch.float32)
+        params = sum(math.prod(s) for s in shapes)
+        call = lambda: fused_adam(*a, corr=corr, **ADAM_HP)  # noqa: E731
+        ps = [torch.nn.Parameter(t.clone()) for t in a[0]]
+        for p, g in zip(ps, a[1]):
+            p.grad = g
+        library = torch.optim.Adam(ps, lr=ADAM_HP["lr"], betas=(ADAM_HP["b1"], ADAM_HP["b2"]),
+                                   eps=ADAM_HP["eps"], fused=True)
+        ms_bound, k3_by = bound_ms(28 * params + 8, 11 * params)
+        for key, value in (("ms", time_ms(call, iters=20)), ("device_ms", graph_ms(call, reps=10, iters=5)),
+                           ("plain_ms", time_ms(lambda: adam_update_plain(*a, None, None, **ADAM_HP, corr=corr),
+                                                iters=5)),
+                           ("bound_ms", ms_bound), ("library_ms", time_ms(library.step, iters=10))):
+            k3_times[key] += value
+        del a, ps, library
+    k3_times["bound_by"] = k3_by
+    print(f"phase 15 device operands: K1 vs plain {k1}; K3 {k3}")
+    return {"k1_vs_plain": k1, "k3_ulps": k3}, (k1_err, k1_times), (0.0, k3_times)
+
+
+def captured_small(dev, arch, cfg_kw, given):
+    """A small configuration's 3 steps captured (``train_step``) against the
+    same 3 steps eager (``train_step_eager``) from copies of one state, on
+    3 batches (with labels for ``condgan``), with given draws or drawn ones:
+    bit-equal parameters, statistics, moments, EMA, counts and metrics; the
+    captured steps' K1 and K3 launches as ``expected_launches`` counts them."""
+    from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig, VAEModelConfig
+    from rnagan_tpu_torch.models.betavae import BetaVAE
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    cfg = GANConfig(model=GANModelConfig(arch=arch, out_size=32, encoding_dims=64, step_channels=8,
+                                         num_classes=3 if arch == "condgan" else 0, compute_dtype="float32"),
+                    vae=VAEModelConfig(rna_features=256, z_dim=64, encoder_dims=(128, 96, 64),
+                                       decoder_dims=(96, 128)), **cfg_kw)
+    vae = BetaVAE(cfg.vae, seed=3, device=dev)
+    randomize(vae, gen)
+    tr = GANTrainer(cfg, vae.state_dict(), device=dev)
+    check(tr.captures(), f"small {arch}: the step is not captured")
+    s0 = tr.init_state()
+    warm_adam(s0, gen)
+    batches, draws = [], []
+    for _ in range(3):
+        b = random_batch(gen, cfg.batch_size, cfg, dev, size=32)
+        if cfg.model.num_classes:
+            b["labels"] = torch.randint(0, cfg.model.num_classes, (cfg.batch_size,), generator=gen, device=dev)
+        batches.append(b)
+        draws.append(training_draws(gen, cfg.batch_size, cfg, dev) if given else None)
+    tr.train_step_eager(copy.deepcopy(s0), batches[0], draws[0])  # cuDNN's first calls
+    cap, eag = copy.deepcopy(s0), copy.deepcopy(s0)
+    before = launch_counts()
+    m_cap = [tr.train_step(cap, b, d)[1] for b, d in zip(batches, draws)]
+    launches = count_since(before)
+    m_eag = [tr.train_step_eager(eag, b, d)[1] for b, d in zip(batches, draws)]
+    want = expected_launches(cfg, s0.step, 3)
+    if cfg.loss_type != "wganvae":
+        want["infused_noise"] = 0
+    diff = state_diff(cap, eag)
+    if cap.g_ema is not None:
+        diff = max(diff, max(float((x - y).abs().max()) for x, y in zip(cap.g_ema, eag.g_ema)))
+    metric_diff = max(abs(float(a[k]) - float(b[k])) for a, b in zip(m_cap, m_eag) for k in a)
+    name = f"{arch} {cfg_kw or ''} draws {'given' if given else 'drawn'}"
+    check(launches == want, f"captured small {name}: launches {launches}, expected {want}")
+    check(diff == 0.0 and metric_diff == 0.0, f"captured small {name}: captured vs eager differ by {diff} "
+                                              f"(metrics {metric_diff})")
+    check((cap.step, cap.g_opt.count, cap.d_opt.count) == (eag.step, eag.g_opt.count, eag.d_opt.count),
+          f"captured small {name}: counts {(cap.step, cap.g_opt.count, cap.d_opt.count)} vs "
+          f"{(eag.step, eag.g_opt.count, eag.d_opt.count)}")
+    return {"state_max_abs_diff": diff, "metric_max_abs_diff": metric_diff, "launches": launches,
+            "graphs": sum(len(g.graphs) for g in tr._graphs.values())}
+
+
+def timed_runs(fn, state, batches):
+    """Wall ms a step of ``STEPS_A_RUN`` calls of ``fn(state, batch)``, host
+    clock ending in ``synchronize``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(STEPS_A_RUN):
+        fn(state, batches[i % len(batches)])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / STEPS_A_RUN
+
+
+def captured_full_width(dev, gen, vae_sd):
+    """``GANConfig()`` (wganvae, bfloat16, batch 8) at full width: the main
+    path of the phase, ``CAPTURED_STEPS`` captured steps (the capture at the
+    first) with the launch counters set to 0 before them and read after, 2
+    K1 and 2 K3 launches a step; the same steps eager from a copy of the
+    state, bit-equal (cuDNN deterministic); the graph pool's memory; then,
+    with cuDNN as PyTorch defaults it (phase 6's setting), ``TIMED_PAIRS``
+    alternating pairs of eager and captured runs, and one captured step
+    under ``torch.profiler`` (device busy ms, idle share, K1 and K3
+    executions by kernel name)."""
+    from rnagan_tpu_torch.core.config import GANConfig
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.kernels.infusion import infused_noise
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+
+    cfg = GANConfig()
+    tr = GANTrainer(cfg, vae_sd, device=dev)
+    s0 = tr.init_state()
+    batches = [random_batch(gen, cfg.batch_size, cfg, dev) for _ in range(4)]
+    tr.train_step_eager(copy.deepcopy(s0), batches[0])  # cuDNN's first calls
+    cap, eag = copy.deepcopy(s0), copy.deepcopy(s0)
+    del s0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused_adam.launches = infused_noise.launches = 0
+    t0 = time.perf_counter()
+    m_cap = [tr.train_step(cap, batches[i % 4])[1] for i in range(CAPTURED_STEPS)]
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    pool_gib = sum(g.pool_bytes for g in tr._graphs.values()) / 2**30
+    print(f"phase 15 main path: {CAPTURED_STEPS} captured GANConfig() steps in {main_s:.3f} s "
+          f"(the capture included); launches {launches}")
+    check(launches == {"infused_noise": 2 * CAPTURED_STEPS, "fused_adam": 2 * CAPTURED_STEPS},
+          f"captured steps launched {launches}, expected 2 a step each")
+    m_eag = [tr.train_step_eager(eag, batches[i % 4])[1] for i in range(CAPTURED_STEPS)]
+    diff = state_diff(cap, eag)
+    metric_diff = max(abs(float(a[k]) - float(b[k])) for a, b in zip(m_cap, m_eag) for k in a)
+    check(all(math.isfinite(float(v)) for m in m_cap for v in m.values()), "captured losses not finite")
+    check(diff == 0.0 and metric_diff == 0.0,
+          f"GANConfig(): {CAPTURED_STEPS} captured steps vs eager differ by {diff} (metrics {metric_diff})")
+    check(cap.step == eag.step == CAPTURED_STEPS and cap.g_opt.count == eag.g_opt.count == CAPTURED_STEPS,
+          "captured step counts")
+    out = {"main_path_s": main_s, "launches": launches, "state_max_abs_diff": diff,
+           "metric_max_abs_diff": metric_diff, "graph_pool_gib": pool_gib,
+           "peak_gib_above_state_capture_and_steps": peak_gib,
+           "last_metrics": {k: float(v) for k, v in m_cap[-1].items()}}
+
+    torch.backends.cudnn.deterministic = False  # phase 6's setting: PyTorch's defaults
+    tr.train_step(cap, batches[0])  # a capture for these flags
+    tr.train_step_eager(eag, batches[0])
+    eager_ms, captured_ms = [], []
+    for _ in range(TIMED_PAIRS):
+        eager_ms.append(timed_runs(tr.train_step_eager, eag, batches))
+        captured_ms.append(timed_runs(tr.train_step, cap, batches))
+    med = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    out.update(eager_ms_b8=eager_ms, captured_ms_b8=captured_ms, eager_ms_b8_median=med(eager_ms),
+               captured_ms_b8_median=med(captured_ms))
+    prof = profile_training(lambda: tr.train_step(cap, batches[0]), steps=1)
+    out["profile_captured_b8"] = prof
+    out["profile_eager_b8"] = {k: v for k, v in profile_training(lambda: tr.train_step_eager(eag, batches[0]),
+                                                                  steps=1).items() if k != "top_kernels"}
+    runs = prof.get("executions_per_step", {})
+    check(runs.get("K1 infused_noise") == 2 and runs.get("K3 fused_adam") == 2,
+          f"one profiled replay ran K1 and K3 {runs}, expected 2 each")
+    print(f"phase 15 GANConfig() on the card: eager {med(eager_ms):.2f} ms, captured {med(captured_ms):.2f} ms "
+          f"a step; replay device busy {prof.get('device_busy_ms_per_step')} ms, idle share "
+          f"{prof.get('device_idle_share')}")
+    return out, tr, cap
+
+
+def async_saver_check(tr, state, tmp):
+    """A synchronous ``save_model`` of ``state``, then an asynchronous one
+    of the same state while ``STEPS_A_RUN`` captured steps replay behind
+    it: the two bundles byte-equal; the host time the async call took, and
+    the whole."""
+    import filecmp
+
+    # one file name in two directories: torch.save names the archive's records after the file
+    sync_path, async_path = (os.path.join(tmp, d, "gan.model") for d in ("sync", "async"))
+    batch = random_batch(torch.Generator(device=tr.device).manual_seed(SEED), tr.cfg.batch_size, tr.cfg, tr.device)
+    t0 = time.perf_counter()
+    tr.save_model(state, sync_path)
+    sync_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.save_model(state, async_path, async_=True)
+    call_s = time.perf_counter() - t0
+    for _ in range(STEPS_A_RUN):
+        tr.train_step(state, batch)
+    tr.wait_saves()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    equal = filecmp.cmp(sync_path, async_path, shallow=False)
+    check(equal, "the AsyncSaver bundle differs from save_model's")
+    return {"byte_equal": equal, "bundle_mib": os.path.getsize(sync_path) / 2**20, "sync_save_s": sync_s,
+            "async_call_s": call_s, "async_save_and_steps_s": total_s}
+
+
+def captured_quality_epoch(dev):
+    """``tools/quality_run_torch.py``'s epoch at full width (the corpus of
+    16 slides x 64 tiles at 256x256, 19,198 genes; ``dcgan``, batch 32;
+    ``--steps_per_dispatch 16``: 32 steps in 2 chunks) for wganvae (a
+    random-init full-width bfloat16 beta-VAE) and wgan: epoch 0 captured
+    against the same epoch eager from copies of one state, bit-equal summed
+    losses and state, K1 and K3 twice a step under wganvae (K1 never under
+    wgan); then epoch 1 of each timed (host clock over the epoch, which
+    ends in the one fetch of its losses) and the render's device ms at
+    batch 32 beside the captured step."""
+    from rnagan_tpu_torch.core.config import VAEModelConfig
+    from rnagan_tpu_torch.data.synthetic import SyntheticCorpus
+    from rnagan_tpu_torch.models.betavae import BetaVAE
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+
+    q = tool("quality_run_torch")
+    args = q.parse_args(QUALITY_EPOCH_ARGS + ["--device", str(dev)])
+    corpus = SyntheticCorpus(args.slides, args.tiles_per_slide, args.genes, args.size, device=dev)
+    expr_norm, _ = q.normalized_expression(corpus)
+    expr = torch.as_tensor(expr_norm).to(dev)
+    vae_cfg = VAEModelConfig(rna_features=args.genes, compute_dtype="bfloat16")
+    vae_sd = BetaVAE(vae_cfg, seed=0, device=dev).state_dict()
+    steps = args.slides * args.tiles_per_slide // args.batch
+    out = {"steps": steps, "steps_per_dispatch": args.steps_per_dispatch}
+    sl, ti = corpus.batch_ids(SEED, args.batch)
+    out["render_ms_b32"] = time_ms(lambda: corpus.render(sl[0], ti[0]), iters=10)
+    for loss_type in ("wganvae", "wgan"):
+        a = q.parse_args(QUALITY_EPOCH_ARGS + ["--device", str(dev), "--loss_type", loss_type])
+        cfg = q.make_config(a, vae_cfg)
+        tr = GANTrainer(cfg, vae_sd if loss_type == "wganvae" else None, device=dev)
+        e = expr if loss_type == "wganvae" else None
+        run_epoch = q.make_epoch_runner(tr, corpus, e, a, steps)
+        s0 = tr.init_state()
+        first = {"image": corpus.render(sl[0], ti[0]), "rna_data": expr[sl[0]]}
+        tr.train_step_eager(copy.deepcopy(s0), first)  # cuDNN's first calls
+        cap, eag = copy.deepcopy(s0), copy.deepcopy(s0)
+        del s0
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        sums_cap = run_epoch(cap, 0).tolist()
+        capture_epoch_s = time.perf_counter() - t0
+        launches = count_since(before)
+        tr.captures = lambda: False  # the same epoch through train_step_eager
+        sums_eag = run_epoch(eag, 0).tolist()
+        diff = state_diff(cap, eag)
+        want = {"infused_noise": 2 * steps if loss_type == "wganvae" else 0, "fused_adam": 2 * steps}
+        check(launches == want, f"quality epoch {loss_type}: launches {launches}, expected {want}")
+        check(sums_cap == sums_eag and diff == 0.0,
+              f"quality epoch {loss_type}: captured {sums_cap} vs eager {sums_eag}, state differs by {diff}")
+        check(all(math.isfinite(v) for v in sums_cap), f"quality epoch {loss_type}: losses {sums_cap}")
+        times = {}
+        for name, st in (("eager", eag), ("captured", cap)):
+            if name == "captured":
+                del tr.captures
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_epoch(st, 1).tolist()
+            times[f"{name}_step_ms"] = (time.perf_counter() - t0) * 1e3 / steps
+        rec = {"epoch0_losses": dict(zip(tr.metric_keys(), (v / steps for v in sums_cap))),
+               "launches": launches, "state_max_abs_diff": diff, "capture_epoch_s": capture_epoch_s,
+               **times, "render_share_of_captured_step": out["render_ms_b32"] / times["captured_step_ms"],
+               "graph_pool_gib": sum(g.pool_bytes for g in tr._graphs.values()) / 2**30}
+        out[loss_type] = rec
+        print(f"phase 15 quality epoch, {loss_type}: " + json.dumps(rec))
+        del tr, cap, eag, run_epoch
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def captured_training(dev, vae_sd):
+    """Phase 15: K1 and K3 with their scalar operands in device memory, the
+    captured step against the eager one (small configurations, ``GANConfig()``
+    at full width with its timings and a profiled replay), the AsyncSaver's
+    bundle, and the quality run's epoch in captured chunks."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    out = {}
+    out["device_operands"], k1, k3 = check_device_operands(dev, gen)
+    torch.cuda.empty_cache()
+    out["small"] = {f"{name},{'given' if given else 'drawn'}": captured_small(dev, arch, kw, given)
+                    for name, (arch, kw) in CAPTURED_SMALL.items() for given in (True, False)}
+    out["full_width"], tr, state = captured_full_width(dev, gen, vae_sd)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["async_saver"] = async_saver_check(tr, state, tmp)
+    del tr, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = True
+    out["quality_epoch"] = captured_quality_epoch(dev)
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
+    out["phase_s"] = time.perf_counter() - t0
+    return out, k1, k3
+
+
+def device_operand_entries(k1, k3, launches):
+    """The ``kernels`` line's entries of K1 with a device seed and K3 with a
+    device ``corr``: phase 15's checks, times and main-path launches."""
+    common = {"route": "cuda"}
+    return [
+        {"name": "infused_noise_device_seed", **common, "source": "rnagan_tpu_torch/csrc/infusion.cu",
+         "replaces": "rnagan_tpu/ops/infusion.py:46", "launches": launches["infused_noise"],
+         "max_abs_err": k1[0], **k1[1]},
+        {"name": "fused_adam_device_corr", **common, "source": "rnagan_tpu_torch/csrc/fused_adam.cu",
+         "replaces": "rnagan_tpu/ops/fused_adam.py:66", "launches": launches["fused_adam"],
+         "max_abs_err": k3[0], **k3[1]}]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3463,6 +3873,12 @@ def main():
     # ---- phase 14: the experiment tools (A26-A28) at full width, counts cut
     tools_phase = experiment_tools(dev)
     print(f"experiment tools on {smi}: wall s {json.dumps(tools_phase['wall_s'])}; phase {tools_phase['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+
+    # ---- phase 15: the training step as one program (captured CUDA graphs), K1 and K3 on device scalars
+    captured, k1_dev, k3_dev = captured_training(dev, vae_sd)
+    print(f"captured training step on {smi}: " + json.dumps(captured))
+    torch.cuda.empty_cache()
 
     # ---- phase 11: timings (serving as in its first measurement: cuDNN deterministic)
     torch.backends.cudnn.deterministic = True
@@ -3571,6 +3987,7 @@ def main():
     for i, k in ((0, "infused_noise"), (3, "fused_adam")):
         kernels[i]["launches"] += sum(tool_runs[k].values())
         kernels[i]["tool_launches"] = tool_runs[k]
+    kernels += device_operand_entries(k1_dev, k3_dev, captured["full_width"]["launches"])
     del w_bf16
 
     g_flops, v_flops = generator_flops(gan_cfg, BATCH), vae_encode_flops(vae_cfg, BATCH)
@@ -3631,7 +4048,7 @@ def main():
                "synthetic_and_export": syn_phase, "experiment_tools": tools_phase,
                "k4_check": k4_errs, "k4_bytes": k4_bytes, "quantized_head_path": quantized,
                "serving_variants_vs_cpu": variants, "serving_options_b128": serving_options,
-               "total_s": time.perf_counter() - t_start}
+               "captured_training": captured, "total_s": time.perf_counter() - t_start}
     print("details: " + json.dumps(details))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -26,13 +26,20 @@ every leaf an array); a string leaf is the uint8 array ``b"\xffSTR" +
 utf-8`` (``checkpoint.py:28-46``) and a bundle's ``__meta__`` is JSON. So
 the JAX ``load_bundle`` reads what :func:`save_bundle` writes, and
 :func:`load_bundle` reads the JAX ``model_best.ckpt`` and ``gan_last.model``.
+
+:class:`AsyncSaver` (``rnagan_tpu/core/checkpoint.py:89-130``) writes a
+bundle on a worker thread while training goes on: the caller's stream copies
+the state's tensors on the device first, so a later step that updates them
+in place cannot change what is written.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional
+import threading
+import weakref
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -164,3 +171,90 @@ def load_bundle(path: str):
     raw = load_pytree(path)
     meta = json.loads(raw.pop("__meta__", "{}"))
     return raw, meta
+
+
+# ------------------------------------------------------------ async saving
+
+
+def map_tensors(fn, tree):
+    """``fn`` over the tensors of a tree of dicts, lists and tuples; other
+    leaves kept."""
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(fn, v) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def to_host(tree):
+    """The tree with every tensor copied to the CPU (detached)."""
+    return map_tensors(lambda t: t.detach().cpu(), tree)
+
+
+class AsyncSaver:
+    """Background-thread checkpoint writer (``rnagan_tpu/core/checkpoint.py:89-130``).
+
+    :meth:`save` snapshots every tensor of the tree by a device copy on the
+    caller's stream, before a later step can update the state in place (the
+    JAX saver's ``jnp.copy`` against donation); a worker thread waits for
+    the copies, moves them to the host on a stream of its own and calls
+    ``write(path, host_tree)``, while the caller goes on enqueuing steps. One
+    save in flight at a time: a newer request waits for the previous write,
+    so disk writes never interleave. A worker's error is raised by the next
+    :meth:`wait` (or save)."""
+
+    _live: "weakref.WeakSet[AsyncSaver]" = weakref.WeakSet()
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        AsyncSaver._live.add(self)
+
+    def save(self, path: str, tree: Any, write: Callable[[str, Any], None]) -> None:
+        self.wait()
+        with torch.no_grad():
+            snapshot = map_tensors(lambda t: t.detach().clone(), tree)
+        devices = set()
+        map_tensors(lambda t: devices.add(t.device) if t.is_cuda else None, snapshot)
+        events = []
+        for dev in devices:
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(dev))
+            events.append((dev, ev))
+
+        def work():
+            try:
+                for dev, ev in events:
+                    ev.synchronize()
+                if devices:
+                    dev = next(iter(devices))
+                    with torch.cuda.stream(torch.cuda.Stream(dev)):
+                        host = to_host(snapshot)
+                else:
+                    host = to_host(snapshot)
+                write(path, host)
+            except BaseException as e:  # re-raised on the caller's side
+                self._error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def save_bundle(self, path: str, trees: Dict[str, Any], metadata: Optional[Dict[str, Any]] = None) -> None:
+        """:func:`save_bundle` of ``trees`` on the worker."""
+        self.save(path, trees, lambda p, host: save_bundle(p, host, metadata))
+
+    def wait(self) -> None:
+        """Block until the save in flight is written; raise its error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    @classmethod
+    def wait_all(cls) -> None:
+        """:meth:`wait` on every live saver (before a CUDA graph capture: a
+        worker's device copy during one would invalidate it)."""
+        for saver in list(cls._live):
+            saver.wait()

@@ -2,7 +2,11 @@
 //
 // Replaces the TPU kernel rnagan_tpu/ops/fused_adam.py::adam_update_flat
 // (body _adam_kernel). For each element, with c1 = 1 - b1^t and c2 = 1 - b2^t
-// computed on the host:
+// computed on the host (float32 pow), given as launch arguments or, with
+// corr != nullptr, read from corr[0], corr[1] in device memory (the TPU
+// kernel's SMEM corr operand: a step captured in a CUDA graph reads each
+// step's corrections from a table the host fills once; lr, b1, b2, eps and wd
+// stay launch arguments, static as in adam_update_flat):
 //   mu = b1*mu + (1-b1)*g
 //   nu = b2*nu + ((1-b2)*g)*g
 //   u  = (mu/c1) / (sqrt(nu/c2) + eps)
@@ -110,7 +114,13 @@ __device__ __forceinline__ void store4(__nv_bfloat16* m, const float v[4]) {
 
 template <typename MuT, bool kDecay>
 __global__ void __launch_bounds__(kThreads)
-fused_adam_kernel(const __grid_constant__ AdamTable t, const AdamScalars s) {
+fused_adam_kernel(const __grid_constant__ AdamTable t, const AdamScalars scalars,
+                  const float* __restrict__ corr) {
+  AdamScalars s = scalars;
+  if (corr != nullptr) {
+    s.c1 = corr[0];
+    s.c2 = corr[1];
+  }
   const long long total = t.chunk_start[t.count];
   for (long long c = blockIdx.x; c < total; c += gridDim.x) {
     // the last tensor whose first chunk is at or before c (tensors of 0
@@ -158,22 +168,25 @@ fused_adam_kernel(const __grid_constant__ AdamTable t, const AdamScalars s) {
 }
 
 template <bool kDecay>
-void launch(const AdamTable& t, const AdamScalars& s, int mu_bf16, unsigned int grid,
+void launch(const AdamTable& t, const AdamScalars& s, const float* corr, int mu_bf16, unsigned int grid,
             cudaStream_t st) {
   if (mu_bf16)
-    fused_adam_kernel<__nv_bfloat16, kDecay><<<grid, kThreads, 0, st>>>(t, s);
+    fused_adam_kernel<__nv_bfloat16, kDecay><<<grid, kThreads, 0, st>>>(t, s, corr);
   else
-    fused_adam_kernel<float, kDecay><<<grid, kThreads, 0, st>>>(t, s);
+    fused_adam_kernel<float, kDecay><<<grid, kThreads, 0, st>>>(t, s, corr);
 }
 
 }  // namespace
 
 // table: count rows of (p, g, mu, nu, numel) as 64-bit words, in host memory.
 // mu_bf16: 0 when every mu is float32, 1 when every mu is bfloat16.
+// corr: nullptr takes c1 and c2; else the kernel reads (c1, c2) from these
+// two float32 values in device memory.
 // wd: optax.adamw's weight decay; 0 takes Adam's kernel.
 extern "C" int rnagan_fused_adam(const unsigned long long* table, int count, int mu_bf16,
                                  float lr, float b1, float b2, float omb1, float omb2,
-                                 float eps, float c1, float c2, float wd, void* stream) {
+                                 float eps, float c1, float c2, const float* corr, float wd,
+                                 void* stream) {
   if (count < 1 || count > kMaxTensors) return (int)cudaErrorInvalidValue;
   AdamTable t;
   long long chunks = 0;
@@ -199,8 +212,8 @@ extern "C" int rnagan_fused_adam(const unsigned long long* table, int count, int
   const unsigned int grid = chunks < 65535 ? (unsigned int)chunks : 65535u;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wd != 0.0f)
-    launch<true>(t, s, mu_bf16, grid, st);
+    launch<true>(t, s, corr, mu_bf16, grid, st);
   else
-    launch<false>(t, s, mu_bf16, grid, st);
+    launch<false>(t, s, corr, mu_bf16, grid, st);
   return (int)cudaGetLastError();
 }

@@ -11,7 +11,11 @@
 //   * u != nullptr: read u[i, c], already scaled to [-r, r] (exact parity mode);
 //   * u == nullptr: Philox4x32-10 (Random123), counter (row, col, 0, 0),
 //     key (seed, 0); the top 24 bits of word 0 map to [0, 1), as the TPU
-//     kernel maps its on-core random bits.
+//     kernel maps its on-core random bits. The seed is a launch argument, or
+//     with seed_ptr != nullptr the low 32 bits of an int32 or int64 in device
+//     memory (the TPU kernel's seed_ref in SMEM): a training step captured in
+//     a CUDA graph reads each step's seed from a table the host fills once,
+//     and draws the stream the same seed gives as an argument.
 //
 // Bound on the H100: at N=128, D=2048 it reads z (1 MiB) and writes out
 // (1 MiB), 0.6 us at 3.35 TB/s, under the ~2 us of a launch replayed from a
@@ -80,6 +84,13 @@ __device__ __forceinline__ uint32_t philox_word0(uint32_t c0, uint32_t c1, uint3
   return c0;
 }
 
+// the seed of this launch: the argument, or the int32/int64 at seed_ptr
+__device__ __forceinline__ uint32_t launch_seed(uint32_t seed, const void* seed_ptr, int seed_bytes) {
+  if (seed_ptr == nullptr) return seed;
+  return seed_bytes == 8 ? (uint32_t)*static_cast<const long long*>(seed_ptr)
+                         : *static_cast<const uint32_t*>(seed_ptr);
+}
+
 // the uniform of element (i, col): u's, or the Philox stream's scaled to [-r, r)
 __device__ __forceinline__ float uniform(const float* __restrict__ u, int i, int col, int d, uint32_t seed,
                                          float noise_range) {
@@ -93,7 +104,9 @@ __global__ void __launch_bounds__(kStripCols * kStripGroups)
 infused_noise_onepass(const float* __restrict__ z, long long z_row_stride,
                       const float* __restrict__ u, const float* __restrict__ pop_mean,
                       const float* __restrict__ pop_std, float* __restrict__ out,
-                      int n, int d, uint32_t seed, float noise_range, float var_u) {
+                      int n, int d, uint32_t seed_arg, const void* seed_ptr, int seed_bytes,
+                      float noise_range, float var_u) {
+  const uint32_t seed = launch_seed(seed_arg, seed_ptr, seed_bytes);
   constexpr int kWarps = kStripCols * kStripGroups / 32;
   __shared__ float part_sum[kWarps][kStripCols];
   __shared__ float part_sq[kWarps][kStripCols];
@@ -168,7 +181,9 @@ __global__ void __launch_bounds__(kCols * kRowGroups)
 infused_noise_loop(const float* __restrict__ z, long long z_row_stride,
                    const float* __restrict__ u, const float* __restrict__ pop_mean,
                    const float* __restrict__ pop_std, float* __restrict__ out,
-                   int n, int d, uint32_t seed, float noise_range, float var_u) {
+                   int n, int d, uint32_t seed_arg, const void* seed_ptr, int seed_bytes,
+                   float noise_range, float var_u) {
+  const uint32_t seed = launch_seed(seed_arg, seed_ptr, seed_bytes);
   __shared__ float partial[kRowGroups][kCols];
   __shared__ float stat[kCols];
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -286,33 +301,38 @@ infused_noise_group(const float* __restrict__ z, long long z_row_stride, const f
 
 template <int R>
 void launch_onepass(const float* z, long long z_row_stride, const float* u, const float* pop_mean,
-                    const float* pop_std, float* out, int n, int d, unsigned int seed, float noise_range,
-                    float var_u, cudaStream_t s) {
+                    const float* pop_std, float* out, int n, int d, unsigned int seed, const void* seed_ptr,
+                    int seed_bytes, float noise_range, float var_u, cudaStream_t s) {
   infused_noise_onepass<R><<<(d + kStripCols - 1) / kStripCols, kStripCols * kStripGroups, 0, s>>>(
-      z, z_row_stride, u, pop_mean, pop_std, out, n, d, seed, noise_range, var_u);
+      z, z_row_stride, u, pop_mean, pop_std, out, n, d, seed, seed_ptr, seed_bytes, noise_range, var_u);
 }
 
 }  // namespace
 
 // rows_per_thread: 1, 2, 4 or 8 runs the one-pass kernel (n <= 32 *
 // rows_per_thread), 0 the loop kernel (any n); the Python wrapper picks it.
+// seed_ptr: nullptr takes seed; else the seed is read on the device from an
+// integer of seed_bytes (4 or 8) bytes there.
 extern "C" int rnagan_infused_noise(const float* z, long long z_row_stride, const float* u,
                                     const float* pop_mean, const float* pop_std, float* out,
-                                    int n, int d, unsigned int seed, float noise_range,
-                                    float var_u, int rows_per_thread, void* stream) {
+                                    int n, int d, unsigned int seed, const void* seed_ptr,
+                                    int seed_bytes, float noise_range, float var_u,
+                                    int rows_per_thread, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows_per_thread != 0 && n > kStripGroups * rows_per_thread) return (int)cudaErrorInvalidValue;
+  if (seed_ptr != nullptr && seed_bytes != 4 && seed_bytes != 8) return (int)cudaErrorInvalidValue;
   switch (rows_per_thread) {
     case 0: {
       const dim3 block(kCols, kRowGroups);
       const dim3 grid((d + kCols - 1) / kCols);
       infused_noise_loop<<<grid, block, 0, s>>>(z, z_row_stride, u, pop_mean, pop_std, out, n, d, seed,
-                                                noise_range, var_u);
+                                                seed_ptr, seed_bytes, noise_range, var_u);
       break;
     }
 #define ONEPASS(R)                                                                                      \
   case R:                                                                                               \
-    launch_onepass<R>(z, z_row_stride, u, pop_mean, pop_std, out, n, d, seed, noise_range, var_u, s); \
+    launch_onepass<R>(z, z_row_stride, u, pop_mean, pop_std, out, n, d, seed, seed_ptr, seed_bytes,     \
+                      noise_range, var_u, s);                                                           \
     break;
     ONEPASS(1) ONEPASS(2) ONEPASS(4) ONEPASS(8)
 #undef ONEPASS

@@ -236,7 +236,7 @@ def render_batch_from_draws(s: torch.Tensor, draws: Dict[str, torch.Tensor], siz
     # lumen: few big white blobs
     lpresent = (draws["lpresent"] < lumen_amt[:, None]).to(torch.float32)
     lc = draws["lcenters"]
-    theta = torch.tensor(0.3, dtype=torch.float32, device=dev)
+    theta = torch.full((), 0.3, dtype=torch.float32, device=dev)  # a fill: no host copy inside a capture
     m = _soft_disc(yy, xx, lc[:, :, 0, None, None], lc[:, :, 1, None, None],
                    size * 0.11, size * 0.14, theta) * lpresent[:, :, None, None]
     lumen = 1.0 - torch.prod(1.0 - m, dim=1)
@@ -346,11 +346,15 @@ class SyntheticCorpus:
         self.gene_map = make_gene_map(self.seed, n_genes, self.device)
         self.expression = expression_from_slides(self.seed, self.slides.s, self.gene_map)
 
-    def batch_ids(self, key: int, batch: int, steps: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Uniform (slide, tile) ids, each (steps, batch) int64 on the
-        corpus's device, from Philox key ``(key, STREAM_BATCH_IDS)``: the
-        same ids on every device."""
-        d = _draws(key, STREAM_BATCH_IDS, _rows(steps, self.device),
+    def batch_ids(self, key: int, batch: int, steps: int = 1, start: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Uniform (slide, tile) ids of steps ``[start, start + steps)``, each
+        (steps, batch) int64 on the corpus's device, from Philox key ``(key,
+        STREAM_BATCH_IDS)`` with the step as the counter's row: the same ids
+        on every device, and for a step whatever chunk of steps draws it.
+        No host synchronization: the ids of a chunk of captured steps are
+        drawn at once, and each step's render reads its row on the device."""
+        rows = torch.arange(start, start + steps, dtype=torch.int64, device=self.device)
+        d = _draws(key, STREAM_BATCH_IDS, rows,
                    {"slide": (0, (batch,), "uniform"), "tile": (1, (batch,), "uniform")})
         sl = (d["slide"] * self.n_slides).to(torch.int64).clamp_(max=self.n_slides - 1)
         ti = (d["tile"] * self.tiles_per_slide).to(torch.int64).clamp_(max=self.tiles_per_slide - 1)
@@ -360,7 +364,8 @@ class SyntheticCorpus:
         """(B, size, size, 3) float32 in [-1, 1] on the corpus's device,
         deterministic per (slide, tile). Tile indices in [0, tiles_per_slide)
         are the training corpus; [tiles_per_slide, tiles_per_slide +
-        HELDOUT_SPAN) are held out."""
+        HELDOUT_SPAN) are held out. Ids already on the device render with
+        device ops only, so the render can be captured in a step's CUDA graph."""
         sl = torch.as_tensor(slide_ids, dtype=torch.int64).to(self.device)
         ti = torch.as_tensor(tile_ids, dtype=torch.int64).to(self.device)
         return render_batch(self.seed, self.slides.s[sl], ti + sl * self.id_stride, self.size)

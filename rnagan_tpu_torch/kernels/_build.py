@@ -32,15 +32,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _U, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float, ctypes.c_longlong
 #: C entry point -> argtypes; every entry point returns its cudaError_t as int
 SIGNATURES = {
-    # z, z_row_stride, u, pop_mean, pop_std, out, n, d, seed, noise_range, var_u,
-    # rows_per_thread, stream
-    "rnagan_infused_noise": [_P, _LL, _P, _P, _P, _P, _I, _I, _U, _F, _F, _I, _P],
+    # z, z_row_stride, u, pop_mean, pop_std, out, n, d, seed, seed_ptr, seed_bytes,
+    # noise_range, var_u, rows_per_thread, stream
+    "rnagan_infused_noise": [_P, _LL, _P, _P, _P, _P, _I, _I, _U, _P, _I, _F, _F, _I, _P],
     # z, z_row_stride, u, out, sums, sq, n, d, row0, seed, noise_range, phase, stream
     "rnagan_infused_noise_group": [_P, _LL, _P, _P, _P, _P, _I, _I, _LL, _U, _F, _I, _P],
     # x, out, n, hw, stream
     "rnagan_tanh_to_uint8": [_P, _P, _I, _I, _P],
-    # table, count, mu_bf16, lr, b1, b2, 1-b1, 1-b2, eps, c1, c2, wd, stream
-    "rnagan_fused_adam": [_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    # table, count, mu_bf16, lr, b1, b2, 1-b1, 1-b2, eps, c1, c2, corr, wd, stream
+    "rnagan_fused_adam": [_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _F, _P],
     # x, xb scratch, w_q, scale, bias, out, n, k, m, tile_n, stream
     "rnagan_int8_matmul_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, xb scratch, w_q, scale, bias, out, n, k, m, stream

@@ -2,7 +2,10 @@
 
 Replaces ``rnagan_tpu/ops/fused_adam.py::adam_update_flat`` (body
 ``_adam_kernel``): one in-place Adam step with optax's arithmetic, the bias
-corrections ``c1 = 1 - b1^t`` and ``c2 = 1 - b2^t`` given as scalars::
+corrections ``c1 = 1 - b1^t`` and ``c2 = 1 - b2^t`` given as scalars, or as
+``corr``, a float32 (2,) tensor on the parameters' device that the kernel
+reads there (the TPU kernel's SMEM ``corr`` operand; a step captured in a
+CUDA graph takes them from a device table)::
 
     mu = b1*mu + (1-b1)*g
     nu = b2*nu + ((1-b2)*g)*g
@@ -24,7 +27,7 @@ ResNet50's 23,512,130 (2 classes) 0.1965 ms.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -37,16 +40,20 @@ MAX_TENSORS = 512
 
 def adam_update_plain(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
                       mus: Sequence[torch.Tensor], nus: Sequence[torch.Tensor],
-                      c1: float, c2: float, lr: float, b1: float, b2: float, eps: float,
-                      wd: float = 0.0) -> None:
+                      c1: Optional[float], c2: Optional[float], lr: float, b1: float, b2: float,
+                      eps: float, wd: float = 0.0, corr: Optional[torch.Tensor] = None) -> None:
     """The kernel's arithmetic in separate PyTorch ops, in place on
-    ``params``, ``mus`` and ``nus``. ``c1`` and ``c2`` divide as tensors on the
-    parameters' device: PyTorch's CUDA division by a Python number multiplies
-    by its reciprocal, which rounds differently. ``wd`` adds ``wd * p`` to
-    the update (AdamW)."""
+    ``params``, ``mus`` and ``nus``. ``c1`` and ``c2`` (or ``corr``'s two
+    values, ``c1`` and ``c2`` then None) divide as tensors on the parameters'
+    device: PyTorch's CUDA division by a Python number multiplies by its
+    reciprocal, which rounds differently. ``wd`` adds ``wd * p`` to the
+    update (AdamW)."""
     with torch.no_grad():
         dev = params[0].device
-        c1, c2 = torch.tensor(c1, device=dev), torch.tensor(c2, device=dev)
+        if corr is not None:
+            c1, c2 = corr[0], corr[1]
+        else:
+            c1, c2 = torch.tensor(c1, device=dev), torch.tensor(c2, device=dev)
         for p, g, mu, nu in zip(params, grads, mus, nus):
             m = mu.float() * b1 + g * (1.0 - b1)
             v = nu * b2 + (g * (1.0 - b2)) * g
@@ -81,18 +88,30 @@ def _check(params, grads, mus, nus) -> torch.dtype:
     return mu_dtype
 
 
+def _check_corr(c1, c2, corr, dev) -> None:
+    if (corr is None) == (c1 is None or c2 is None):
+        raise ValueError("pass c1 and c2, or corr")
+    if corr is not None and (corr.dtype != torch.float32 or corr.device != dev or tuple(corr.shape) != (2,)
+                             or not corr.is_contiguous()):
+        raise ValueError(f"corr must be a contiguous float32 (2,) tensor on {dev}; "
+                         f"got {corr.dtype} {tuple(corr.shape)} on {corr.device}")
+
+
 def fused_adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
-               mus: Sequence[torch.Tensor], nus: Sequence[torch.Tensor], *, c1: float, c2: float,
-               lr: float, b1: float, b2: float, eps: float, wd: float = 0.0) -> None:
+               mus: Sequence[torch.Tensor], nus: Sequence[torch.Tensor], *, c1: Optional[float] = None,
+               c2: Optional[float] = None, lr: float, b1: float, b2: float, eps: float, wd: float = 0.0,
+               corr: Optional[torch.Tensor] = None) -> None:
     """One Adam step over every tensor of a model (at most
     :data:`MAX_TENSORS`), in place on ``params``, ``mus`` and ``nus``, in one
-    launch. ``c1``/``c2`` are the bias corrections for this step; ``wd`` is
-    AdamW's decoupled weight decay (0: Adam)."""
+    launch. ``c1``/``c2`` are the bias corrections for this step, or
+    ``corr`` holds them on the device (float32 (2,)); ``wd`` is AdamW's
+    decoupled weight decay (0: Adam)."""
     params, grads, mus, nus = list(params), list(grads), list(mus), list(nus)
     mu_dtype = _check(params, grads, mus, nus)
     dev = params[0].device
+    _check_corr(c1, c2, corr, dev)
     if dev.type == "cpu":
-        adam_update_plain(params, grads, mus, nus, c1, c2, lr, b1, b2, eps, wd)
+        adam_update_plain(params, grads, mus, nus, c1, c2, lr, b1, b2, eps, wd, corr=corr)
         return
     if dev.type != "cuda":
         raise ValueError(f"fused_adam runs on CUDA or CPU tensors, not {dev}")
@@ -102,7 +121,8 @@ def fused_adam(params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
     with torch.cuda.device(dev):
         err = _build.library().rnagan_fused_adam(
             ctypes.addressof(table), len(params), int(mu_dtype == torch.bfloat16), lr, b1, b2,
-            1.0 - b1, 1.0 - b2, eps, c1, c2, wd, torch.cuda.current_stream().cuda_stream)
+            1.0 - b1, 1.0 - b2, eps, 0.0 if corr is not None else c1, 0.0 if corr is not None else c2,
+            None if corr is None else corr.data_ptr(), wd, torch.cuda.current_stream().cuda_stream)
     _build.check("rnagan_fused_adam", err)
     fused_adam.launches += 1
 

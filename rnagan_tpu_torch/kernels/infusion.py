@@ -12,7 +12,10 @@ Philox4x32-10 stream with counter (row, col, 0, 0) and key (seed, 0), the top
 24 bits of word 0 mapped to [0, 1) as the TPU kernel maps its random bits.
 The plain version runs the same Philox in int64 tensor ops, so on one device
 a seed gives the kernel and the plain version the same uniforms. Neither
-reproduces the TPU's bits.
+reproduces the TPU's bits. ``seed`` is a host int, or an int32/int64 tensor
+of one element on ``z``'s device that the kernel reads there (the TPU
+kernel's ``seed_ref`` operand): a step captured in a CUDA graph takes its
+seed from a device table, and draws what the same int draws.
 
 Bound on the H100 (N=128, D=2048): 1 MiB in, 1 MiB out, 0.6 us at
 3.35 TB/s: the kernel is bound by latency; ``csrc/infusion.cu`` has a
@@ -71,13 +74,22 @@ def philox4x32(counter, key):
     return c0, c1, c2, c3
 
 
-def philox_uniform(seed: int, n: int, d: int, noise_range: float, device, row0: int = 0) -> torch.Tensor:
+def philox_key(seed):
+    """A Philox key word from a host int or a one-element integer tensor
+    (an int64 0-dim tensor then, read on its device without a host sync)."""
+    if isinstance(seed, torch.Tensor):
+        return seed.reshape(()).to(torch.int64)
+    return int(seed)
+
+
+def philox_uniform(seed, n: int, d: int, noise_range: float, device, row0: int = 0) -> torch.Tensor:
     """(n, d) float32 uniforms in [-noise_range, noise_range) from the
-    kernel's Philox stream, rows ``[row0, row0 + n)`` of it."""
+    kernel's Philox stream, rows ``[row0, row0 + n)`` of it; ``seed`` an int
+    or a one-element integer tensor on ``device``."""
     row = torch.arange(row0, row0 + n, dtype=torch.int64, device=device)[:, None].expand(n, d) & _MASK
     col = torch.arange(d, dtype=torch.int64, device=device)[None, :].expand(n, d)
     zero = torch.zeros((), dtype=torch.int64, device=device)
-    w0 = philox4x32((row, col, zero, zero), (int(seed), 0))[0]
+    w0 = philox4x32((row, col, zero, zero), (philox_key(seed), 0))[0]
     u01 = (w0 >> 8).to(torch.float32) * (1.0 / (1 << 24))
     return (u01 * 2.0 - 1.0) * noise_range
 
@@ -99,7 +111,7 @@ def standardize_batch(x: torch.Tensor) -> torch.Tensor:
     return c / torch.sqrt(var + 1e-12)
 
 
-def infused_noise_plain(z: torch.Tensor, n: int, *, seed: Optional[int] = None,
+def infused_noise_plain(z: torch.Tensor, n: int, *, seed=None,
                         u: Optional[torch.Tensor] = None, noise_range: float = 0.3,
                         pop_mean: Optional[torch.Tensor] = None,
                         pop_std: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -130,6 +142,13 @@ def infused_noise_group_plain(z: torch.Tensor, n: int, group, *, seed: Optional[
     return c / torch.sqrt(sq / torch.clamp(count - 1.0, min=1.0) + 1e-12)
 
 
+def _check_seed(seed, z: torch.Tensor) -> None:
+    if isinstance(seed, torch.Tensor) and (seed.device != z.device or seed.numel() != 1
+                                           or seed.dtype not in (torch.int32, torch.int64)):
+        raise ValueError(f"a tensor seed must be one int32 or int64 element on {z.device}; "
+                         f"got {seed.dtype} {tuple(seed.shape)} on {seed.device}")
+
+
 def _check_inputs(z: torch.Tensor, n: int, d: int, **given: Optional[torch.Tensor]) -> None:
     shapes = {"u": (n, d), "pop_mean": (d,), "pop_std": (d,)}
     for name, t in (("z", z), *given.items()):
@@ -145,13 +164,14 @@ def _grouped(group) -> bool:
     return group is not None and dist.get_world_size(group) > 1
 
 
-def infused_noise(z: torch.Tensor, n: int, *, seed: Optional[int] = None,
+def infused_noise(z: torch.Tensor, n: int, *, seed=None,
                   u: Optional[torch.Tensor] = None, noise_range: float = 0.3,
                   pop_mean: Optional[torch.Tensor] = None,
                   pop_std: Optional[torch.Tensor] = None, group=None, row0: int = 0) -> torch.Tensor:
     """(n, D) float32 infused noise from z_mean ``z`` of shape (n, D) or (1, D)
-    (one patient broadcast over n rows). Exactly one of ``seed`` and ``u``
-    (float32 (n, D), in [-noise_range, noise_range]). With ``pop_mean`` and
+    (one patient broadcast over n rows). Exactly one of ``seed`` (an int, or
+    an int32/int64 tensor of one element on ``z``'s device, read there) and
+    ``u`` (float32 (n, D), in [-noise_range, noise_range]). With ``pop_mean`` and
     ``pop_std`` (D,) it normalizes with those instead of the batch statistics.
     With ``group`` (more than one rank) the rows are ``[row0, row0 + n)`` of
     a global batch split over the group, standardized over all of it (the
@@ -163,6 +183,9 @@ def infused_noise(z: torch.Tensor, n: int, *, seed: Optional[int] = None,
     grouped = _grouped(group)
     if grouped and pop_mean is not None:
         raise ValueError("population statistics need no group: pass one or the other")
+    if grouped and isinstance(seed, torch.Tensor):
+        raise ValueError("the group mode takes a host int seed")
+    _check_seed(seed, z)
     if z.ndim != 2 or z.shape[0] not in (1, n) or n < (0 if grouped else 1):
         raise ValueError(f"z must be (n, D) or (1, D) with n >= 1; got {tuple(z.shape)}, n={n}")
     d = z.shape[1]
@@ -176,11 +199,14 @@ def infused_noise(z: torch.Tensor, n: int, *, seed: Optional[int] = None,
     _check_inputs(z, n, d, u=u, pop_mean=pop_mean, pop_std=pop_std)
     out = torch.empty((n, d), dtype=torch.float32, device=z.device)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    on_device = isinstance(seed, torch.Tensor)
+    host_seed = 0 if seed is None or on_device else int(seed) & _MASK
     with torch.cuda.device(z.device):
         err = _build.library().rnagan_infused_noise(
             z.data_ptr(), 0 if z.shape[0] == 1 else d, ptr(u), ptr(pop_mean), ptr(pop_std),
-            out.data_ptr(), n, d, 0 if seed is None else int(seed) & _MASK, noise_range,
-            _var_u(noise_range), rows_per_thread(n), torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), n, d, host_seed, seed.data_ptr() if on_device else None,
+            seed.element_size() if on_device else 0, noise_range, _var_u(noise_range), rows_per_thread(n),
+            torch.cuda.current_stream().cuda_stream)
     _build.check("rnagan_infused_noise", err)
     infused_noise.launches += 1
     return out

@@ -76,15 +76,73 @@ def check_arch(cfg: GANModelConfig, archs: Sequence[str]) -> None:
         raise ValueError(f"arch={cfg.arch!r} is not one of {tuple(archs)} here")
 
 
+def _up2_adjoint(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """The adjoint of the 2x bilinear upsample (align_corners=False) along
+    ``dim``, (..., 2n, ...) -> (..., n, ...): output 2i is 0.25 x[i-1] +
+    0.75 x[i] (x[0] alone at 0), output 2i+1 is 0.75 x[i] + 0.25 x[i+1]
+    (x[n-1] alone at the end); sums of slices, in float32 at least."""
+    g = g.to(torch.promote_types(g.dtype, torch.float32))
+    even, odd = g.narrow(dim, 0, g.shape[dim]).unflatten(dim, (-1, 2)).unbind(dim + 1 if dim >= 0 else dim)
+    n = even.shape[dim]
+    nxt = torch.cat([even.narrow(dim, 1, n - 1), odd.narrow(dim, n - 1, 1)], dim)
+    prv = torch.cat([even.narrow(dim, 0, 1), odd.narrow(dim, 0, n - 1)], dim)
+    return 0.75 * (even + odd) + 0.25 * (nxt + prv)
+
+
+def _pad1_adjoint(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """The adjoint of the reflect pad of 1 along ``dim``, (..., n+2, ...) ->
+    (..., n, ...): the pad's first element goes back to x[1], its last to x[n-2]."""
+    n = g.shape[dim] - 2
+    inner, left, right = g.narrow(dim, 1, n), g.narrow(dim, 0, 1), g.narrow(dim, n + 1, 1)
+    zeros = torch.zeros_like(inner)
+    return inner + (torch.cat([zeros.narrow(dim, 0, 1), left, zeros.narrow(dim, 0, n - 2)], dim)
+                    + torch.cat([zeros.narrow(dim, 0, n - 2), right, zeros.narrow(dim, 0, 1)], dim))
+
+
+class _Upsample2x(torch.autograd.Function):
+    """``F.interpolate``'s 2x bilinear forward with a backward of slices and
+    sums: PyTorch's CUDA backward adds with atomics, so two runs of one
+    training step differ in the last bits; this one does not."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _up2_adjoint(_up2_adjoint(g, 3), 2).to(ctx.dtype)
+
+
+class _ReflectPad1(torch.autograd.Function):
+    """``F.pad(x, (1, 1, 1, 1), mode="reflect")`` with a deterministic
+    backward (PyTorch's CUDA backward adds with atomics)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return F.pad(x, (1, 1, 1, 1), mode="reflect")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _pad1_adjoint(_pad1_adjoint(g, 3), 2)
+
+
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:
     """2x bilinear upsample of (N, C, H, W), align_corners=False. Equals
     ``jax.image.resize(..., "bilinear")``: at the border JAX drops the
     out-of-range tap and renormalizes, torch clamps the source coordinate,
-    and both give the edge pixel."""
+    and both give the edge pixel. On CUDA its backward is deterministic
+    (``_Upsample2x``), so a ``dcgan_up`` step repeats bit for bit."""
+    if x.is_cuda:
+        return _Upsample2x.apply(x)
     return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
 
 
 def reflect_pad_hw(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
+    """Reflect padding of H and W; on CUDA with ``pad`` 1 its backward is
+    deterministic (``_ReflectPad1``)."""
+    if x.is_cuda and pad == 1:
+        return _ReflectPad1.apply(x)
     return F.pad(x, (pad, pad, pad, pad), mode="reflect")
 
 

@@ -6,7 +6,9 @@ tensor per parameter in the model's ``parameters()`` order, and the integer
 step ``count``. :meth:`Adam.step` takes ``t = count + 1``, computes the bias
 corrections ``1 - b1^t`` and ``1 - b2^t`` on the host in float32 (as
 ``ops/fused_adam.py:87-89`` does), launches K3 once over every tensor and
-advances the count. With ``mu_dtype=torch.bfloat16``, ``mu`` is stored in
+advances the count. A step captured in a CUDA graph passes ``corr``, the same
+two float32 values in device memory, read by the kernel on every replay
+(``train/step_graph.py``). With ``mu_dtype=torch.bfloat16``, ``mu`` is stored in
 bfloat16 and the kernel computes in float32 from the stored value (optax's
 ``mu_dtype``); ``nu`` stays float32.
 
@@ -47,26 +49,32 @@ class Adam:
         self.count = 0
 
     def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
-             lr: Optional[float] = None) -> None:
+             lr: Optional[float] = None, corr: Optional[torch.Tensor] = None) -> None:
         """One update of ``params`` in place (one K3 launch on the card), at
         ``lr`` when given (a schedule's rate for this step) or at ``self.lr``.
-        A gradient whose strides differ from its contiguous parameter's (the
-        CPU's convolution backward may return one in channels-last order) is
-        made contiguous first, so element i of each buffer is one weight."""
-        c1, c2 = bias_corrections(self.count + 1, self.b1, self.b2)
+        ``corr`` (float32 (2,) on the device) gives this step's bias
+        corrections, ``bias_corrections(count + 1)``, from device memory;
+        without it they are computed here. A gradient whose strides differ
+        from its contiguous parameter's (the CPU's convolution backward may
+        return one in channels-last order) is made contiguous first, so
+        element i of each buffer is one weight."""
+        c1 = c2 = None
+        if corr is None:
+            c1, c2 = bias_corrections(self.count + 1, self.b1, self.b2)
         with torch.no_grad():
             fused_adam([p.detach() for p in params], [g.contiguous() for g in grads],
                        self.mu, self.nu, c1=c1, c2=c2, lr=self.lr if lr is None else float(lr),
-                       b1=self.b1, b2=self.b2, eps=self.eps, wd=self.weight_decay)
+                       b1=self.b1, b2=self.b2, eps=self.eps, wd=self.weight_decay, corr=corr)
         self.count += 1
 
-    def state_dict(self) -> Dict[str, Any]:
+    def state_dict(self, device="cpu") -> Dict[str, Any]:
         """``torch.optim.Adam.state_dict()`` layout (torchgan ``.model`` bundles;
-        :class:`AdamW`'s is ``torch.optim.AdamW``'s, the same keys); copies on
-        the CPU, ``exp_avg`` float32 whatever ``mu_dtype`` is."""
+        :class:`AdamW`'s is ``torch.optim.AdamW``'s, the same keys); the
+        moments copied to ``device`` (the CPU by default), ``exp_avg`` float32
+        whatever ``mu_dtype`` is."""
         state = {i: {"step": torch.tensor(float(self.count)),
-                     "exp_avg": mu.detach().to("cpu", torch.float32, copy=True),
-                     "exp_avg_sq": nu.detach().to("cpu", copy=True)}
+                     "exp_avg": mu.detach().to(device, torch.float32, copy=True),
+                     "exp_avg_sq": nu.detach().to(device, copy=True)}
                  for i, (mu, nu) in enumerate(zip(self.mu, self.nu))}
         group = {"lr": self.lr, "betas": (self.b1, self.b2), "eps": self.eps,
                  "weight_decay": self.weight_decay,

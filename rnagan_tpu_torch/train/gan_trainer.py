@@ -57,9 +57,25 @@ reductions (the JAX package's sharding claim,
 * the metrics are the global ones on every rank; only rank 0 writes sample
   grids and bundles; every rank reads them.
 
+One program a step (the JAX trainer's ``jax.jit(_train_step_impl,
+donate_argnums=(0,))``, ``:148``): on a CUDA device with one rank, ``dcgan``,
+``dcgan_up`` and ``condgan`` steps (every loss, ``compat_reference_gp``,
+``n_critic``, the EMA, the projection critic, ``clip``) replay a CUDA graph
+of the step (``train/step_graph.py``), captured at the first step of a state.
+The step's seeds (``SeedStream.table``) and Adam bias corrections are rows
+of device tables that K1 and K3 read on the device; the GP's eps and the
+normal noise come from Philox streams keyed by those seeds
+(``core/rng.py``). :meth:`GANTrainer.train_step_eager`, the step op by op
+from the host with host-int seeds, is its plain version: it runs on the CPU,
+for SAGAN and BigGAN, and under a mesh of more than one rank (gloo's
+collectives cannot be captured), and draws the same bits. A failed capture
+raises; nothing falls back to the eager step.
+
 Unlike the JAX step, which is pure, ``train_step`` updates the state in place
 and returns it. ``fit`` writes a sample grid PNG and ``gan_last.model`` per
-epoch, synchronously (the JAX ``AsyncSaver`` works around a slow host link).
+epoch through an ``AsyncSaver`` (``core/checkpoint.py``: the state copied on
+the device, written by a worker thread while the next epoch trains) and
+waits for it before returning, as the JAX trainer does (``:601``).
 """
 
 from __future__ import annotations
@@ -76,7 +92,8 @@ import numpy as np
 import torch
 
 from rnagan_tpu_torch import convert
-from rnagan_tpu_torch.core.checkpoint import load_bundle, on_writer
+from rnagan_tpu_torch.core import rng
+from rnagan_tpu_torch.core.checkpoint import AsyncSaver, load_bundle, on_writer, to_host
 from rnagan_tpu_torch.core.config import GANConfig, VAEModelConfig
 from rnagan_tpu_torch.core.rng import SeedStream
 from rnagan_tpu_torch.losses import gan as gan_losses
@@ -85,15 +102,35 @@ from rnagan_tpu_torch.losses.rna_infusion import (encode_z_mean, infused_noise,
 from rnagan_tpu_torch.models.batchnorm import Stats
 from rnagan_tpu_torch.models.betavae import BetaVAE
 from rnagan_tpu_torch.models.dcgan import make_discriminator, make_generator
-from rnagan_tpu_torch.optim.adam import Adam
+from rnagan_tpu_torch.optim.adam import Adam, bias_corrections
 from rnagan_tpu_torch.parallel import collectives
 from rnagan_tpu_torch.parallel.mesh import Mesh, local_rows, make_mesh, module_tensors, replicated, shard_batch
+from rnagan_tpu_torch.train.step_graph import StepGraph
 from rnagan_tpu_torch.utils.images import save_image_grid
 
 log = logging.getLogger(__name__)
 
 #: the stages that draw noise, and their index in a step's seeds
 _STAGES = {"d": 0, "gp": 1, "g": 2, "eps": 3}
+#: a step's metrics, in the order of its vectors (``gp`` for the wgan family only)
+METRICS = ("d_loss", "dx", "dgz", "gp", "g_loss")
+#: the archs whose one-rank CUDA step is a captured graph
+CAPTURED_ARCHS = ("dcgan", "dcgan_up", "condgan")
+#: the step graphs a trainer keeps (a graph pins its state and its memory pool)
+MAX_GRAPHS = 4
+#: a step's given draws, as ``draws`` keys and table names
+DRAW_KEYS = ("u_d", "u_gp", "u_g", "eps")
+
+
+def given_batch(rows: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The batch of a step whose tables hold it: its ``image``,
+    ``rna_data`` and ``labels`` rows (``GANTrainer.run_steps``' ``prepare``
+    for given batches)."""
+    return {k: rows[k] for k in ("image", "rna_data", "labels") if k in rows}
+
+
+def _draws_of(rows: Dict[str, torch.Tensor]) -> Optional[Dict[str, torch.Tensor]]:
+    return {k: rows[k] for k in DRAW_KEYS if k in rows} or None
 
 
 @dataclass
@@ -180,6 +217,8 @@ class GANTrainer:
         #: that keeps the patient signal; saved into every checkpoint
         self.z_pop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._mu_dtype = torch.bfloat16 if cfg.adam_mu_dtype == "bfloat16" else torch.float32
+        self._graphs: Dict[Any, StepGraph] = {}
+        self._saver = AsyncSaver()
 
     # ------------------------------------------------------------------ state
     def init_state(self) -> GANTrainState:
@@ -197,55 +236,67 @@ class GANTrainer:
                    if cfg.g_ema_decay is not None else None))
 
     # ------------------------------------------------------------------ noise
-    def _given(self, draws, key, rows: Optional[slice] = None):
-        """``draws[key]`` (the global batch's) on the device, this rank's ``rows``."""
-        if draws is None:
-            return None
-        t = torch.as_tensor(draws[key], dtype=torch.float32)
-        return (t if rows is None else t[rows]).to(self.device).contiguous()
-
-    def _noise(self, step: int, stage: str, n: int, z_mean, draws) -> torch.Tensor:
+    def _noise(self, seeds, stage: str, n: int, z_mean, draws) -> torch.Tensor:
         """A stage's noise prior for this rank's ``n`` rows: VAE-infused through
         K1 for wganvae (reference ``wgan_loss.py:97-106``), standard normal
-        otherwise. ``draws["u_<stage>"]`` holds the global batch's uniforms (or
-        normals) when given."""
+        otherwise (``core/rng.py::normal``). ``draws["u_<stage>"]`` holds the
+        global batch's uniforms (or normals) when given; else the stage's
+        seed ``seeds[stage index]`` (an int, or a device scalar) draws them."""
         mesh, rows = self.mesh, local_rows(n * self.mesh.data, self.mesh)
-        given = self._given(draws, "u_" + stage, rows)
+        seed = seeds[_STAGES[stage]]
+        given = None if draws is None else draws["u_" + stage][rows]
         if self.cfg.loss_type == "wganvae":
             kw = dict(noise_range=self.cfg.noise_range, group=mesh.data_group, row0=rows.start)
             if given is not None:
-                return infused_noise(z_mean, n, u=given, **kw)
-            return infused_noise(z_mean, n, seed=self.seeds.seed("train", step, _STAGES[stage]), **kw)
+                return infused_noise(z_mean, n, u=given.contiguous(), **kw)
+            return infused_noise(z_mean, n, seed=seed, **kw)
         if given is not None:
             return given
-        gen = self.seeds.generator("train", step, _STAGES[stage], self.device)
-        noise = torch.randn((n * mesh.data, self.cfg.model.encoding_dims), generator=gen, device=self.device)
-        return noise[rows]
+        return rng.normal(seed, (n * mesh.data, self.cfg.model.encoding_dims), self.device)[rows]
 
-    def _eps(self, step: int, n: Optional[int], draws) -> torch.Tensor:
+    def _eps(self, seeds, n: Optional[int], draws) -> torch.Tensor:
         """The GP's interpolation weights: (n, 1, 1, 1) for this rank's rows of
         the global batch's draw, or one scalar (``n`` None)."""
         rows = None if n is None else local_rows(n * self.mesh.data, self.mesh)
-        given = self._given(draws, "eps")
+        given = None if draws is None else draws["eps"]
         if given is None:
-            gen = self.seeds.generator("train", step, _STAGES["eps"], self.device)
             shape = () if n is None else (n * self.mesh.data, 1, 1, 1)
-            given = torch.rand(shape, generator=gen, device=self.device)
+            given = rng.uniform(seeds[_STAGES["eps"]], shape, self.device)
         return given.reshape(()) if n is None else given.reshape(-1, 1, 1, 1)[rows]
 
     def _conditional(self) -> bool:
         m = self.cfg.model
         return m.arch == "condgan" or (m.arch == "biggan" and m.num_classes > 0)
 
-    def _labels(self, batch) -> Optional[torch.Tensor]:
-        """The batch's ``"labels"`` for ``condgan``, and for ``biggan`` with
-        ``num_classes`` > 0 (JAX's ``_labels``, ``gan_trainer.py:184-189``);
-        None for the other archs and unconditional ``biggan``."""
-        if not self._conditional():
-            return None
-        if batch.get("labels") is None:
-            raise ValueError(f"arch={self.cfg.model.arch!r} with classes trains on batches with 'labels'")
-        return torch.as_tensor(batch["labels"]).to(self.device, torch.long)
+    def _host_batch(self, batch, draws) -> Dict[str, torch.Tensor]:
+        """A step's inputs as tensors where the caller holds them: the batch's
+        ``image``, ``rna_data`` (wganvae) and ``labels`` (``condgan``, and
+        ``biggan`` with ``num_classes`` > 0, JAX's ``_labels``,
+        ``gan_trainer.py:184-189``), and the draws when given."""
+        out = {"image": torch.as_tensor(batch["image"])}
+        if self.cfg.loss_type == "wganvae":
+            out["rna_data"] = torch.as_tensor(batch["rna_data"], dtype=torch.float32)
+        if self._conditional():
+            if batch.get("labels") is None:
+                raise ValueError(f"arch={self.cfg.model.arch!r} with classes trains on batches with 'labels'")
+            out["labels"] = torch.as_tensor(batch["labels"]).long()
+        for key in (draws or {}):
+            out[key] = torch.as_tensor(draws[key], dtype=torch.float32)
+        return out
+
+    def metric_keys(self) -> Tuple[str, ...]:
+        """The step's metrics, in the order of :meth:`run_steps`' vectors."""
+        wgan_family = self.cfg.loss_type in ("wgan", "wganvae")
+        return tuple(k for k in METRICS if k != "gp" or wgan_family)
+
+    def _runs_g(self, step: int) -> bool:
+        return self.cfg.n_critic <= 1 or step % self.cfg.n_critic == self.cfg.n_critic - 1
+
+    def captures(self) -> bool:
+        """Whether :meth:`train_step` runs as a captured CUDA graph: on a
+        CUDA device, one rank, ``dcgan``/``dcgan_up``/``condgan``."""
+        return (self.device.type == "cuda" and self.mesh.world == 1
+                and self.cfg.model.arch in CAPTURED_ARCHS)
 
     # ------------------------------------------------------------- train step
     def train_step(self, state: GANTrainState, batch: Dict[str, Any],
@@ -258,33 +309,145 @@ class GANTrainer:
         (uniforms in [-noise_range, noise_range] for wganvae, else normals)
         and ``eps``. Returns ``(state, metrics)``, the state updated in place;
         the metrics (``d_loss``, ``dx``, ``dgz``, ``gp``, ``g_loss``, of the
-        global batch) are 0-dim float tensors."""
+        global batch) are 0-dim float tensors.
+
+        On a CUDA device with one rank, ``dcgan``, ``dcgan_up`` and
+        ``condgan`` (every loss and option) run as a captured CUDA graph
+        (:meth:`run_steps`); SAGAN, BigGAN, a mesh of several ranks and the
+        CPU run :meth:`train_step_eager`. Both draw the same bits."""
+        if not self.captures():
+            return self.train_step_eager(state, batch, draws)
+        rows = {k: t[None] for k, t in self._host_batch(batch, draws).items()}
+        vec = self.run_steps(state, rows, given_batch, 1)
+        return state, dict(zip(self.metric_keys(), vec.unbind(0)))
+
+    def train_step_eager(self, state: GANTrainState, batch: Dict[str, Any],
+                         draws: Optional[Dict[str, Any]] = None):
+        """:meth:`train_step` op by op from the host: the step's plain
+        version, and the step of the archs and meshes that are not captured.
+        Its seeds are host ints (K1's group mode takes them so), the graph's
+        device scalars of the same values."""
+        dev = self.device
+        given = {k: t.to(dev) for k, t in self._host_batch(batch, draws).items()}
+        step = state.step
+        seeds = [self.seeds.seed("train", step, i) for i in range(len(_STAGES))]
         with collectives.active(self.mesh):
-            return self._train_step(state, batch, draws)
+            metrics = self._step(state, given_batch(given), _draws_of(given), seeds, None, self._runs_g(step))
+        state.step += 1
+        return state, collectives.reduce_metrics(metrics, self.mesh.data_group)
 
-    def _share(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's share of a mean over the global batch (the convention
-        of ``parallel/collectives.py``)."""
-        return x if self.mesh.data_group is None else x / self.mesh.data
+    def run_steps(self, state: GANTrainState, tables: Dict[str, torch.Tensor],
+                  prepare: Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]], steps: int,
+                  sums: Optional[torch.Tensor] = None, capacity: Optional[int] = None) -> torch.Tensor:
+        """``steps`` training steps; step i takes row i of every table
+        (``tables[name][i]``: the batch's tensors, or what ``prepare``
+        renders it from; ``u_d``/``u_gp``/``u_g``/``eps`` rows are given
+        draws). ``prepare(rows)`` returns the step's batch dict from its rows
+        with device ops only (:func:`given_batch` passes the batch through).
+        Each step's metrics vector (:meth:`metric_keys` order) is added to
+        ``sums`` (a device tensor) when given; returns the last one.
 
-    def _train_step(self, state: GANTrainState, batch: Dict[str, Any], draws):
+        Where :meth:`captures`, the steps replay a CUDA graph of the step
+        (``train/step_graph.py``), one per G-stage choice, built at the first
+        use for this state, these table shapes, ``prepare`` and ``capacity``
+        rows (default ``steps``): the host fills the tables (with the
+        steps' seeds and Adam bias corrections) once and enqueues ``steps``
+        replays with no synchronization. Otherwise each step runs
+        :meth:`train_step_eager` on ``prepare``'s batch."""
+        if not self.captures():
+            vec = None
+            for i in range(steps):
+                given = {k: t[i] for k, t in tables.items()}
+                batch = prepare(given)
+                _, metrics = self.train_step_eager(state, batch, _draws_of(given))
+                vec = torch.stack([metrics[k].float().reshape(()) for k in self.metric_keys()])
+                if sums is not None:
+                    sums.add_(vec)
+            return vec
+        runs, seeds, corr, after = self._plan(state, steps)
+        graph = self._graph(state, {**tables, "seeds": seeds, "corr": corr}, prepare, capacity or steps)
+        graph.load({**tables, "seeds": seeds, "corr": corr}, steps)
+        for run_g in runs:
+            vec = graph.replay(run_g)
+            if sums is not None:
+                sums.add_(vec)
+        state.step, state.d_opt.count, state.g_opt.count = after
+        return vec.clone()
+
+    def _plan(self, state: GANTrainState, steps: int):
+        """The host's part of ``steps`` steps from ``state``: whether each
+        runs the G stage, the seeds table (steps, stages), the Adam bias
+        corrections (steps, 3, 2) of D's step, D's second step (the GP
+        stage's) and G's step, and (step, D count, G count) after them."""
+        wgan_family = self.cfg.loss_type in ("wgan", "wganvae")
+        d_steps = 2 if wgan_family and self.cfg.compat_reference_gp else 1
+        step, dc, gc = state.step, state.d_opt.count, state.g_opt.count
+        d, g = state.d_opt, state.g_opt
+        runs, corr = [], []
+        for i in range(steps):
+            runs.append(self._runs_g(step + i))
+            corr.append([bias_corrections(dc + 1, d.b1, d.b2), bias_corrections(dc + 2, d.b1, d.b2),
+                         bias_corrections(gc + 1, g.b1, g.b2)])
+            dc, gc = dc + d_steps, gc + int(runs[-1])
+        seeds = self.seeds.table("train", step, steps, len(_STAGES))
+        return runs, seeds, torch.tensor(corr, dtype=torch.float32), (step + steps, dc, gc)
+
+    @staticmethod
+    def _state_tensors(state: GANTrainState) -> List[torch.Tensor]:
+        """Every tensor a step reads and writes in place."""
+        return [*state.generator.parameters(), *state.discriminator.parameters(),
+                *(t for pair in state.g_stats + state.d_stats for t in pair),
+                *state.g_opt.mu, *state.g_opt.nu, *state.d_opt.mu, *state.d_opt.nu, *(state.g_ema or [])]
+
+    def _graph(self, state: GANTrainState, tables, prepare, capacity: int) -> StepGraph:
+        """The state's graphs for these tables, ``prepare`` and capacity
+        (built here at the first use; the last ``MAX_GRAPHS`` are kept)."""
+        live = self._state_tensors(state)
+        flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+                 torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        key = (id(state.generator), id(state.discriminator), tuple(t.data_ptr() for t in live), id(prepare),
+               tuple((k, tuple(t.shape[1:]), t.dtype) for k, t in sorted(tables.items())), capacity, flags)
+        graph = self._graphs.pop(key, None)
+        if graph is None:
+            keys = self.metric_keys()
+
+            def body(run_g, rows):
+                with collectives.active(self.mesh):
+                    metrics = self._step(state, prepare(rows), _draws_of(rows), rows["seeds"], rows["corr"], run_g)
+                return torch.stack([metrics[k].float().reshape(()) for k in keys])
+
+            # body holds state and prepare: the ids in the key stay theirs while the graph lives
+            graph = StepGraph(body, tables, capacity, live, self.device)
+            while len(self._graphs) >= MAX_GRAPHS:
+                self._graphs.pop(next(iter(self._graphs)))
+        self._graphs[key] = graph
+        return graph
+
+    def _step(self, state: GANTrainState, batch: Dict[str, torch.Tensor], draws, seeds, corr, run_g: bool):
+        """The step's device work (``_train_step_impl``): ``batch`` and
+        ``draws`` on the device, ``seeds`` the stages' seeds (host ints, or an
+        int64 (stages,) device tensor), ``corr`` None (Adam computes its bias
+        corrections from its counts) or a float32 (3, 2) device tensor of
+        them. The state's tensors are updated in place (statistics by
+        ``copy_``) and the Adam counts advance; ``state.step`` does not."""
         cfg, dev, group = self.cfg, self.device, self.mesh.data_group
-        real = torch.as_tensor(batch["image"]).to(dev)
+        real = batch["image"]
         if real.dtype == torch.uint8:
             real = real.float() / 127.5 - 1.0
         real = real.float().permute(0, 3, 1, 2).contiguous()
-        n, step = real.shape[0], state.step
+        n = real.shape[0]
         G, D = state.generator, state.discriminator
         g_params, d_params = list(G.parameters()), list(D.parameters())
+        g_stats, d_stats = state.g_stats, state.d_stats
         z_mean = None
         if cfg.loss_type == "wganvae":
             with torch.no_grad():
-                z_mean = encode_z_mean(
-                    self.vae, torch.as_tensor(batch["rna_data"], dtype=torch.float32).to(dev))
+                z_mean = encode_z_mean(self.vae, batch["rna_data"])
         cond = z_mean if cfg.model.critic == "projection" else None
-        labels = self._labels(batch)
+        labels = batch.get("labels")
         wgan_family = cfg.loss_type in ("wgan", "wganvae")
         fused_gp = wgan_family and not cfg.compat_reference_gp
+        adam_corr = (lambda i: None) if corr is None else (lambda i: corr[i])  # noqa: E731
         metrics: Dict[str, torch.Tensor] = {}
 
         if cfg.loss_type == "wgan" and cfg.clip is not None:
@@ -292,52 +455,53 @@ class GANTrainer:
 
         # ---------------- D stage (critic loss, fused with the GP by default)
         with torch.no_grad():
-            fake, state.g_stats = G.forward_stats(self._noise(step, "d", n, z_mean, draws),
-                                                  state.g_stats, True, labels=labels)
-        dx, s1 = D(real, state.d_stats, True, cond, labels)
+            fake, g_stats = G.forward_stats(self._noise(seeds, "d", n, z_mean, draws), g_stats, True,
+                                            labels=labels)
+        dx, s1 = D(real, d_stats, True, cond, labels)
         dgz, s2 = D(fake, s1, True, cond, labels)
         loss = self._share(gan_losses.DISCRIMINATOR_LOSSES[cfg.loss_type](dx, dgz))
         metrics.update(d_loss=loss.detach(), dx=self._share(dx.detach().mean()),
                        dgz=self._share(dgz.detach().mean()))
         if fused_gp:
-            eps = self._eps(step, n, draws)
+            eps = self._eps(seeds, n, draws)
             interp = eps * real + (1.0 - eps) * fake
             gp = gan_losses.gradient_penalty(lambda x: D(x, s2, True, cond, labels)[0], interp,
                                              per_sample=True, group=group)
             metrics["gp"] = gp.detach()
             loss = loss + cfg.gp_lambda * gp
-        state.d_opt.step(d_params, collectives.all_reduce_grads(torch.autograd.grad(loss, d_params), group))
-        state.d_stats = s2
+        state.d_opt.step(d_params, collectives.all_reduce_grads(torch.autograd.grad(loss, d_params), group),
+                         corr=adam_corr(0))
+        d_stats = s2
 
         # ---------------- GP stage (a second D step: the reference's dynamics)
         if wgan_family and not fused_gp:
             with torch.no_grad():
-                fake_gp, state.g_stats = G.forward_stats(
-                    self._noise(step, "gp", n, z_mean, draws), state.g_stats, True, labels=labels)
-            eps = self._eps(step, None, draws)
+                fake_gp, g_stats = G.forward_stats(
+                    self._noise(seeds, "gp", n, z_mean, draws), g_stats, True, labels=labels)
+            eps = self._eps(seeds, None, draws)
             interp = eps * real + (1.0 - eps) * fake_gp
             kept: List[Stats] = []
 
             def critic(x):
-                out, s = D(x, state.d_stats, True, cond, labels)
+                out, s = D(x, d_stats, True, cond, labels)
                 kept.append(s)
                 return out
 
             gp = gan_losses.gradient_penalty(critic, interp, per_sample=False, group=group)
             grads = collectives.all_reduce_grads(torch.autograd.grad(cfg.gp_lambda * gp, d_params), group)
-            state.d_stats = kept[0]
-            state.d_opt.step(d_params, grads)
+            d_stats = kept[0]
+            state.d_opt.step(d_params, grads, corr=adam_corr(1))
             metrics["gp"] = gp.detach()
 
         # ---------------- G stage
-        if cfg.n_critic <= 1 or step % cfg.n_critic == cfg.n_critic - 1:
-            fake, gs = G.forward_stats(self._noise(step, "g", n, z_mean, draws), state.g_stats, True,
+        if run_g:
+            fake, gs = G.forward_stats(self._noise(seeds, "g", n, z_mean, draws), g_stats, True,
                                        labels=labels)
-            dgz, ds = D(fake, state.d_stats, True, cond, labels)
+            dgz, ds = D(fake, d_stats, True, cond, labels)
             g_loss = self._share(gan_losses.GENERATOR_LOSSES[cfg.loss_type](dgz))
-            state.g_opt.step(g_params, collectives.all_reduce_grads(torch.autograd.grad(g_loss, g_params),
-                                                                    group))
-            state.g_stats, state.d_stats = gs, ds
+            state.g_opt.step(g_params, collectives.all_reduce_grads(torch.autograd.grad(g_loss, g_params), group),
+                             corr=adam_corr(2))
+            g_stats, d_stats = gs, ds
             metrics["g_loss"] = g_loss.detach().float()
             if state.g_ema is not None:
                 decay = cfg.g_ema_decay
@@ -346,8 +510,17 @@ class GANTrainer:
                         e.copy_(e * decay + (1.0 - decay) * p)
         else:
             metrics["g_loss"] = torch.zeros((), device=dev)
-        state.step += 1
-        return state, collectives.reduce_metrics(metrics, group)
+        with torch.no_grad():  # into the state's own tensors: a captured step writes where it reads
+            for old, new in ((state.g_stats, g_stats), (state.d_stats, d_stats)):
+                for pair, new_pair in zip(old, new, strict=True):
+                    for t, v in zip(pair, new_pair):
+                        t.copy_(v)
+        return metrics
+
+    def _share(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's share of a mean over the global batch (the convention
+        of ``parallel/collectives.py``)."""
+        return x if self.mesh.data_group is None else x / self.mesh.data
 
     # -------------------------------------------------------------- sampling
     @torch.no_grad()
@@ -404,19 +577,32 @@ class GANTrainer:
         module.load_bn_stats(stats)
         return module.state_dict()
 
-    def save_model(self, state: GANTrainState, path: str, epoch: int = 0) -> None:
+    def save_model(self, state: GANTrainState, path: str, epoch: int = 0, async_: bool = False) -> None:
         """The whole training state as a torchgan-layout ``.model`` bundle
-        (``convert.save_training_bundle``)."""
+        (``convert.save_training_bundle``). ``async_``: through the trainer's
+        ``AsyncSaver`` (the state copied on the device now, written by a
+        worker thread; :meth:`wait_saves` waits for it), byte-equal to the
+        synchronous write of the same state."""
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         g_ema = None
         if state.g_ema is not None:
             names = [name for name, _ in state.generator.named_parameters()]
             g_ema = dict(zip(names, state.g_ema))
-        convert.save_training_bundle(
-            path, self._state_dict(state.generator, state.g_stats),
-            self._state_dict(state.discriminator, state.d_stats),
-            state.g_opt.state_dict(), state.d_opt.state_dict(), epoch=epoch, step=state.step,
-            g_ema=g_ema, z_pop=self.z_pop)
+        opt_device = self.device if async_ else "cpu"  # the saver copies on the device, then to the host
+        tree = dict(generator=self._state_dict(state.generator, state.g_stats),
+                    discriminator=self._state_dict(state.discriminator, state.d_stats),
+                    optimizer_generator=state.g_opt.state_dict(opt_device),
+                    optimizer_discriminator=state.d_opt.state_dict(opt_device),
+                    epoch=epoch, step=state.step, g_ema=g_ema, z_pop=self.z_pop)
+        write = lambda p, t: convert.save_training_bundle(p, **t)  # noqa: E731
+        if async_:
+            self._saver.save(path, tree, write)
+        else:
+            write(path, to_host(tree))
+
+    def wait_saves(self) -> None:
+        """Block until the trainer's asynchronous save is written (raise its error)."""
+        self._saver.wait()
 
     def load_model(self, path: str) -> GANTrainState:
         """Resume from a bundle. The file's magic picks the format, as the JAX
@@ -532,7 +718,9 @@ class GANTrainer:
         an ``eval_fn`` scalar (lower is better): the state at its best value
         is kept and written to ``model_dir/gan_best.model``. Every rank runs
         ``eval_fn`` and takes rank 0's numbers, so every rank keeps the same
-        best state; rank 0 writes the grids and bundles."""
+        best state; rank 0 writes the grids and bundles, through the
+        ``AsyncSaver`` (a bundle is written while the next epoch trains),
+        and ``fit`` waits for the last write before it returns."""
         cfg, mesh = self.cfg, self.mesh
         if state is None and auto_resume and self.model_dir:
             last = os.path.join(self.model_dir, "gan_last.model")
@@ -566,13 +754,14 @@ class GANTrainer:
             if self.image_dir and (epoch + 1) % sample_every == 0 and mesh.writer:
                 imgs = self.sample(state, cfg.sample_size, seed=self.seeds.seed("grid", epoch))
                 save_image_grid(imgs, os.path.join(self.image_dir, f"epoch_{epoch}.png"), nrow=8)
-            if self.model_dir and (epoch + 1) % save_every == 0:
-                on_writer(mesh, lambda: self.save_model(
-                    state, os.path.join(self.model_dir, "gan_last.model"), epoch=epoch))
+            if self.model_dir and (epoch + 1) % save_every == 0 and mesh.writer:
+                self.save_model(state, os.path.join(self.model_dir, "gan_last.model"), epoch=epoch, async_=True)
         out: Dict[str, Any] = {"history": history}
         if best_state is not None:
-            if self.model_dir:
-                on_writer(mesh, lambda: self.save_model(
-                    best_state, os.path.join(self.model_dir, "gan_best.model"), epoch=best_epoch))
+            if self.model_dir and mesh.writer:
+                self.save_model(best_state, os.path.join(self.model_dir, "gan_best.model"), epoch=best_epoch,
+                                async_=True)
             out["best"] = {"state": best_state, "epoch": best_epoch, keep_best_metric: best_val}
+        if self.model_dir:
+            on_writer(mesh, self.wait_saves)  # every bundle whole before any rank reads one
         return state, out

@@ -156,17 +156,34 @@ def fusion_step(rank, world, cfg, backbone, state, bags, rna, labels, mask, keep
     return _resnet_out(st, met)
 
 
+def warm_adam(state, seed=0):
+    """Adam moments as at step 5 (``nu`` far above ``(1-b2) g^2``), drawn from
+    a CPU generator of ``seed``. From zero moments a first step moves every
+    parameter by sign(g) * lr, so a gradient that is 0 up to rounding (the
+    critic's last bias under the wgan loss, whose real and fake terms cancel)
+    moves by the rate on one side and not on the other."""
+    gen = torch.Generator().manual_seed(seed)
+    for opt in (state.g_opt, state.d_opt):
+        for mu, nu in zip(opt.mu, opt.nu):
+            mu.copy_(torch.randn(mu.shape, generator=gen) * 1e-3)
+            nu.copy_((torch.rand(nu.shape, generator=gen) + 0.5) * 1e-2)
+        opt.count = 5
+    state.step = 5
+    return state
+
+
 def multihost_child(pid, port, cfg, local_batch, results):
     """A process that joins a 2-process world through ``init_distributed``
-    with an explicit coordinator and takes one GAN step on the half of the
-    global batch it holds alone (``shard_batch(local=True)``)."""
+    with an explicit coordinator and takes one GAN step, from
+    :func:`warm_adam` moments, on the half of the global batch it holds
+    alone (``shard_batch(local=True)``)."""
     try:
         torch.set_num_threads(1)
         init_distributed(f"127.0.0.1:{port}", num_processes=2, process_id=pid, backend="gloo")
         from rnagan_tpu_torch.train.gan_trainer import GANTrainer
 
         tr = GANTrainer(cfg, device="cpu")
-        st = tr.init_state()
+        st = warm_adam(tr.init_state())
         st, met = tr.train_step(st, shard_batch(local_batch, tr.mesh, local=True))
         results.put((pid, {k: float(v) for k, v in met.items()}, tr.mesh.world))
         dist.destroy_process_group()

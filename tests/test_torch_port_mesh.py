@@ -20,7 +20,7 @@ import jax
 import numpy as np
 import pytest
 import torch
-from _torch_port_mesh_worker import bn_world, k1_group, multihost_child
+from _torch_port_mesh_worker import bn_world, k1_group, multihost_child, warm_adam
 
 from rnagan_tpu.core.config import MeshConfig as JaxMeshConfig
 from rnagan_tpu.losses import rna_infusion as jinfusion
@@ -241,6 +241,6 @@ def test_init_distributed_two_processes_step_from_local_halves():
         assert got[pid][1] == 2, got[pid][0]
     assert got[0][0] == got[1][0]
     tr = GANTrainer(cfg, device="cpu")
-    _, ref = tr.train_step(tr.init_state(), {"image": images})
+    _, ref = tr.train_step(warm_adam(tr.init_state()), {"image": images})
     for k, v in ref.items():
         np.testing.assert_allclose(got[0][0][k], float(v), rtol=1e-4, atol=1e-6, err_msg=k)
