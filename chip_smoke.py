@@ -173,7 +173,31 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    run's epoch at full width (256x256, batch 32, 32 steps with
    ``--steps_per_dispatch 16``) for wganvae and wgan, captured against eager:
    bit-equal losses and state, K1 and K3 twice a step (K1 never under wgan),
-   the step's ms both ways and the render's share.
+   the step's ms both ways and the render's share;
+16. the β-VAE's steps, SAGAN's and BigGAN's as captured programs (run after
+   15; float32 checks with TF32 off and cuDNN deterministic): K3 with
+   ``corr = (c1, c2, lr)`` in device memory at the VAE's 26 tensors,
+   bit-equal to the host-float launch and to its plain version, timed beside
+   its bound and the host-float launch (on the ``kernels`` line); the
+   four-word Philox draw bit-equal on the card and the CPU, and the device
+   time of the VAE's 128 x 19,198 dropout mask; small VAEs (Adam, Adam with
+   weight decay, SGD, RAdam across its threshold, given draws and drawn
+   ones) 5 steps captured (``VAETrainer.train_step``) against 5 eager
+   (``train_step_eager``) and the captured eval step against the eager one,
+   bit-equal; ``VAEConfig()`` at full width (float32, batch 128): 10
+   captured steps with the K3 counter set to 0 before and read after (one
+   launch a step), bit-equal to 10 eager steps, the graph pool, 10
+   alternating pairs of eager and captured runs of 5 steps, a profiled
+   captured step (exactly one K3 execution), and ``fit`` for an epoch of
+   host rows (K3 once a train step, never in validation; the best ``.pt``
+   reloads strictly); the quality run's VAE pre-train
+   (``tools/quality_run_torch.py::train_vae``, full width, bfloat16, batch
+   64, cut to two chunks of 3 steps) captured against eager, bit-equal;
+   small SAGAN, conditional BigGAN (remat off and on) and unconditional
+   BigGAN (remat on) 3 steps captured against 3 eager, bit-equal; and at the
+   CLI's widths (bfloat16, batch 8, BigGAN with remat off and on) 5 captured
+   steps with K1 and K3 counted (2 launches a step each), bit-equal to 5
+   eager, step ms both ways, a profile and the pool.
 
 It prints a details line, the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -1343,7 +1367,7 @@ def vae_training(dev, gen):
     check(fused_adam.launches - before == 10, f"10 VAE steps launched K3 {fused_adam.launches - before} times")
     check(all(math.isfinite(float(v)) for v in last.values()), f"VAE step losses {last}")
     before = fused_adam.launches
-    eval_losses, _ = tr.eval_step(st, x, mask, torch.Generator(device=dev).manual_seed(1))
+    eval_losses, _ = tr.eval_step(st, x, mask, seed=1)
     check(fused_adam.launches == before, "an eval step launched K3")
     check(float(eval_losses["total_loss"]) == float(eval_losses["reconstruction_loss"]), "VAE eval total")
 
@@ -1708,8 +1732,10 @@ def sn_step_costs(dev, gen, vae_cfg, vae_sd):
     """SAGAN and BigGAN (remat off and on) at the CLI's widths (wganvae,
     bfloat16, batch 8; BigGAN over 2 classes): 5 steps after 2, host clock;
     the peak memory above what was allocated before the trainer was made,
-    and above the training state (the activations); 3 steps under
-    ``torch.profiler`` (device busy time by category, idle share)."""
+    and above the training state (the activations; a captured step keeps
+    them in its graph pool, allocated with the state and reported beside
+    it); 3 steps under ``torch.profiler`` (device busy time by category,
+    idle share)."""
     from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig
     from rnagan_tpu_torch.train.gan_trainer import GANTrainer
 
@@ -1739,6 +1765,8 @@ def sn_step_costs(dev, gen, vae_cfg, vae_sd):
         check(all(math.isfinite(float(v)) for v in metrics.values()), f"{name} step: {metrics}")
         out[name] = {"step_ms_b8": step_ms, "peak_gib": peak / 2**30, "state_gib": state_bytes / 2**30,
                      "activation_peak_gib": (peak - state_bytes) / 2**30,
+                     # a captured step's activations live in its graph pool, which state_gib holds
+                     "graph_pool_gib": sum(g.pool_bytes for g in tr._graphs.values()) / 2**30,
                      "g_params": sum(p.numel() for p in st.generator.parameters()),
                      "d_params": sum(p.numel() for p in st.discriminator.parameters()),
                      "profile_b8": profile_training(lambda: tr.train_step(st, batch))}
@@ -3446,19 +3474,23 @@ def check_device_operands(dev, gen):
     return {"k1_vs_plain": k1, "k3_ulps": k3}, (k1_err, k1_times), (0.0, k3_times)
 
 
-def captured_small(dev, arch, cfg_kw, given):
+def captured_small(dev, arch, cfg_kw, given, model_kw=None):
     """A small configuration's 3 steps captured (``train_step``) against the
     same 3 steps eager (``train_step_eager``) from copies of one state, on
-    3 batches (with labels for ``condgan``), with given draws or drawn ones:
-    bit-equal parameters, statistics, moments, EMA, counts and metrics; the
-    captured steps' K1 and K3 launches as ``expected_launches`` counts them."""
+    3 batches (with labels for ``condgan`` and BigGAN with classes), with
+    given draws or drawn ones: bit-equal parameters, statistics (SAGAN's and
+    BigGAN's spectral-norm pairs among them), moments, EMA, counts and
+    metrics; the captured steps' K1 and K3 launches as ``expected_launches``
+    counts them. ``model_kw``: ``GANModelConfig`` fields (SAGAN's and
+    BigGAN's attention gates and projections are then drawn, ``open_gates``)."""
     from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig, VAEModelConfig
     from rnagan_tpu_torch.models.betavae import BetaVAE
     from rnagan_tpu_torch.train.gan_trainer import GANTrainer
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
-    cfg = GANConfig(model=GANModelConfig(arch=arch, out_size=32, encoding_dims=64, step_channels=8,
-                                         num_classes=3 if arch == "condgan" else 0, compute_dtype="float32"),
+    cfg = GANConfig(model=GANModelConfig(**{**dict(arch=arch, out_size=32, encoding_dims=64, step_channels=8,
+                                                   num_classes=3 if arch == "condgan" else 0,
+                                                   compute_dtype="float32"), **(model_kw or {})}),
                     vae=VAEModelConfig(rna_features=256, z_dim=64, encoder_dims=(128, 96, 64),
                                        decoder_dims=(96, 128)), **cfg_kw)
     vae = BetaVAE(cfg.vae, seed=3, device=dev)
@@ -3466,6 +3498,9 @@ def captured_small(dev, arch, cfg_kw, given):
     tr = GANTrainer(cfg, vae.state_dict(), device=dev)
     check(tr.captures(), f"small {arch}: the step is not captured")
     s0 = tr.init_state()
+    if arch in ("sagan", "biggan"):
+        open_gates(s0.generator, gen)
+        open_gates(s0.discriminator, gen)
     warm_adam(s0, gen)
     batches, draws = [], []
     for _ in range(3):
@@ -3726,6 +3761,448 @@ def device_operand_entries(k1, k3, launches):
          "max_abs_err": k3[0], **k3[1]}]
 
 
+# --------------------- phase 16: the β-VAE's steps, SAGAN's and BigGAN's as captured programs
+
+#: full-width VAEConfig() steps captured against eager (the main path of the phase)
+VAE_CAPTURED_STEPS = 10
+#: the small VAEs captured against eager: name -> (VAEConfig fields, start count); 5 steps each
+#: (RAdam from count 3 rectifies from its third step: both variants replay)
+VAE_GRAPH_SMALL = {"adam": ({}, 5), "adam_wd": ({"weight_decay": 1e-2}, 5), "sgd": ({"optimizer": "sgd"}, 5),
+                   "radam": ({"optimizer": "radam"}, 3)}
+VAE_SMALL_STEPS = 5
+#: the quality pre-train cut: rows of normalized expression, epochs and epochs a chunk (1 step an epoch)
+PRETRAIN_ROWS, PRETRAIN_EPOCHS, PRETRAIN_CHUNK = 100, 6, 3
+#: the small SAGAN and BigGAN configurations captured against eager: name -> GANModelConfig fields
+SN_CAPTURED_SMALL = {"sagan": {"arch": "sagan"}, "biggan": {"arch": "biggan", "num_classes": 2},
+                     "biggan_remat": {"arch": "biggan", "num_classes": 2, "remat": True},
+                     "biggan_unconditional_remat": {"arch": "biggan", "remat": True}}
+#: the CLI-width SAGAN and BigGAN runs: name -> GANModelConfig fields (phase 9's); steps, timed pairs
+SN_CAPTURED_FULL = {"sagan": {"arch": "sagan", "step_channels": 32},
+                    "biggan_remat_off": {"arch": "biggan", "num_classes": 2},
+                    "biggan_remat_on": {"arch": "biggan", "num_classes": 2, "remat": True}}
+SN_CAPTURED_STEPS, SN_TIMED_PAIRS = 5, 2
+
+
+def vae_param_shapes(m):
+    """The parameter shapes of a ``BetaVAE`` of ``m``, in ``parameters()``
+    order: Linear (weight, bias) and BatchNorm (weight, bias) a block."""
+    shapes = []
+    for a, b in zip((m.rna_features, *m.encoder_dims), m.encoder_dims):
+        shapes += [(b, a), (b,), (b,), (b,)]
+    shapes += [(m.z_dim, m.encoder_dims[-1]), (m.z_dim,)] * 2
+    for a, b in zip((m.z_dim, *m.decoder_dims), m.decoder_dims):
+        shapes += [(b, a), (b,), (b,), (b,)]
+    return shapes + [(m.rna_features, m.decoder_dims[-1]), (m.rna_features,)]
+
+
+def check_k3_device_lr(dev, gen):
+    """K3 with ``corr = (c1, c2, lr)`` in device memory at ``VAEConfig()``'s
+    26 tensors: bit-equal to the launch with the host floats and to its
+    plain version with the same tensor; then timed (wrapper and graph
+    replay) beside the host-float launch, its plain version, its bound and
+    ``torch.optim.Adam(fused=True)``."""
+    from rnagan_tpu_torch.core.config import VAEModelConfig
+    from rnagan_tpu_torch.kernels.fused_adam import adam_update_plain, fused_adam
+
+    shapes = vae_param_shapes(VAEModelConfig())
+    check(len(shapes) == 26, f"VAE parameter shapes: {len(shapes)}")
+    c1, c2 = adam_corrections(6)
+    lr = float(torch.tensor(3.1e-5, dtype=torch.float32))  # a warmup rate, as float32
+    hp = {k: v for k, v in ADAM_HP.items() if k != "lr"}
+    corr = torch.tensor([c1, c2, lr], dtype=torch.float32, device=dev)
+    a = adam_inputs(shapes, dev, gen, torch.float32)
+    b, h = ([[t.clone() for t in ts] for ts in a] for _ in range(2))
+    fused_adam(*a, corr=corr, lr=None, **hp)
+    adam_update_plain(*b, None, None, None, **hp, corr=corr)
+    fused_adam(*h, c1=c1, c2=c2, lr=lr, **hp)
+    ulp = {}
+    for i, name in ((0, "p"), (2, "mu"), (3, "nu")):
+        ulp[f"{name}_vs_plain"] = max(ulps(x, y) for x, y in zip(a[i], b[i]))
+        ulp[f"{name}_vs_host_floats"] = max(ulps(x, y) for x, y in zip(a[i], h[i]))
+    err = max(float((x - y).abs().max()) for i in (0, 2, 3) for x, y in zip(a[i], b[i]))
+    check(max(ulp.values()) == 0, f"K3 with (c1, c2, lr) on the device differs: {ulp}")
+    del b, h
+    params = sum(math.prod(s) for s in shapes)
+    host = lambda: fused_adam(*a, c1=c1, c2=c2, lr=lr, **hp)  # noqa: E731
+    dev_lr = lambda: fused_adam(*a, corr=corr, lr=None, **hp)  # noqa: E731
+    ps = [torch.nn.Parameter(t.clone()) for t in a[0]]
+    for p, g in zip(ps, a[1]):
+        p.grad = g
+    library = torch.optim.Adam(ps, lr=lr, betas=(hp["b1"], hp["b2"]), eps=hp["eps"], fused=True)
+    ms_bound, by = bound_ms(28 * params + 12, 11 * params)  # read p, g, mu, nu and corr; write p, mu, nu
+    times = {"ms": time_ms(dev_lr, iters=10), "device_ms": graph_ms(dev_lr, reps=5, iters=4),
+             "host_floats_ms": time_ms(host, iters=10), "host_floats_device_ms": graph_ms(host, reps=5, iters=4),
+             "plain_ms": time_ms(lambda: adam_update_plain(*a, None, None, None, **hp, corr=corr), iters=3),
+             "library_ms": time_ms(library.step, iters=5), "bound_ms": ms_bound, "bound_by": by,
+             "params": params, "tensors": len(shapes)}
+    del a, ps, library
+    print(f"phase 16 K3 with (c1, c2, lr) on the device at the VAE's {len(shapes)} tensors: ulps {ulp}; "
+          f"{json.dumps(times)}")
+    return {"ulps": ulp, **times}, (err, times)
+
+
+def check_philox4(dev):
+    """The four-word Philox draw (``core/rng.py::uniform4``, ``randint``) on
+    the card against the CPU, for int and device seeds: bit-equal. Then the
+    device time of the VAE's dropout mask (128 x 19,198) drawn four words a
+    counter, beside the one-word draw it replaces."""
+    from rnagan_tpu_torch.core import rng
+    from rnagan_tpu_torch.models.betavae import draw_keep
+
+    for seed in (0, 99, 2**31 - 1):
+        for shape in ((37,), (128, 19198), (64, 2048)):
+            cpu = rng.uniform4(seed, shape, "cpu")
+            for s in (seed, torch.full((), seed, dtype=torch.int64, device=dev)):
+                check(torch.equal(rng.uniform4(s, shape, dev).cpu(), cpu), f"uniform4 {seed} {shape}: card vs CPU")
+        check(torch.equal(rng.randint(seed, 100, (64,), dev).cpu(), rng.randint(seed, 100, (64,), "cpu")),
+              f"randint {seed}: card vs CPU")
+    seed = torch.full((), 7, dtype=torch.int64, device=dev)
+    shape = (BATCH, 19198)
+    out = {"mask_device_ms": graph_ms(lambda: draw_keep(seed, shape, 0.5, dev), reps=5, iters=5),
+           "one_word_mask_device_ms": graph_ms(lambda: rng.uniform(seed, shape, dev) < 0.5, reps=5, iters=5),
+           "mask_elements": math.prod(shape)}
+    print(f"phase 16 four-word Philox: card == CPU; VAE mask {json.dumps(out)}")
+    return out
+
+
+def vae_small_config(**kw):
+    from rnagan_tpu_torch.core.config import VAEConfig, VAEModelConfig
+
+    return VAEConfig(model=VAEModelConfig(rna_features=64, z_dim=16, encoder_dims=(48, 32, 16),
+                                          decoder_dims=(32, 48)),
+                     lr=1e-3, batch_size=8, warmup_steps=6, cosine_steps=3, **kw)
+
+
+def vae_tensors(state):
+    return [*state.model.parameters(), *state.model.buffers(), *state.opt.rule.mu, *state.opt.rule.nu]
+
+
+def vae_diff(a, b):
+    """Largest absolute difference between two VAE states' tensors (and a
+    mismatch of their counts as infinity)."""
+    if (a.step, a.opt.count, a.opt.rule.count) != (b.step, b.opt.count, b.opt.rule.count):
+        return float("inf")
+    return max(float((x.detach().double() - y.detach().double()).abs().max())
+               for x, y in zip(vae_tensors(a), vae_tensors(b)))
+
+
+def loss_diff(xs, ys):
+    return max(abs(float(x[k]) - float(y[k])) for x, y in zip(xs, ys) for k in x)
+
+
+def vae_captured_small(dev, name, given):
+    """A small VAE's ``VAE_SMALL_STEPS`` steps captured against the same steps
+    eager from copies of one state (warm moments, count from
+    ``VAE_GRAPH_SMALL``), given draws or drawn ones: bit-equal state, counts
+    and losses; K3 once a captured step for Adam, never otherwise; the
+    captured eval step bit-equal to the eager one."""
+    from rnagan_tpu_torch.train.vae_trainer import VAETrainer
+
+    cfg_kw, start = VAE_GRAPH_SMALL[name]
+    tr = VAETrainer(vae_small_config(**cfg_kw), device=dev)
+    check(tr.captures(), f"small VAE {name}: the step is not captured")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    s0 = tr.init_state()
+    for mu, nu in zip(s0.opt.rule.mu, s0.opt.rule.nu):
+        mu.copy_(torch.randn(mu.shape, generator=gen, device=dev) * 1e-3)
+        nu.copy_((torch.rand(nu.shape, generator=gen, device=dev) + 0.5) * 1e-2)
+    s0.step = s0.opt.count = start
+    s0.opt.rule.count = start if name != "sgd" else 0
+    n = VAE_SMALL_STEPS
+    xs = torch.randn(n, 8, 64, generator=gen, device=dev)
+    mask = torch.tensor([1.0] * 6 + [0.0] * 2, device=dev)
+    draws = [{"keep": torch.rand(8, 64, generator=gen, device=dev) < 0.5,
+              "eps": torch.randn(8, 16, generator=gen, device=dev)} if given else None for _ in range(n)]
+    tr.train_step_eager(copy.deepcopy(s0), xs[0], mask, draws[0])  # cuBLAS's first calls
+    cap, eag = copy.deepcopy(s0), copy.deepcopy(s0)
+    before = launch_counts()
+    l_cap = [tr.train_step(cap, xs[i], mask, draws[i])[1] for i in range(n)]
+    launches = count_since(before)
+    l_eag = [tr.train_step_eager(eag, xs[i], mask, draws[i])[1] for i in range(n)]
+    diff, ldiff = vae_diff(cap, eag), loss_diff(l_cap, l_eag)
+    label = f"small VAE {name}, draws {'given' if given else 'drawn'}"
+    want = {"infused_noise": 0, "fused_adam": n if cfg_kw.get("optimizer", "adam") == "adam" else 0}
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+    check(diff == 0.0 and ldiff == 0.0, f"{label}: captured vs eager differ by {diff} (losses {ldiff})")
+    variants = sorted(str(v) for key, g in tr._graphs.items() if key[0] == "train" for v in g.graphs)
+    want_variants = ["False", "True"] if name == "radam" else ["None"]
+    check(variants == want_variants, f"{label}: train graph variants {variants}, expected {want_variants}")
+    e_cap, o_cap = tr.eval_step(cap, xs[0], mask, seed=5)
+    e_eag, o_eag = tr.eval_step_eager(eag, xs[0], mask, seed=5)
+    eval_diff = max(loss_diff([e_cap], [e_eag]), float((o_cap - o_eag).abs().max()))
+    check(eval_diff == 0.0, f"{label}: captured eval step differs by {eval_diff}")
+    return {"state_max_abs_diff": diff, "loss_max_abs_diff": ldiff, "eval_max_abs_diff": eval_diff,
+            "launches": launches, "train_variants": variants}
+
+
+def vae_captured_full_width(dev, gen):
+    """``VAEConfig()`` at full width (float32, batch 128): the main path of
+    the phase, ``VAE_CAPTURED_STEPS`` captured steps (the capture at the
+    first) with the launch counters set to 0 before them and read after (one
+    K3 launch a step, K1 none); the same steps eager from a copy of the
+    state, bit-equal; the graph pool; ``TIMED_PAIRS`` alternating pairs of
+    eager and captured runs of ``STEPS_A_RUN`` steps; one captured and one
+    eager step under ``torch.profiler``; the captured eval step."""
+    from rnagan_tpu_torch.core.config import VAEConfig
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.kernels.infusion import infused_noise
+    from rnagan_tpu_torch.train.vae_trainer import VAETrainer
+
+    cfg = VAEConfig()
+    tr = VAETrainer(cfg, device=dev)
+    s0 = tr.init_state()
+    xs = [torch.randn(cfg.batch_size, cfg.model.rna_features, generator=gen, device=dev) for _ in range(4)]
+    mask = torch.ones(cfg.batch_size, device=dev)
+    tr.train_step_eager(copy.deepcopy(s0), xs[0], mask)  # cuBLAS's first calls
+    cap, eag = copy.deepcopy(s0), copy.deepcopy(s0)
+    del s0
+    torch.cuda.synchronize()
+    fused_adam.launches = infused_noise.launches = 0
+    t0 = time.perf_counter()
+    l_cap = [tr.train_step(cap, xs[i % 4], mask)[1] for i in range(VAE_CAPTURED_STEPS)]
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = launch_counts()
+    pool_gib = sum(g.pool_bytes for g in tr._graphs.values()) / 2**30
+    print(f"phase 16 main path: {VAE_CAPTURED_STEPS} captured VAEConfig() steps in {main_s:.3f} s "
+          f"(the capture included); launches {launches}")
+    check(launches == {"infused_noise": 0, "fused_adam": VAE_CAPTURED_STEPS},
+          f"captured VAE steps launched {launches}, expected one K3 launch a step")
+    l_eag = [tr.train_step_eager(eag, xs[i % 4], mask)[1] for i in range(VAE_CAPTURED_STEPS)]
+    diff, ldiff = vae_diff(cap, eag), loss_diff(l_cap, l_eag)
+    check(all(math.isfinite(float(v)) for m in l_cap for v in m.values()), "captured VAE losses not finite")
+    check(diff == 0.0 and ldiff == 0.0,
+          f"VAEConfig(): {VAE_CAPTURED_STEPS} captured steps vs eager differ by {diff} (losses {ldiff})")
+    e_cap, o_cap = tr.eval_step(cap, xs[1], mask, seed=3)
+    e_eag, o_eag = tr.eval_step_eager(eag, xs[1], mask, seed=3)
+    eval_diff = max(loss_diff([e_cap], [e_eag]), float((o_cap - o_eag).abs().max()))
+    check(eval_diff == 0.0, f"VAEConfig(): captured eval step differs by {eval_diff}")
+    out = {"main_path_s": main_s, "launches": launches, "state_max_abs_diff": diff, "loss_max_abs_diff": ldiff,
+           "eval_max_abs_diff": eval_diff, "graph_pool_gib": pool_gib,
+           "last_losses": {k: float(v) for k, v in l_cap[-1].items()}}
+
+    torch.backends.cudnn.deterministic = False  # phase 6's setting: PyTorch's defaults
+    tr.train_step(cap, xs[0], mask)  # a capture for these flags
+    tr.train_step_eager(eag, xs[0], mask)
+    eager_ms, captured_ms = [], []
+    for _ in range(TIMED_PAIRS):
+        eager_ms.append(timed_runs(lambda st, x: tr.train_step_eager(st, x, mask), eag, xs))
+        captured_ms.append(timed_runs(lambda st, x: tr.train_step(st, x, mask), cap, xs))
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    out.update(eager_ms_b128=eager_ms, captured_ms_b128=captured_ms, eager_ms_b128_median=med(eager_ms),
+               captured_ms_b128_median=med(captured_ms))
+    prof = profile_training(lambda: tr.train_step(cap, xs[0], mask), steps=1)
+    out["profile_captured_b128"] = prof
+    out["profile_eager_b128"] = {k: v for k, v in profile_training(
+        lambda: tr.train_step_eager(eag, xs[0], mask), steps=1).items() if k != "top_kernels"}
+    runs = prof.get("executions_per_step", {})
+    check(runs.get("K3 fused_adam") == 1, f"one profiled VAE replay ran K3 {runs}, expected once")
+    torch.backends.cudnn.deterministic = True
+    print(f"phase 16 VAEConfig() on the card: eager {med(eager_ms):.2f} ms, captured {med(captured_ms):.2f} ms "
+          f"a step; replay device busy {prof.get('device_busy_ms_per_step')} ms, idle share "
+          f"{prof.get('device_idle_share')}")
+    return out
+
+
+def vae_captured_fit(dev):
+    """``VAETrainer.fit`` for one epoch of ``VAE_ROWS`` host rows (numpy: the
+    chunks' tables hold the batches) at full width: K3 once a train step and
+    never in validation, finite losses, the best ``.pt`` reloading strictly
+    and holding the best state."""
+    import tempfile
+
+    import numpy as np
+
+    from rnagan_tpu_torch import convert
+    from rnagan_tpu_torch.core.config import VAEConfig
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.train.vae_trainer import VAETrainer
+
+    cfg = VAEConfig(num_epochs=1)
+    rng = np.random.default_rng(SEED + 16)
+    train = rng.standard_normal((VAE_ROWS[0], cfg.model.rna_features), dtype=np.float32)
+    val = rng.standard_normal((VAE_ROWS[1], cfg.model.rna_features), dtype=np.float32)
+    tr = VAETrainer(cfg, device=dev)
+    steps = VAE_ROWS[0] // cfg.batch_size
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        fused_adam.launches = 0
+        t0 = time.perf_counter()
+        best, res = tr.fit(train, val, save_dir=tmp)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = fused_adam.launches
+        check(launches == steps, f"captured VAE fit launched K3 {launches} times for {steps} train steps")
+        losses = [*res["history"]["train"], *res["history"]["val"]]
+        check(all(math.isfinite(v) for ls in losses for v in ls.values()), f"VAE fit losses: {res['history']}")
+        sd = convert.load_betavae_state_dict(os.path.join(tmp, "model_dict_best.pt"))
+        check(all(torch.equal(sd[k], v.cpu()) for k, v in best.model.state_dict().items()),
+              "the captured fit's best .pt is not its best state")
+        best.model.load_state_dict(sd, strict=True)  # its own values: the keys and shapes checked
+    graphs = sorted(k[0] for k in tr._graphs)
+    out = {"fit_s": fit_s, "launches": launches, "steps": steps, "graphs": graphs, "history": res["history"]}
+    print(f"phase 16 captured VAE fit: {json.dumps(out)}")
+    return out
+
+
+@contextlib.contextmanager
+def eager_vae_steps():
+    """``VAETrainer`` takes its eager steps on the card too (the plain version)."""
+    from rnagan_tpu_torch.train.vae_trainer import VAETrainer
+
+    captures = VAETrainer.captures
+    VAETrainer.captures = lambda self: False
+    try:
+        yield
+    finally:
+        VAETrainer.captures = captures
+
+
+def quality_pretrain_check(dev):
+    """``tools/quality_run_torch.py::train_vae`` at full width (bfloat16,
+    batch 64) on ``PRETRAIN_ROWS`` rows of random normalized expression, cut
+    to ``PRETRAIN_EPOCHS`` epochs in chunks of ``PRETRAIN_CHUNK`` (one step
+    an epoch): captured (``run_resident``'s replays, ``val_recons``' eval
+    graph) against eager, the printed losses and the best state bit-equal,
+    finite, K3 once a step."""
+    import io
+
+    import numpy as np
+
+    q = tool("quality_run_torch")
+    args = q.parse_args(["--genes", "19198", "--vae_epochs", str(PRETRAIN_EPOCHS), "--device", str(dev)])
+    expr = np.random.default_rng(SEED + 16).standard_normal((PRETRAIN_ROWS, 19198), dtype=np.float32)
+    chunk, q.VAE_CHUNK_EPOCHS = q.VAE_CHUNK_EPOCHS, PRETRAIN_CHUNK
+    runs = {}
+    try:
+        for name in ("captured", "eager"):
+            printed = io.StringIO()
+            before = launch_counts()
+            with contextlib.redirect_stdout(printed), (eager_vae_steps() if name == "eager"
+                                                       else contextlib.nullcontext()):
+                sd, cfg, seconds = q.train_vae(args, expr, dev)
+            lines = [line.rsplit(" (", 1)[0] for line in printed.getvalue().splitlines()
+                     if line.startswith("[vae] epoch")]
+            runs[name] = (sd, lines, count_since(before), seconds)
+    finally:
+        q.VAE_CHUNK_EPOCHS = chunk
+    (sd_c, lines_c, launches, s_c), (sd_e, lines_e, _, s_e) = runs["captured"], runs["eager"]
+    check(cfg.compute_dtype == "bfloat16" and cfg.rna_features == 19198, f"pre-train VAE config {cfg}")
+    check(len(lines_c) == PRETRAIN_EPOCHS // PRETRAIN_CHUNK and lines_c == lines_e,
+          f"pre-train captured {lines_c} vs eager {lines_e}")
+    check(all(torch.equal(sd_c[k], sd_e[k]) for k in sd_c), "pre-train: captured best state differs from eager")
+    check(all(torch.isfinite(v.float()).all() for v in sd_c.values()), "pre-train state not finite")
+    check(launches["fused_adam"] == PRETRAIN_EPOCHS, f"pre-train launched K3 {launches}")
+    out = {"lines": lines_c, "launches": launches, "captured_s": s_c, "eager_s": s_e}
+    print(f"phase 16 quality pre-train: {json.dumps(out)}")
+    return out
+
+
+def sn_captured_full_width(dev, gen, vae_sd):
+    """SAGAN and BigGAN (remat off and on) at the CLI's widths (wganvae,
+    bfloat16, batch 8; BigGAN over 2 classes): ``SN_CAPTURED_STEPS``
+    captured steps with the K1 and K3 counters set to 0 before them and read
+    after (2 launches a step each), finite metrics and the same steps eager
+    from an equal state, bit-equal (cuDNN deterministic), the graph pool; then with
+    cuDNN as PyTorch defaults it ``SN_TIMED_PAIRS`` alternating pairs of
+    eager and captured runs of ``STEPS_A_RUN`` steps, and one captured and
+    one eager step under ``torch.profiler`` (busy time, idle share, and the
+    K1 and K3 executions it recorded)."""
+    from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.kernels.infusion import infused_noise
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+
+    out = {}
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    for name, model in SN_CAPTURED_FULL.items():
+        torch.backends.cudnn.deterministic = True
+        cfg = GANConfig(model=GANModelConfig(**{**model, **SN_FULL_KEYS}))
+        tr = GANTrainer(cfg, vae_sd, device=dev)
+        cap, eag = tr.init_state(), tr.init_state()  # equal: init draws from the config's seed
+        batches = [{**random_batch(gen, cfg.batch_size, cfg, dev, size=cfg.model.out_size),
+                    "labels": torch.randint(0, 2, (cfg.batch_size,), generator=gen, device=dev)} for _ in range(2)]
+        tr.train_step_eager(tr.init_state(), batches[0])  # cuDNN's first calls
+        torch.cuda.synchronize()
+        fused_adam.launches = infused_noise.launches = 0
+        t0 = time.perf_counter()
+        metrics = [tr.train_step(cap, batches[i % 2])[1] for i in range(SN_CAPTURED_STEPS)]
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launches = launch_counts()
+        want = {"infused_noise": 2 * SN_CAPTURED_STEPS, "fused_adam": 2 * SN_CAPTURED_STEPS}
+        check(launches == want, f"captured {name}: launches {launches}, expected {want}")
+        check(all(math.isfinite(float(v)) for m in metrics for v in m.values()), f"captured {name}: {metrics}")
+        m_eag = [tr.train_step_eager(eag, batches[i % 2])[1] for i in range(SN_CAPTURED_STEPS)]
+        diff, metric_diff = state_diff(cap, eag), loss_diff(metrics, m_eag)
+        check(diff == 0.0 and metric_diff == 0.0,
+              f"{name}: {SN_CAPTURED_STEPS} captured steps vs eager differ by {diff} (metrics {metric_diff})")
+        rec = {"main_path_s": main_s, "launches": launches, "state_max_abs_diff": diff,
+               "metric_max_abs_diff": metric_diff,
+               "graph_pool_gib": sum(g.pool_bytes for g in tr._graphs.values()) / 2**30}
+        torch.backends.cudnn.deterministic = False
+        tr.train_step(cap, batches[0])  # a capture for these flags
+        eager_ms, captured_ms = [], []
+        for _ in range(SN_TIMED_PAIRS):
+            eager_ms.append(timed_runs(tr.train_step_eager, eag, batches))
+            captured_ms.append(timed_runs(tr.train_step, cap, batches))
+        prof = profile_training(lambda: tr.train_step(cap, batches[0]), steps=1)
+        rec.update(eager_ms_b8=eager_ms, captured_ms_b8=captured_ms, eager_ms_b8_median=med(eager_ms),
+                   captured_ms_b8_median=med(captured_ms),
+                   profile_captured_b8={k: v for k, v in prof.items() if k != "top_kernels"},
+                   profile_eager_b8={k: v for k, v in profile_training(
+                       lambda: tr.train_step_eager(eag, batches[0]), steps=1).items() if k != "top_kernels"})
+        # the launch counters gate K1 and K3 (above); the profiler's kernel records of a graph of ~4,000
+        # (SAGAN) to ~11,000 (BigGAN) kernels are not complete in every run (one of SAGAN's two K1 went
+        # unrecorded once while the counters and the capture held two)
+        rec["profile_executions_k1_k3"] = {k: prof.get("executions_per_step", {}).get(k)
+                                           for k in ("K1 infused_noise", "K3 fused_adam")}
+        out[name] = rec
+        print(f"phase 16 {name} at batch 8: eager {med(eager_ms):.2f} ms, captured {med(captured_ms):.2f} ms a "
+              f"step; replay device busy {prof.get('device_busy_ms_per_step')} ms, idle share "
+              f"{prof.get('device_idle_share')}")
+        del tr, cap, eag, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = True
+    return out
+
+
+def captured_vae_and_sn(dev, vae_sd):
+    """Phase 16: K3 with the rate in device memory, the four-word Philox
+    draw, the β-VAE's captured steps (small optimizers, ``VAEConfig()`` at
+    full width, ``fit``, the quality pre-train) and SAGAN's and BigGAN's
+    (small, bit-equal to eager; at the CLI's widths, timed)."""
+    t0 = time.perf_counter()
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    out = {}
+    out["k3_device_lr"], k3 = check_k3_device_lr(dev, gen)
+    torch.cuda.empty_cache()
+    out["philox4"] = check_philox4(dev)
+    out["vae_small"] = {f"{name},{'given' if given else 'drawn'}": vae_captured_small(dev, name, given)
+                        for name in VAE_GRAPH_SMALL for given in (True, False)}
+    out["vae_full_width"] = vae_captured_full_width(dev, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["vae_fit"] = vae_captured_fit(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["quality_pretrain"] = quality_pretrain_check(dev)
+    out["sn_small"] = {f"{name},{'given' if given else 'drawn'}": captured_small(dev, kw["arch"], {}, given, kw)
+                       for name, kw in SN_CAPTURED_SMALL.items() for given in (True, False)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["sn_full_width"] = sn_captured_full_width(dev, gen, vae_sd)
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
+    out["phase_s"] = time.perf_counter() - t0
+    return out, k3
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3880,6 +4357,12 @@ def main():
     print(f"captured training step on {smi}: " + json.dumps(captured))
     torch.cuda.empty_cache()
 
+    # ---- phase 16: the β-VAE's steps, SAGAN's and BigGAN's as captured programs, K3 with its rate on the device
+    vae_graphs, k3_lr = captured_vae_and_sn(dev, vae_sd)
+    print(f"captured VAE, SAGAN and BigGAN steps on {smi}: " + json.dumps(
+        {k: v for k, v in vae_graphs.items() if k != "vae_fit"}))
+    torch.cuda.empty_cache()
+
     # ---- phase 11: timings (serving as in its first measurement: cuDNN deterministic)
     torch.backends.cudnn.deterministic = True
     torch.cuda.reset_peak_memory_stats()
@@ -3988,6 +4471,15 @@ def main():
         kernels[i]["launches"] += sum(tool_runs[k].values())
         kernels[i]["tool_launches"] = tool_runs[k]
     kernels += device_operand_entries(k1_dev, k3_dev, captured["full_width"]["launches"])
+    # K3 with (c1, c2, lr) on the device: the captured VAEConfig() steps of phase 16's main path
+    kernels.append({"name": "fused_adam_device_lr", "route": "cuda", "source": "rnagan_tpu_torch/csrc/fused_adam.cu",
+                    "replaces": "rnagan_tpu/ops/fused_adam.py:66",
+                    "launches": vae_graphs["vae_full_width"]["launches"]["fused_adam"], "max_abs_err": k3_lr[0],
+                    **k3_lr[1]})
+    sn_runs = {name: rec["launches"] for name, rec in vae_graphs["sn_full_width"].items()}
+    for i, k in ((0, "infused_noise"), (3, "fused_adam")):  # phase 16's captured SAGAN and BigGAN steps
+        kernels[i]["launches"] += sum(v[k] for v in sn_runs.values())
+        kernels[i]["sn_captured_launches"] = {name: v[k] for name, v in sn_runs.items()}
     del w_bf16
 
     g_flops, v_flops = generator_flops(gan_cfg, BATCH), vae_encode_flops(vae_cfg, BATCH)
@@ -4048,7 +4540,8 @@ def main():
                "synthetic_and_export": syn_phase, "experiment_tools": tools_phase,
                "k4_check": k4_errs, "k4_bytes": k4_bytes, "quantized_head_path": quantized,
                "serving_variants_vs_cpu": variants, "serving_options_b128": serving_options,
-               "captured_training": captured, "total_s": time.perf_counter() - t_start}
+               "captured_training": captured, "captured_vae_and_sn": vae_graphs,
+               "total_s": time.perf_counter() - t_start}
     print("details: " + json.dumps(details))
     print(json.dumps({"kernels": kernels}))
     print(smi)

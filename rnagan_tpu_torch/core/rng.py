@@ -7,14 +7,18 @@ a run of steps as one int64 tensor, the table a training step captured in a
 CUDA graph reads its seeds from (``train/step_graph.py``).
 
 The seeds key Philox4x32-10 streams (``kernels/infusion.py``): the
-infused-noise kernel's uniforms, and :func:`uniform` and :func:`normal`, the
-GP's epsilon and the standard-normal noise of a training step. A seed is a
+infused-noise kernel's uniforms (key word 1 is 0 there); :func:`uniform` and
+:func:`normal` (key word 1 is 1), the GAN step's GP epsilon and
+standard-normal noise and the β-VAE step's reparametrization epsilon; and
+:func:`uniform4` and :func:`randint` (key word 1 is 2), which use all four
+words of a counter, the β-VAE step's dropout mask (128 x 19,198 uniforms a
+step at full width) and the rows a resident-matrix step draws. A seed is a
 host int or a one-element integer tensor on the device; both give the same
-bits, so a captured step draws what the eager step draws. ``torch.Generator``s
-seeded here (:meth:`SeedStream.generator`) draw everything else. Nothing draws
-from PyTorch's global generator. The streams are the port's own: they do not
-reproduce ``jax.random``'s bits, and the tests hand both packages the same
-draws instead.
+bits, so a captured step draws what the eager step draws.
+``torch.Generator``s seeded here (:meth:`SeedStream.generator`) draw
+everything else. Nothing draws from PyTorch's global generator. The streams
+are the port's own: they do not reproduce ``jax.random``'s bits, and the
+tests hand both packages the same draws instead.
 """
 
 from __future__ import annotations
@@ -67,6 +71,16 @@ def _words(seed, n: int, device) -> Sequence[torch.Tensor]:
     return philox4x32((i, zero, zero, zero), (philox_key(seed), 1))[:2]
 
 
+def _words4(seed, n: int, device) -> torch.Tensor:
+    """The first ``n`` words of Philox4x32-10 counters (k, 0, 0, 0), key
+    (seed, 2), taken in order: element ``4k + j`` is word ``j`` of counter
+    ``k``. An (n,) int64 tensor of uint32 values, a quarter of the counters
+    (and of the rounds' elementwise work) that one word a counter takes."""
+    k = torch.arange((n + 3) // 4, dtype=torch.int64, device=device) & _MASK
+    zero = torch.zeros((), dtype=torch.int64, device=device)
+    return torch.stack(philox4x32((k, zero, zero, zero), (philox_key(seed), 2)), dim=-1).reshape(-1)[:n]
+
+
 def _unit(words: torch.Tensor) -> torch.Tensor:
     """uint32 words -> float32 in [0, 1) from their top 24 bits."""
     return (words >> 8).to(torch.float32) * (1.0 / (1 << 24))
@@ -78,6 +92,22 @@ def uniform(seed, shape, device) -> torch.Tensor:
     counter k, in row-major order."""
     n = math.prod(shape)
     return _unit(_words(seed, n, device)[0]).reshape(shape)
+
+
+def uniform4(seed, shape, device) -> torch.Tensor:
+    """float32 uniforms in [0, 1) of ``shape`` from ``seed`` (an int or a
+    one-element integer tensor on ``device``), four a counter: element
+    ``4k + j`` (row-major) is word ``j`` of counter ``k``."""
+    return _unit(_words4(seed, math.prod(shape), device)).reshape(shape)
+
+
+def randint(seed, high: int, shape, device) -> torch.Tensor:
+    """int64 integers in ``[0, high)`` of ``shape`` from ``seed``: the
+    :func:`uniform4` stream's words modulo ``high`` (uniform with replacement,
+    a bias below ``high / 2**32``)."""
+    if not 1 <= high <= 1 << 32:
+        raise ValueError(f"randint draws from [0, high) with 1 <= high <= 2**32; got {high}")
+    return (_words4(seed, math.prod(shape), device) % high).reshape(shape)
 
 
 def normal(seed, shape, device) -> torch.Tensor:

@@ -5,8 +5,10 @@
 // computed on the host (float32 pow), given as launch arguments or, with
 // corr != nullptr, read from corr[0], corr[1] in device memory (the TPU
 // kernel's SMEM corr operand: a step captured in a CUDA graph reads each
-// step's corrections from a table the host fills once; lr, b1, b2, eps and wd
-// stay launch arguments, static as in adam_update_flat):
+// step's corrections from a table the host fills once). With corr_n == 3 the
+// rate is read from corr[2] too (a schedule's rate for this step, the one
+// optax computes inside the JAX step) instead of the lr argument; b1, b2,
+// eps and wd stay launch arguments, static as in adam_update_flat:
 //   mu = b1*mu + (1-b1)*g
 //   nu = b2*nu + ((1-b2)*g)*g
 //   u  = (mu/c1) / (sqrt(nu/c2) + eps)
@@ -115,11 +117,12 @@ __device__ __forceinline__ void store4(__nv_bfloat16* m, const float v[4]) {
 template <typename MuT, bool kDecay>
 __global__ void __launch_bounds__(kThreads)
 fused_adam_kernel(const __grid_constant__ AdamTable t, const AdamScalars scalars,
-                  const float* __restrict__ corr) {
+                  const float* __restrict__ corr, int corr_n) {
   AdamScalars s = scalars;
   if (corr != nullptr) {
     s.c1 = corr[0];
     s.c2 = corr[1];
+    if (corr_n == 3) s.lr = corr[2];
   }
   const long long total = t.chunk_start[t.count];
   for (long long c = blockIdx.x; c < total; c += gridDim.x) {
@@ -168,26 +171,28 @@ fused_adam_kernel(const __grid_constant__ AdamTable t, const AdamScalars scalars
 }
 
 template <bool kDecay>
-void launch(const AdamTable& t, const AdamScalars& s, const float* corr, int mu_bf16, unsigned int grid,
-            cudaStream_t st) {
+void launch(const AdamTable& t, const AdamScalars& s, const float* corr, int corr_n, int mu_bf16,
+            unsigned int grid, cudaStream_t st) {
   if (mu_bf16)
-    fused_adam_kernel<__nv_bfloat16, kDecay><<<grid, kThreads, 0, st>>>(t, s, corr);
+    fused_adam_kernel<__nv_bfloat16, kDecay><<<grid, kThreads, 0, st>>>(t, s, corr, corr_n);
   else
-    fused_adam_kernel<float, kDecay><<<grid, kThreads, 0, st>>>(t, s, corr);
+    fused_adam_kernel<float, kDecay><<<grid, kThreads, 0, st>>>(t, s, corr, corr_n);
 }
 
 }  // namespace
 
 // table: count rows of (p, g, mu, nu, numel) as 64-bit words, in host memory.
 // mu_bf16: 0 when every mu is float32, 1 when every mu is bfloat16.
-// corr: nullptr takes c1 and c2; else the kernel reads (c1, c2) from these
-// two float32 values in device memory.
+// corr: nullptr takes c1 and c2; else the kernel reads (c1, c2) from the
+// first two of corr_n (2 or 3) float32 values in device memory, and with 3
+// the rate from the third (lr is then not read).
 // wd: optax.adamw's weight decay; 0 takes Adam's kernel.
 extern "C" int rnagan_fused_adam(const unsigned long long* table, int count, int mu_bf16,
                                  float lr, float b1, float b2, float omb1, float omb2,
-                                 float eps, float c1, float c2, const float* corr, float wd,
-                                 void* stream) {
+                                 float eps, float c1, float c2, const float* corr, int corr_n,
+                                 float wd, void* stream) {
   if (count < 1 || count > kMaxTensors) return (int)cudaErrorInvalidValue;
+  if (corr != nullptr && corr_n != 2 && corr_n != 3) return (int)cudaErrorInvalidValue;
   AdamTable t;
   long long chunks = 0;
   for (int i = 0; i < count; ++i) {
@@ -212,8 +217,8 @@ extern "C" int rnagan_fused_adam(const unsigned long long* table, int count, int
   const unsigned int grid = chunks < 65535 ? (unsigned int)chunks : 65535u;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (wd != 0.0f)
-    launch<true>(t, s, corr, mu_bf16, grid, st);
+    launch<true>(t, s, corr, corr_n, mu_bf16, grid, st);
   else
-    launch<false>(t, s, corr, mu_bf16, grid, st);
+    launch<false>(t, s, corr, corr_n, mu_bf16, grid, st);
   return (int)cudaGetLastError();
 }

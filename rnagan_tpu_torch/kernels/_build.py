@@ -39,8 +39,8 @@ SIGNATURES = {
     "rnagan_infused_noise_group": [_P, _LL, _P, _P, _P, _P, _I, _I, _LL, _U, _F, _I, _P],
     # x, out, n, hw, stream
     "rnagan_tanh_to_uint8": [_P, _P, _I, _I, _P],
-    # table, count, mu_bf16, lr, b1, b2, 1-b1, 1-b2, eps, c1, c2, corr, wd, stream
-    "rnagan_fused_adam": [_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _F, _P],
+    # table, count, mu_bf16, lr, b1, b2, 1-b1, 1-b2, eps, c1, c2, corr, corr_n, wd, stream
+    "rnagan_fused_adam": [_P, _I, _I, _F, _F, _F, _F, _F, _F, _F, _F, _P, _I, _F, _P],
     # x, xb scratch, w_q, scale, bias, out, n, k, m, tile_n, stream
     "rnagan_int8_matmul_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, xb scratch, w_q, scale, bias, out, n, k, m, stream

@@ -19,7 +19,13 @@ use_fast_variance=True)`` and ``nn.Dropout``):
   (``0.9 * old + 0.1 * batch``, the variance the biased one) into the
   ``BatchNorm1d`` buffers in place;
 * dropout is :func:`dropout`: ``where(keep, x / keep_prob, 0)``, its mask
-  drawn from a given ``torch.Generator`` or given outright.
+  given outright, or drawn from a seed's Philox stream (:func:`draw_keep`,
+  what the trainer's steps use) or from a ``torch.Generator``.
+
+The reparametrization's ``eps`` is given, or drawn from a seed
+(:func:`draw_eps`) or a generator. A seed is a host int or a one-element
+integer tensor on the device (``core/rng.py``): a step captured in a CUDA
+graph reads it from a table, and draws the bits the eager step draws.
 
 Eval mode normalizes with the running statistics (``F.batch_norm``). The
 forward reparametrizes in both modes, as the reference does.
@@ -49,27 +55,43 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rnagan_tpu_torch.core import rng
 from rnagan_tpu_torch.core.config import VAEModelConfig
 from rnagan_tpu_torch.core.device import compute_dtype
 from rnagan_tpu_torch.models.batchnorm import batch_norm
 from rnagan_tpu_torch.parallel import collectives
 
 
+def draw_keep(seed, shape, rate: float, device) -> torch.Tensor:
+    """The dropout mask ``U[0, 1) < 1 - rate`` (bool, ``shape``), its
+    uniforms four a Philox counter from ``seed`` (``core/rng.py::uniform4``)."""
+    return rng.uniform4(seed, shape, device) < 1.0 - rate
+
+
+def draw_eps(seed, shape, device) -> torch.Tensor:
+    """The reparametrization's standard normals (float32, ``shape``) from ``seed``."""
+    return rng.normal(seed, shape, device)
+
+
 def dropout(x: torch.Tensor, rate: float, keep: Optional[torch.Tensor] = None,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None, seed=None) -> torch.Tensor:
     """flax ``nn.Dropout``'s arithmetic: ``where(keep, x / keep_prob, 0)``
     with ``keep_prob = 1 - rate`` in ``x``'s dtype, divided as a tensor on
     ``x``'s device (so the division is IEEE on the card too; ``torch.full``
     fills it there, where ``torch.tensor`` would copy it from the host and
     wait for the stream). ``keep`` (bool, ``x``'s shape) is the mask; without
-    it, ``keep = U[0, 1) < keep_prob`` from ``generator``."""
+    it, ``keep = U[0, 1) < keep_prob`` from ``seed`` (:func:`draw_keep`) or
+    from ``generator``."""
     if rate == 0.0:
         return x
     keep_prob = 1.0 - rate
     if keep is None:
-        if generator is None:
-            raise ValueError("dropout needs a keep mask or a torch.Generator to draw one")
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        if seed is not None:
+            keep = draw_keep(seed, x.shape, rate, x.device)
+        elif generator is not None:
+            keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+        else:
+            raise ValueError("dropout needs a keep mask, a seed or a torch.Generator to draw one")
     scale = torch.full((), keep_prob, dtype=x.dtype, device=x.device)
     return torch.where(keep.to(x.device, torch.bool), x / scale, torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -82,8 +104,8 @@ class Dropout(nn.Module):
         self.rate = rate
 
     def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return dropout(x, self.rate, keep, generator) if self.training else x
+                generator: Optional[torch.Generator] = None, seed=None) -> torch.Tensor:
+        return dropout(x, self.rate, keep, generator, seed) if self.training else x
 
 
 def _block(fan_in: int, width: int, slope: float, device) -> nn.Sequential:
@@ -143,8 +165,8 @@ class RNAEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor, dt: torch.dtype = torch.float32,
                 keep: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = self.encoder[0](x.to(dt), keep, generator)
+                generator: Optional[torch.Generator] = None, seed=None) -> torch.Tensor:
+        x = self.encoder[0](x.to(dt), keep, generator, seed)
         for block in self.encoder[1:]:
             x = _apply_block(block, x, dt, self.slope)
         return x
@@ -187,12 +209,13 @@ class BetaVAE(nn.Module):
         return compute_dtype(self.cfg.compute_dtype)
 
     def encode(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None
+               generator: Optional[torch.Generator] = None, seed=None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Returns ``(z_mean, z_logvar, x_encoded)`` (reference ``betaVAE.py:102-107``).
-        In train mode the input dropout takes ``keep`` or draws it from ``generator``."""
+        In train mode the input dropout takes ``keep`` or draws it from
+        ``seed`` or ``generator``."""
         dt = self._dt
-        x_encoded = self.encoder(x, dt, keep, generator)
+        x_encoded = self.encoder(x, dt, keep, generator, seed)
         z_mean = _whole(self.z_mu, _linear(self.z_mu, x_encoded, dt)).float()
         z_logvar = _whole(self.z_logvar, _linear(self.z_logvar, x_encoded, dt)).float()
         return z_mean, z_logvar, x_encoded
@@ -217,11 +240,16 @@ class BetaVAE(nn.Module):
         return z_mean + eps.to(std.device, std.dtype) * std
 
     def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None, *,
-                keep: Optional[torch.Tensor] = None, eps: Optional[torch.Tensor] = None):
+                keep: Optional[torch.Tensor] = None, eps: Optional[torch.Tensor] = None, seeds=None):
         """``(x_recons, z_mean, z_logvar)``. The reference reparametrizes in
-        eval mode too (``betaVAE.py:109-115``). ``generator`` draws what is not
-        given: the dropout mask (train mode) first, then ``eps``."""
-        z_mean, z_logvar, _ = self.encode(x, keep, generator)
+        eval mode too (``betaVAE.py:109-115``). What is not given is drawn:
+        with ``seeds`` = (mask seed, eps seed), each from its own seed
+        (:func:`draw_keep`, :func:`draw_eps`); else from ``generator``, the
+        dropout mask (train mode) first, then ``eps``."""
+        mask_seed, eps_seed = seeds if seeds is not None else (None, None)
+        z_mean, z_logvar, _ = self.encode(x, keep, generator, mask_seed)
+        if eps is None and eps_seed is not None:
+            eps = draw_eps(eps_seed, z_mean.shape, z_mean.device)
         z = self.reparametrize(z_mean, z_logvar, generator, eps)
         return self.decode(z), z_mean, z_logvar
 

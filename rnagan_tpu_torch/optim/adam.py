@@ -8,7 +8,8 @@ corrections ``1 - b1^t`` and ``1 - b2^t`` on the host in float32 (as
 ``ops/fused_adam.py:87-89`` does), launches K3 once over every tensor and
 advances the count. A step captured in a CUDA graph passes ``corr``, the same
 two float32 values in device memory, read by the kernel on every replay
-(``train/step_graph.py``). With ``mu_dtype=torch.bfloat16``, ``mu`` is stored in
+(``train/step_graph.py``), or three: the β-VAE's scheduled rate after them
+(``optim/scheduled.py``). With ``mu_dtype=torch.bfloat16``, ``mu`` is stored in
 bfloat16 and the kernel computes in float32 from the stored value (optax's
 ``mu_dtype``); ``nu`` stays float32.
 
@@ -52,18 +53,20 @@ class Adam:
              lr: Optional[float] = None, corr: Optional[torch.Tensor] = None) -> None:
         """One update of ``params`` in place (one K3 launch on the card), at
         ``lr`` when given (a schedule's rate for this step) or at ``self.lr``.
-        ``corr`` (float32 (2,) on the device) gives this step's bias
-        corrections, ``bias_corrections(count + 1)``, from device memory;
-        without it they are computed here. A gradient whose strides differ
-        from its contiguous parameter's (the CPU's convolution backward may
-        return one in channels-last order) is made contiguous first, so
-        element i of each buffer is one weight."""
+        ``corr`` (float32 on the device) gives this step's bias corrections,
+        ``bias_corrections(count + 1)``, from device memory: (2,), or (3,)
+        with the step's rate after them (``lr`` then None); without it they
+        are computed here. A gradient whose strides differ from its
+        contiguous parameter's (the CPU's convolution backward may return one
+        in channels-last order) is made contiguous first, so element i of
+        each buffer is one weight."""
         c1 = c2 = None
         if corr is None:
             c1, c2 = bias_corrections(self.count + 1, self.b1, self.b2)
+        rate = None if corr is not None and corr.shape[0] == 3 else (self.lr if lr is None else float(lr))
         with torch.no_grad():
             fused_adam([p.detach() for p in params], [g.contiguous() for g in grads],
-                       self.mu, self.nu, c1=c1, c2=c2, lr=self.lr if lr is None else float(lr),
+                       self.mu, self.nu, c1=c1, c2=c2, lr=rate,
                        b1=self.b1, b2=self.b2, eps=self.eps, wd=self.weight_decay, corr=corr)
         self.count += 1
 

@@ -17,11 +17,22 @@ and ``radam``. :class:`ScheduledOptimizer` is that chain:
 
 Each rule's update lands as ``p + (-lr) * u``, which is optax's
 ``apply_updates`` of ``scale_by_learning_rate``.
+
+A step captured in a CUDA graph (``train/vae_trainer.py``) cannot ask the
+host for its rate. :meth:`ScheduledOptimizer.plan` computes, on the host and
+with the same functions as the eager step, one float32 row a step,
+``(c1, c2, lr, r)``: the bias corrections, the schedule's rate and RAdam's
+rectification (0 where it does not rectify), and RAdam's choice a step,
+rectified or not, which is a variant of the graph. ``step(..., row=...)``
+reads the row from device memory: Adam hands ``(c1, c2, lr)`` to K3, SGD and
+RAdam multiply by 0-dim tensors of the row. A float32 product by a 0-dim
+tensor rounds as the product by the same float32 number, so both forms of a
+step give the same bits.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,10 +52,13 @@ class SGD:
         self.mu: List[torch.Tensor] = []
         self.nu: List[torch.Tensor] = []
 
-    def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], lr: float) -> None:
+    def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], lr: Optional[float] = None,
+             row: Optional[torch.Tensor] = None, rectified: Optional[bool] = None) -> None:
+        """``p - lr * g``; the rate ``lr``, or ``row[2]`` in device memory."""
         with torch.no_grad():
+            neg_lr = -float(lr) if row is None else -row[2]
             for p, g in zip(params, grads, strict=True):
-                p.add_(g * -float(lr))
+                p.add_(g * neg_lr)
 
 
 class RAdam:
@@ -73,19 +87,30 @@ class RAdam:
         den = _F((ro_inf - 4.0) * (ro_inf - 2.0)) * ro
         return _F(np.sqrt(num / den))
 
-    def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], lr: float) -> None:
+    def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], lr: Optional[float] = None,
+             row: Optional[torch.Tensor] = None, rectified: Optional[bool] = None) -> None:
+        """One step at ``lr``, its corrections and ``r`` computed here; or
+        from ``row`` = ``(c1, c2, lr, r)`` in device memory, ``rectified``
+        saying whether this step uses ``r`` (:meth:`ScheduledOptimizer.plan`)."""
         t = self.count + 1
-        c1, c2 = bias_corrections(t, self.b1, self.b2)
-        r = self.rectification(t)
         with torch.no_grad():
-            dev = params[0].device
-            c1, c2 = torch.full((), c1, device=dev), torch.full((), c2, device=dev)
+            if row is None:
+                c1, c2 = bias_corrections(t, self.b1, self.b2)
+                r = self.rectification(t)
+                dev = params[0].device
+                c1, c2 = torch.full((), c1, device=dev), torch.full((), c2, device=dev)
+                r = None if r is None else float(r)
+                neg_lr = -float(lr)
+            else:
+                if rectified is None:
+                    raise ValueError("a RAdam step from a row needs rectified=True or False")
+                c1, c2, r, neg_lr = row[0], row[1], row[3] if rectified else None, -row[2]
             for p, g, mu, nu in zip(params, grads, self.mu, self.nu, strict=True):
                 mu.copy_(g * (1.0 - self.b1) + mu * self.b1)
                 nu.copy_((g * g) * (1.0 - self.b2) + nu * self.b2)
                 mu_hat = mu / c1
-                upd = mu_hat if r is None else (mu_hat * float(r)) / (torch.sqrt(nu / c2) + self.eps)
-                p.add_(upd * -float(lr))
+                upd = mu_hat if r is None else (mu_hat * r) / (torch.sqrt(nu / c2) + self.eps)
+                p.add_(upd * neg_lr)
         self.count = t
 
 
@@ -102,12 +127,34 @@ class ScheduledOptimizer:
         """This step's rate."""
         return float(self.schedule(self.count))
 
-    def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor]) -> None:
-        lr = self.lr()
+    def plan(self, k: int) -> Tuple[torch.Tensor, List[Optional[bool]]]:
+        """The next ``k`` steps' rows, a float32 (k, 4) CPU tensor of
+        ``(c1, c2, lr, r)`` (the bias corrections at the rule's count, the
+        schedule's rate at this count, RAdam's ``r`` or 0), and each step's
+        variant: RAdam's rectified-or-not, None for Adam and SGD. The host
+        computes them as :meth:`step` does without a row; nothing advances."""
+        rows, variants = [], []
+        for i in range(k):
+            t = self.rule.count + 1 + i
+            c1, c2 = bias_corrections(t, self.rule.b1, self.rule.b2) if self.name != "sgd" else (1.0, 1.0)
+            r = self.rule.rectification(t) if self.name == "radam" else None
+            rows.append([c1, c2, float(self.schedule(self.count + i)), 0.0 if r is None else float(r)])
+            variants.append(r is not None if self.name == "radam" else None)
+        return torch.tensor(rows, dtype=torch.float32).reshape(k, 4), variants
+
+    def step(self, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+             row: Optional[torch.Tensor] = None, variant: Optional[bool] = None) -> None:
+        """One step at the schedule's rate for this count, or from ``row``,
+        this step's row of :meth:`plan` in device memory, and its ``variant``."""
         if self.weight_decay:
             with torch.no_grad():
                 grads = [g + p.detach() * self.weight_decay for p, g in zip(params, grads, strict=True)]
-        self.rule.step(params, grads, lr=lr)
+        if row is None:
+            self.rule.step(params, grads, lr=self.lr())
+        elif self.name == "adam":
+            self.rule.step(params, grads, corr=row[:3])
+        else:
+            self.rule.step(params, grads, row=row, rectified=variant)
         self.count += 1
 
     def state_dict(self) -> Dict[str, Any]:

@@ -58,17 +58,21 @@ reductions (the JAX package's sharding claim,
   grids and bundles; every rank reads them.
 
 One program a step (the JAX trainer's ``jax.jit(_train_step_impl,
-donate_argnums=(0,))``, ``:148``): on a CUDA device with one rank, ``dcgan``,
-``dcgan_up`` and ``condgan`` steps (every loss, ``compat_reference_gp``,
-``n_critic``, the EMA, the projection critic, ``clip``) replay a CUDA graph
-of the step (``train/step_graph.py``), captured at the first step of a state.
+donate_argnums=(0,))``, ``:148``): on a CUDA device with one rank, the steps
+of every arch (every loss, ``compat_reference_gp``, ``n_critic``, the EMA,
+the projection critic, ``clip``, BigGAN's remat) replay a CUDA graph of the
+step (``train/step_graph.py``), captured at the first step of a state.
+SAGAN's and BigGAN's spectral-norm pairs ``(u, sigma)`` are ``copy_``'d into
+the state's own tensors with BatchNorm's statistics; BigGAN's checkpointed
+blocks keep ``preserve_rng_state=False`` (reading a CUDA generator's state
+during a capture raises, and the blocks draw nothing).
 The step's seeds (``SeedStream.table``) and Adam bias corrections are rows
 of device tables that K1 and K3 read on the device; the GP's eps and the
 normal noise come from Philox streams keyed by those seeds
 (``core/rng.py``). :meth:`GANTrainer.train_step_eager`, the step op by op
-from the host with host-int seeds, is its plain version: it runs on the CPU,
-for SAGAN and BigGAN, and under a mesh of more than one rank (gloo's
-collectives cannot be captured), and draws the same bits. A failed capture
+from the host with host-int seeds, is its plain version: it runs on the CPU
+and under a mesh of more than one rank (gloo's collectives cannot be
+captured), and draws the same bits. A failed capture
 raises; nothing falls back to the eager step.
 
 Unlike the JAX step, which is pure, ``train_step`` updates the state in place
@@ -115,7 +119,7 @@ _STAGES = {"d": 0, "gp": 1, "g": 2, "eps": 3}
 #: a step's metrics, in the order of its vectors (``gp`` for the wgan family only)
 METRICS = ("d_loss", "dx", "dgz", "gp", "g_loss")
 #: the archs whose one-rank CUDA step is a captured graph
-CAPTURED_ARCHS = ("dcgan", "dcgan_up", "condgan")
+CAPTURED_ARCHS = ("dcgan", "dcgan_up", "condgan", "sagan", "biggan")
 #: the step graphs a trainer keeps (a graph pins its state and its memory pool)
 MAX_GRAPHS = 4
 #: a step's given draws, as ``draws`` keys and table names
@@ -294,7 +298,7 @@ class GANTrainer:
 
     def captures(self) -> bool:
         """Whether :meth:`train_step` runs as a captured CUDA graph: on a
-        CUDA device, one rank, ``dcgan``/``dcgan_up``/``condgan``."""
+        CUDA device with one rank (every arch of ``CAPTURED_ARCHS``)."""
         return (self.device.type == "cuda" and self.mesh.world == 1
                 and self.cfg.model.arch in CAPTURED_ARCHS)
 
@@ -311,10 +315,10 @@ class GANTrainer:
         the metrics (``d_loss``, ``dx``, ``dgz``, ``gp``, ``g_loss``, of the
         global batch) are 0-dim float tensors.
 
-        On a CUDA device with one rank, ``dcgan``, ``dcgan_up`` and
-        ``condgan`` (every loss and option) run as a captured CUDA graph
-        (:meth:`run_steps`); SAGAN, BigGAN, a mesh of several ranks and the
-        CPU run :meth:`train_step_eager`. Both draw the same bits."""
+        On a CUDA device with one rank, every arch (every loss and option)
+        runs as a captured CUDA graph (:meth:`run_steps`); a mesh of several
+        ranks and the CPU run :meth:`train_step_eager`. Both draw the same
+        bits."""
         if not self.captures():
             return self.train_step_eager(state, batch, draws)
         rows = {k: t[None] for k, t in self._host_batch(batch, draws).items()}
@@ -324,7 +328,7 @@ class GANTrainer:
     def train_step_eager(self, state: GANTrainState, batch: Dict[str, Any],
                          draws: Optional[Dict[str, Any]] = None):
         """:meth:`train_step` op by op from the host: the step's plain
-        version, and the step of the archs and meshes that are not captured.
+        version, and the step of the CPU and of meshes of several ranks.
         Its seeds are host ints (K1's group mode takes them so), the graph's
         device scalars of the same values."""
         dev = self.device
@@ -401,27 +405,35 @@ class GANTrainer:
 
     def _graph(self, state: GANTrainState, tables, prepare, capacity: int) -> StepGraph:
         """The state's graphs for these tables, ``prepare`` and capacity
-        (built here at the first use; the last ``MAX_GRAPHS`` are kept)."""
+        (built here at the first use; the last ``MAX_GRAPHS`` are kept). The
+        key holds the nets' configs too: replacing ``net.cfg`` (BigGAN's
+        ``remat``) changes the program."""
         live = self._state_tensors(state)
         flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
                  torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-        key = (id(state.generator), id(state.discriminator), tuple(t.data_ptr() for t in live), id(prepare),
+        key = (id(state.generator), id(state.discriminator), state.generator.cfg, state.discriminator.cfg,
+               tuple(t.data_ptr() for t in live), id(prepare),
                tuple((k, tuple(t.shape[1:]), t.dtype) for k, t in sorted(tables.items())), capacity, flags)
         graph = self._graphs.pop(key, None)
         if graph is None:
-            keys = self.metric_keys()
-
-            def body(run_g, rows):
-                with collectives.active(self.mesh):
-                    metrics = self._step(state, prepare(rows), _draws_of(rows), rows["seeds"], rows["corr"], run_g)
-                return torch.stack([metrics[k].float().reshape(()) for k in keys])
-
-            # body holds state and prepare: the ids in the key stay theirs while the graph lives
-            graph = StepGraph(body, tables, capacity, live, self.device)
+            # the body holds state and prepare: the ids in the key stay theirs while the graph lives
+            graph = StepGraph(self._body(state, prepare), tables, capacity, live, self.device)
             while len(self._graphs) >= MAX_GRAPHS:
                 self._graphs.pop(next(iter(self._graphs)))
         self._graphs[key] = graph
         return graph
+
+    def _body(self, state: GANTrainState, prepare) -> Callable[[bool, Dict[str, torch.Tensor]], torch.Tensor]:
+        """What a graph captures: ``body(run_g, rows)`` runs one step from a
+        row of every table (the seeds and bias corrections as device
+        tensors) and returns its metrics vector."""
+        keys = self.metric_keys()
+
+        def body(run_g, rows):
+            with collectives.active(self.mesh):
+                metrics = self._step(state, prepare(rows), _draws_of(rows), rows["seeds"], rows["corr"], run_g)
+            return torch.stack([metrics[k].float().reshape(()) for k in keys])
+        return body
 
     def _step(self, state: GANTrainState, batch: Dict[str, torch.Tensor], draws, seeds, corr, run_g: bool):
         """The step's device work (``_train_step_impl``): ``batch`` and

@@ -1,14 +1,16 @@
 """A training step as a captured CUDA graph: the port's ``jax.jit(...,
-donate_argnums=(0,))`` (``rnagan_tpu/train/gan_trainer.py:148``) and the
-quality tool's scanned epoch (``tools/quality_run.py:143-175``).
+donate_argnums=(0,))`` (``rnagan_tpu/train/gan_trainer.py:148``,
+``rnagan_tpu/train/vae_trainer.py:92-93``) and the quality tool's scanned
+epoch (``tools/quality_run.py:143-175``).
 
 :class:`StepGraph` captures a step function once per *variant* (the GAN
-step's variants are whether its G stage runs) into a ``torch.cuda.CUDAGraph``
-and replays it. What changes from step to step lives in static device
+step's variants are whether its G stage runs, the β-VAE's whether RAdam
+rectifies) into a ``torch.cuda.CUDAGraph`` and replays it. What changes from step to step lives in static device
 buffers that every variant reads:
 
 * **tables**: one row per step, ``capacity`` rows (the batch or the ids it is
-  rendered from, given draws, the step's seeds and Adam bias corrections).
+  rendered from, given draws, the step's seeds and the optimizer's bias
+  corrections and rate).
   :meth:`StepGraph.load` fills rows ``[0, k)`` for the next ``k`` steps with
   one copy each (from pinned memory when the host holds them) and sets the
   step counter to 0;
@@ -41,7 +43,7 @@ caller's choice, never a silent fallback.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Hashable, List, Sequence, Tuple
+from typing import Any, Callable, Dict, Hashable, List, Sequence, Tuple
 
 import torch
 
@@ -63,14 +65,14 @@ def _set_counts(values: Sequence[int]) -> None:
 
 
 class StepGraph:
-    """``fn(variant, rows) -> 1-D tensor`` captured once per variant.
+    """``fn(variant, rows) -> tensor`` (or a tuple of tensors) captured once per variant.
 
     ``rows`` maps each table's name to its row at the device counter.
     ``tables`` gives each table's row shape and dtype (a tensor whose first
     dimension is the step); ``state`` lists every tensor ``fn`` writes in
     place, snapshotted around the warm-up."""
 
-    def __init__(self, fn: Callable[[Hashable, Dict[str, torch.Tensor]], torch.Tensor],
+    def __init__(self, fn: Callable[[Hashable, Dict[str, torch.Tensor]], Any],
                  tables: Dict[str, torch.Tensor], capacity: int, state: Sequence[torch.Tensor], device):
         device = torch.device(device)
         if device.type != "cuda" or not torch.cuda.is_available():
@@ -83,7 +85,7 @@ class StepGraph:
                        for name, t in tables.items()}
         self.counter = torch.zeros((), dtype=torch.int64, device=device)
         #: variant -> (graph, its output, the launch counters' deltas a replay adds)
-        self.graphs: Dict[Hashable, Tuple[torch.cuda.CUDAGraph, torch.Tensor, List[int]]] = {}
+        self.graphs: Dict[Hashable, Tuple[torch.cuda.CUDAGraph, Any, List[int]]] = {}
         #: device memory the captures reserved (their pools), bytes
         self.pool_bytes = 0
 
@@ -100,9 +102,9 @@ class StepGraph:
             self.tables[name][:steps].copy_(t[:steps], non_blocking=True)
         self.counter.zero_()
 
-    def replay(self, variant: Hashable) -> torch.Tensor:
+    def replay(self, variant: Hashable) -> Any:
         """One step of ``variant`` (captured at its first replay). The output
-        is the graph's static tensor: the next replay overwrites it."""
+        is the graph's static tensor (or tuple): the next replay overwrites it."""
         if variant not in self.graphs:
             self._capture(variant)
         graph, out, deltas = self.graphs[variant]
@@ -116,7 +118,7 @@ class StepGraph:
         at = self.counter.reshape(1)
         return {name: t.index_select(0, at)[0] for name, t in self.tables.items()}
 
-    def _run(self, variant) -> torch.Tensor:
+    def _run(self, variant) -> Any:
         out = self.fn(variant, self._rows())
         self.counter.add_(1)
         return out

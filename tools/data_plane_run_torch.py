@@ -66,8 +66,6 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-#: the seed of the VAE pre-train's row draws (the JAX tool's key 11)
-VAE_ROWS_SEED = 11
 #: the key of a batch's card-copy event, taken out before the step sees the batch
 _EVENT = "_copy_event"
 
@@ -126,27 +124,20 @@ def model_configs(args, genes: int):
 
 
 def pretrain_vae(expr_norm: np.ndarray, epochs: int, model_cfg, device):
-    """A short beta-VAE pre-train on the corpus expression, held on the card:
-    ``epochs * max(rows // batch, 1)`` steps of ``batch = min(64, rows)`` rows
-    drawn uniformly (a generator of ``SeedStream(11)`` a step), one K3 launch
-    a step. Returns its state_dict."""
+    """A short beta-VAE pre-train on the corpus expression, held on the card
+    (the JAX tool's resident-matrix scan): ``epochs * max(rows // batch, 1)``
+    steps of ``batch = min(64, rows)`` rows drawn uniformly with replacement
+    from each step's seed (``VAETrainer.run_resident``), one K3 launch a
+    step. Returns its state_dict."""
     from rnagan_tpu_torch.core.config import VAEConfig
-    from rnagan_tpu_torch.core.rng import SeedStream
     from rnagan_tpu_torch.train.vae_trainer import VAETrainer
 
     trainer = VAETrainer(VAEConfig(model=model_cfg, num_epochs=epochs, batch_size=64), device=device)
     train_dev = torch.as_tensor(expr_norm, dtype=torch.float32).to(trainer.device)
     batch = min(64, len(expr_norm))
-    steps = epochs * max(len(expr_norm) // batch, 1)
-    ones = torch.ones(batch, device=trainer.device)
-    seeds = SeedStream(VAE_ROWS_SEED)
-    state, total = trainer.init_state(), []
-    for i in range(steps):
-        gen = seeds.generator("vae_rows", i, device=trainer.device)
-        idx = torch.randint(0, len(train_dev), (batch,), generator=gen, device=trainer.device)
-        state, losses = trainer.train_step(state, train_dev[idx], ones)
-        total.append(losses["total_loss"])
-    print(f"[vae] {epochs} epochs, final train loss {float(torch.stack(total).mean()):.4f}", flush=True)
+    state = trainer.init_state()
+    tl = trainer.run_resident(state, train_dev, epochs * max(len(expr_norm) // batch, 1), batch)
+    print(f"[vae] {epochs} epochs, final train loss {float(tl):.4f}", flush=True)
     return state.model.state_dict()
 
 

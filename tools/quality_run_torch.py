@@ -14,8 +14,10 @@ Steps, in the JAX tool's order:
 
 1. the corpus on the device (latents, gene map, expression);
 2. host log + standardize of the expression (``data/rna.py``);
-3. the beta-VAE pre-trained on it through ``VAETrainer`` (best on validation
-   kept; wganvae only);
+3. the beta-VAE pre-trained on it as the JAX tool does (:func:`train_vae`:
+   resident rows drawn with replacement, 25-epoch chunks, the full
+   validation set's reconstruction error, the best chunk kept; wganvae
+   only);
 4. the epochs: an epoch runs in chunks of at most ``--steps_per_dispatch``
    steps (the JAX tool's scanned dispatches). A chunk draws its steps'
    (slide, tile) ids at once on the device and is one call of
@@ -129,24 +131,49 @@ def normalized_expression(corpus):
     return scaler.transform(logged), scaler
 
 
+#: epochs of the VAE pre-train run between two validations (the JAX tool's ``chunk_epochs``)
+VAE_CHUNK_EPOCHS = 25
+
+
 def train_vae(args, expr_norm, device):
-    """The beta-VAE pre-trained on the corpus expression (bfloat16, batch 64),
-    the first fifth of the slides held out for validation: ``(state_dict of
-    the best epoch on validation, model config, seconds)``. The matrix goes
-    to the device once."""
-    from rnagan_tpu_torch.core.config import VAEConfig, VAEModelConfig
+    """The beta-VAE pre-trained on the corpus expression as the JAX tool
+    pre-trains it (``tools/quality_run.py:76-138``): the matrix resident on
+    the device, the first fifth of the slides held out (``n_val = max(n //
+    5, 1)``), ``batch = min(64, n - n_val)``; chunks of ``VAE_CHUNK_EPOCHS``
+    epochs of ``max((n - n_val) // batch, 1)`` steps, each step on ``batch``
+    rows drawn uniformly with replacement (``VAETrainer.run_resident``: one
+    enqueued run of captured steps on the card), then the full validation
+    set's eval-mode ``mean((out - val)^2)`` (``VAETrainer.val_recons``) and
+    one fetch of the two floats; the best chunk's variables kept as a device
+    copy. The VAE is :func:`vae_model_config`'s (bfloat16). Returns
+    ``(state_dict of the best chunk, model config, seconds)``."""
+    from rnagan_tpu_torch.core.config import VAEConfig
     from rnagan_tpu_torch.train.vae_trainer import VAETrainer
 
-    model_cfg = VAEModelConfig(rna_features=expr_norm.shape[1], compute_dtype="bfloat16")
+    model_cfg = vae_model_config(argparse.Namespace(smoke=args.smoke, genes=expr_norm.shape[1]))
     trainer = VAETrainer(VAEConfig(model=model_cfg, num_epochs=args.vae_epochs, batch_size=64), device=device)
-    data = torch.as_tensor(expr_norm).to(trainer.device)
-    n_val = max(len(data) // 5, 1)
+    data = torch.as_tensor(expr_norm, dtype=torch.float32).to(trainer.device)
+    n = len(data)
+    n_val = max(n // 5, 1)
+    train_dev, val_dev = data[n_val:], data[:n_val]
+    batch = min(trainer.cfg.batch_size, n - n_val)
+    steps_per_epoch = max((n - n_val) // batch, 1)
+    state = trainer.init_state()
     t0 = time.perf_counter()
-    best, info = trainer.fit(data[n_val:], data[:n_val])
+    best_val, best_sd = float("inf"), None
+    for start in range(0, args.vae_epochs, VAE_CHUNK_EPOCHS):
+        n_ep = min(VAE_CHUNK_EPOCHS, args.vae_epochs - start)
+        tl = trainer.run_resident(state, train_dev, n_ep * steps_per_epoch, batch)
+        val = trainer.val_recons(state, val_dev, trainer.seeds.seed("val_recons", start))
+        tl, val = torch.stack([tl, val]).tolist()  # a 2-float fetch; ends the chunk
+        print(f"[vae] epoch {start + n_ep}/{args.vae_epochs} train {tl:.4f} "
+              f"val_recons {val:.4f} ({time.perf_counter() - t0:.0f}s)", flush=True)
+        if val < best_val:
+            best_val = val
+            best_sd = {k: v.detach().clone() for k, v in state.model.state_dict().items()}  # on the device
     seconds = time.perf_counter() - t0
-    print(f"[vae] {args.vae_epochs} epochs in {seconds:.1f}s, best val total {info['best_loss']['total_loss']:.4f} "
-          f"at epoch {info['best_epoch']}", flush=True)
-    return best.model.state_dict(), model_cfg, seconds
+    print(f"[vae] done in {seconds:.0f}s best val_recons {best_val:.4f}", flush=True)
+    return (best_sd if best_sd is not None else state.model.state_dict()), model_cfg, seconds
 
 
 def vae_model_config(args):
