@@ -197,7 +197,25 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    BigGAN (remat on) 3 steps captured against 3 eager, bit-equal; and at the
    CLI's widths (bfloat16, batch 8, BigGAN with remat off and on) 5 captured
    steps with K1 and K3 counted (2 launches a step each), bit-equal to 5
-   eager, step ms both ways, a profile and the pool.
+   eager, step ms both ways, a profile and the pool;
+17. the ResNet family's steps as captured programs (run after 16; float32
+   checks with TF32 off and cuDNN deterministic): K3 as AdamW with ``corr =
+   (c1, c2)`` in device memory at ResNet50's 161 tensors, bit-equal to the
+   host-float launch and to its plain version, timed beside its bound and
+   ``torch.optim.AdamW(fused=True)`` (on the ``kernels`` line); small
+   classifier, SimCLR and fusion cases (given and drawn draws) 3 steps
+   captured against 3 eager and the eval steps, bit-equal; ``MLConfig()`` at
+   full width (ResNet50, 224², batch 64, bf16): 10 captured steps with the K3
+   counter set to 0 before and read after (one launch a step), bit-equal to
+   10 eager, the captured eval step, the pool, then (cuDNN as PyTorch
+   defaults it) 5 alternating pairs of eager and captured runs of 5 steps
+   and a profiled replay; ``fit_resident`` for one epoch on 512 drawn uint8
+   tiles captured against eager (the same history, a bit-equal state), its
+   ``resident_epoch`` run under ``torch.cuda.set_sync_debug_mode("error")``
+   so the epoch-end fetch is its one wait, and ``predict_resident``;
+   ``SSLConfig()`` 5 steps and ``FusionConfig()``'s ``fit`` for 2 epochs of
+   8 bags, captured against eager, bit-equal, frozen fusion parameters
+   bit-unchanged.
 
 It prints a details line, the ``{"kernels": [...]}`` line, the card's
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device": ...}``.
@@ -2109,7 +2127,6 @@ def resnet_small_matches_cpu(dev):
 
     tiny = functools.partial(ResNet, BasicBlock, (1, 1, 1, 1), compute_dtype="float32")
     rng = np.random.RandomState(SEED + 10)
-    cpu_gen = torch.Generator().manual_seed(SEED + 10)
     n, side, genes = 8, SMALL_SIDE, 128
     labels = np.arange(n) % 2
     mask = np.r_[np.ones(n - 1), 0.0].astype(np.float32)
@@ -2126,7 +2143,7 @@ def resnet_small_matches_cpu(dev):
         "ssl": (lambda d: SimCLRTrainer(SSLConfig(batch_size=n, image_size=side, projection_hidden=64,
                                                   projection_dim=32), backbone=tiny, device=d),
                 lambda tr: tr.init_state(),
-                {v: draw_view(n, 0.6, cpu_gen, "cpu") for v in "ab"},
+                {v: draw_view(n, 0.6, SEED + 10 + i, "cpu") for i, v in enumerate("ab")},
                 lambda tr, st, k, draws: tr.train_step(st, images[k], draws=draws)),
         "fusion": (lambda d: FusionTrainer(FusionConfig(rna_hidden_dims=(64, 32)), backbone=tiny, device=d),
                    lambda tr: tr.init_state(bags[0].shape[1:], genes),
@@ -2139,7 +2156,7 @@ def resnet_small_matches_cpu(dev):
         cpu, card = make("cpu"), make(dev)
         s_cpu = init(cpu)
         for k in range(5):
-            step(cpu, s_cpu, k, None)  # the trainer's own draws
+            step(cpu, s_cpu, k, warm_draws(name, cpu, s_cpu, n))
         s_card = resnet_state_to(s_cpu, dev)
         frozen = {k: p.detach().clone() for k, p in s_card.model.named_parameters() if not p.requires_grad}
         _, m_cpu = step(cpu, s_cpu, 5, draws)
@@ -2164,6 +2181,29 @@ def resnet_small_matches_cpu(dev):
     return out
 
 
+def warm_draws(name, tr, state, n):
+    """The draws of the small cases' 5 CPU steps: the ones these steps were
+    first run with, from a ``torch.Generator`` a step
+    (``tr.seeds.generator(stream, step)``, drawn in the order the trainers
+    drew them before their draws became Philox streams of the step's seed).
+    From the states that the trainers' own Philox draws reach, the compared
+    step lies within float32 rounding of a kink (a ReLU or max-pool tie):
+    the CPU's own float32 step is then far outside the bounds from a float64
+    one, and the card was 11,909 (classifier) and 5.34 (SimCLR) times them."""
+    g = tr.seeds.generator(tr.stream, state.step)
+    u = lambda *shape: torch.rand(shape, generator=g)  # noqa: E731
+    if name == "ml":
+        return {"flip_h": u(n) < 0.5, "flip_v": u(n) < 0.5}
+    if name == "ssl":
+        def view():
+            r = lambda lo=0.0, hi=1.0: lo + (hi - lo) * u(n)  # noqa: E731
+            return {"scale": r(tr.cfg.crop_scale_min), "off_x": r(), "off_y": r(), "flip_h": r() < 0.5,
+                    "flip_v": r() < 0.5, "brightness": r(-0.2, 0.2), "contrast": r(0.8, 1.2)}
+        return {"a": view(), "b": view()}
+    rna_rows, genes = 4, state.model.rna_encoder.encoder[1][0].in_features
+    return {"keep": u(rna_rows, genes) < 1.0 - state.model.rna_encoder.encoder[0].rate}
+
+
 def drawn_tiles(gen, n, side, dev):
     """``n`` tiles in [0, 1], NHWC, two classes (alternating) apart by a
     shift of the first channel: labels and the float tiles on ``dev``."""
@@ -2173,12 +2213,21 @@ def drawn_tiles(gen, n, side, dev):
     return x, labels
 
 
-def step_costs(step, batch_images, flop_step=None):
-    """A training step's device time (CUDA events over 10 steps after 3), peak
-    memory above the state, FLOPs (``FlopCounterMode`` over one step: convs
-    and matmuls, forward and backward) and 3 profiled steps."""
+def step_flops(step):
+    """FLOPs of one call of ``step``, an eager training step (a graph replay
+    counts none): ``FlopCounterMode``'s convs and matmuls, forward and backward."""
     from torch.utils.flop_counter import FlopCounterMode
 
+    with FlopCounterMode(display=False) as fc:
+        step()
+    return fc.get_total_flops()
+
+
+def step_costs(step, batch_images, flops):
+    """A training step's device time (CUDA events over 10 steps after 3), peak
+    memory above the state (a captured step's activations sit in its graph
+    pool, reserved at the capture), ``flops`` (:func:`step_flops` of the
+    eager step) over that time, and 3 profiled steps."""
     for _ in range(3):
         step()
     torch.cuda.synchronize()
@@ -2186,9 +2235,6 @@ def step_costs(step, batch_images, flop_step=None):
     torch.cuda.reset_peak_memory_stats()
     ms = time_ms(step, iters=10, warmup=0)
     peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-    with FlopCounterMode(display=False) as fc:
-        (flop_step or step)()
-    flops = fc.get_total_flops()
     return {"step_ms": ms, "images_per_s": batch_images / ms * 1e3, "step_tflop": flops / 1e12,
             "tflop_per_s": flops / ms / 1e9, "peak_gib_above_state": peak,
             "profile": profile_training(step)}
@@ -2239,7 +2285,8 @@ def ml_full_width(dev, gen):
 
     xb, yb = x[:cfg.batch_size], y[:cfg.batch_size]
     ones = torch.ones(cfg.batch_size, device=dev)
-    out.update(step_costs(lambda: tr.train_step(st, xb, yb, ones), cfg.batch_size))
+    flops = step_flops(lambda: tr.train_step_eager(copy.deepcopy(st), xb, yb, ones))
+    out.update(step_costs(lambda: tr.train_step(st, xb, yb, ones), cfg.batch_size, flops))
     out["params"] = sum(p.numel() for p in st.model.parameters())
     out["tensors"] = len(st.opt.mu)
     del st, tr, x, y
@@ -2260,6 +2307,10 @@ def ssl_full_width(dev, gen):
     tr = SimCLRTrainer(cfg, backbone=BACKBONE, device=dev)
     st = tr.init_state()
     x, _ = drawn_tiles(gen, cfg.batch_size, cfg.image_size, dev)
+    # counted before the capture: its graph pool and an eager step's activations do not fit the card together
+    flops = step_flops(lambda: tr.train_step_eager(copy.deepcopy(st), x))
+    gc.collect()
+    torch.cuda.empty_cache()
     for _ in range(3):
         tr.train_step(st, x)
     torch.cuda.synchronize()
@@ -2273,7 +2324,7 @@ def ssl_full_width(dev, gen):
            "params": sum(p.numel() for p in st.model.parameters()), "tensors": len(st.opt.mu)}
     check(out["launches"] == 5, f"5 SimCLR steps launched K3 {out['launches']} times")
     check(all(math.isfinite(m["loss"]) for m in out["metrics"]), f"SimCLR losses {out['metrics']}")
-    out.update(step_costs(lambda: tr.train_step(st, x), 2 * cfg.batch_size))
+    out.update(step_costs(lambda: tr.train_step(st, x), 2 * cfg.batch_size, flops))
     bv = tr.backbone_variables(st)
     del x
     ml_cfg = MLConfig(batch_size=8, **{k: v for k, v in ML_KEYS.items() if k != "batch_size"})
@@ -2334,7 +2385,8 @@ def fusion_full_width(dev, gen):
     check(not still, f"frozen stages' BatchNorm statistics did not move: {still[:3]}")
     xb, rb = bags[:cfg.batch_size], rna[slide_idx[:cfg.batch_size]]
     yb, mb = labels[:cfg.batch_size], torch.ones(cfg.batch_size).numpy()
-    out.update(step_costs(lambda: tr.train_step(st, xb, rb, yb, mb), cfg.batch_size * cfg.bag_size))
+    flops = step_flops(lambda: tr.train_step_eager(copy.deepcopy(st), xb, rb, yb, mb))
+    out.update(step_costs(lambda: tr.train_step(st, xb, rb, yb, mb), cfg.batch_size * cfg.bag_size, flops))
     del st, tr, data, bags
     return out
 
@@ -4203,6 +4255,480 @@ def captured_vae_and_sn(dev, vae_sd):
     return out, k3
 
 
+# ---------------------- phase 17: the ResNet family's steps as captured programs
+
+#: MLConfig() steps captured against eager (the main path of the phase), and
+#: the timing's alternating pairs of eager and captured runs of STEPS_A_RUN steps
+ML_CAPTURED_STEPS, RESNET_TIMED_PAIRS = 10, 5
+#: fit_resident's epoch: drawn uint8 tiles, three quarters trained on, the rest validated
+RESIDENT_TILES = 512
+#: SSLConfig() steps and FusionConfig() epochs (over FUSION_BAGS bags) captured against eager
+SSL_CAPTURED_STEPS, FUSION_CAPTURED_EPOCHS = 5, 2
+#: the small configurations' steps, captured against eager
+RESNET_SMALL_STEPS = 3
+
+
+@contextlib.contextmanager
+def eager_resnet_steps():
+    """The ResNet trainers take their eager steps on the card too (the plain version)."""
+    from rnagan_tpu_torch.train.graph_steps import GraphSteps
+
+    captures = GraphSteps.captures
+    GraphSteps.captures = lambda self: False
+    try:
+        yield
+    finally:
+        GraphSteps.captures = captures
+
+
+def resnet_tensors(state):
+    return [*state.model.parameters(), *state.model.buffers(), *state.opt.mu, *state.opt.nu]
+
+
+def resnet_diff(a, b):
+    """Largest absolute difference between two ResNet trainer states' tensors
+    (a mismatch of their step or AdamW count as infinity)."""
+    if (a.step, a.opt.count) != (b.step, b.opt.count):
+        return float("inf")
+    return max(float((x.detach().double() - y.detach().double()).abs().max())
+               for x, y in zip(resnet_tensors(a), resnet_tensors(b), strict=True))
+
+
+def outputs_diff(xs, ys):
+    """Largest absolute difference between two lists of (tuples of) tensors."""
+    flat = lambda v: list(v) if isinstance(v, (tuple, list)) else [v]  # noqa: E731
+    return max(float((a.double() - b.double()).abs().max()) for x, y in zip(xs, ys)
+               for a, b in zip(flat(x), flat(y), strict=True))
+
+
+def check_k3_device_corr_resnet(dev, gen):
+    """K3 as AdamW (``MLConfig``'s rate and decay) with ``corr = (c1, c2)`` in
+    device memory at ResNet50's 161 tensors (2 classes): bit-equal to the
+    launch with the host floats and to its plain version with the same
+    tensor; then timed (wrapper and graph replay) beside the host-float
+    launch, its plain version, its bound and ``torch.optim.AdamW(fused=True)``."""
+    from rnagan_tpu_torch.kernels.fused_adam import adam_update_plain, fused_adam
+
+    shapes = resnet_shapes("resnet50", num_classes=2)
+    check(len(shapes) == 161, f"ResNet50 parameter tensors: {len(shapes)}")
+    c1, c2 = adam_corrections(6, ADAMW_HP["b1"], ADAMW_HP["b2"])
+    corr = torch.tensor([c1, c2], dtype=torch.float32, device=dev)
+    a = adam_inputs(shapes, dev, gen, torch.float32)
+    b, h = ([[t.clone() for t in ts] for ts in a] for _ in range(2))
+    fused_adam(*a, corr=corr, **ADAMW_HP)
+    adam_update_plain(*b, None, None, **ADAMW_HP, corr=corr)
+    fused_adam(*h, c1=c1, c2=c2, **ADAMW_HP)
+    ulp = {}
+    for i, name in ((0, "p"), (2, "mu"), (3, "nu")):
+        ulp[f"{name}_vs_plain"] = max(ulps(x, y) for x, y in zip(a[i], b[i]))
+        ulp[f"{name}_vs_host_floats"] = max(ulps(x, y) for x, y in zip(a[i], h[i]))
+    err = max(float((x - y).abs().max()) for i in (0, 2, 3) for x, y in zip(a[i], b[i]))
+    check(max(ulp.values()) == 0, f"K3 with (c1, c2) on the device at ResNet50's shapes differs: {ulp}")
+    del b, h
+    params = sum(math.prod(s) for s in shapes)
+    host = lambda: fused_adam(*a, c1=c1, c2=c2, **ADAMW_HP)  # noqa: E731
+    on_dev = lambda: fused_adam(*a, corr=corr, **ADAMW_HP)  # noqa: E731
+    ps = [torch.nn.Parameter(t.clone()) for t in a[0]]
+    for p, g in zip(ps, a[1]):
+        p.grad = g
+    library = torch.optim.AdamW(ps, lr=ADAMW_HP["lr"], betas=(ADAMW_HP["b1"], ADAMW_HP["b2"]),
+                                eps=ADAMW_HP["eps"], weight_decay=ADAMW_HP["wd"], fused=True)
+    ms_bound, by = bound_ms(28 * params + 8, 13 * params)  # read p, g, mu, nu and corr; write p, mu, nu
+    times = {"ms": time_ms(on_dev, iters=20), "device_ms": graph_ms(on_dev, reps=10, iters=5),
+             "host_floats_ms": time_ms(host, iters=20), "host_floats_device_ms": graph_ms(host, reps=10, iters=5),
+             "plain_ms": time_ms(lambda: adam_update_plain(*a, None, None, **ADAMW_HP, corr=corr), iters=5),
+             "library_ms": time_ms(library.step, iters=10), "bound_ms": ms_bound, "bound_by": by,
+             "params": params, "tensors": len(shapes)}
+    del a, ps, library
+    print(f"phase 17 K3 with (c1, c2) on the device at ResNet50's {len(shapes)} tensors: ulps {ulp}; "
+          f"{json.dumps(times)}")
+    return {"ulps": ulp, **times}, (err, times)
+
+
+def resnet_small_case(dev, name, given, gen):
+    """A small configuration (``SMALL_SIDE`` tiles, a BasicBlock ResNet of one
+    block a stage, float32): its trainer, a state with warm moments, and
+    ``step(trainer, state, i, eager)`` / ``evaluate(trainer, state, eager)``
+    (None for SimCLR) on ``RESNET_SMALL_STEPS`` batches drawn on the card."""
+    import functools
+
+    from rnagan_tpu_torch.core.config import MLConfig
+    from rnagan_tpu_torch.models.resnet import BasicBlock, ResNet
+    from rnagan_tpu_torch.train.fusion_trainer import FusionConfig, FusionTrainer
+    from rnagan_tpu_torch.train.ml_experiment import TileClassifierTrainer
+    from rnagan_tpu_torch.train.ssl_trainer import SimCLRTrainer, SSLConfig
+
+    tiny = functools.partial(ResNet, BasicBlock, (1, 1, 1, 1), compute_dtype="float32")
+    n, side, genes, k = 8, SMALL_SIDE, 128, RESNET_SMALL_STEPS
+    rand = lambda *shape: torch.rand(shape, generator=gen, device=dev)  # noqa: E731
+    labels = torch.arange(n, device=dev) % 2
+    mask = torch.tensor([1.0] * (n - 1) + [0.0], device=dev)
+    if name == "ml":
+        tr = TileClassifierTrainer(MLConfig(batch_size=n, image_size=side),
+                                   model=functools.partial(tiny, num_classes=2), device=dev)
+        st = tr.init_state()
+        xs = [rand(n, side, side, 3) for _ in range(k)]
+        draws = [{"flip_h": rand(n) < 0.5, "flip_v": rand(n) < 0.5} if given else None for _ in range(k)]
+        step = lambda t, s, i, eager: (t.train_step_eager if eager else t.train_step)(  # noqa: E731
+            s, xs[i], labels, mask, draws[i])
+        evaluate = lambda t, s, eager: (t.eval_step_eager if eager else t.eval_step)(s, xs[0])  # noqa: E731
+    elif name == "ssl":
+        tr = SimCLRTrainer(SSLConfig(batch_size=n, image_size=side, projection_hidden=64, projection_dim=32),
+                           backbone=tiny, device=dev)
+        st = tr.init_state()
+        xs = [rand(n, side, side, 3) for _ in range(k)]
+        draws = [{v: {"scale": 0.6 + 0.4 * rand(n), "off_x": rand(n), "off_y": rand(n), "flip_h": rand(n) < 0.5,
+                      "flip_v": rand(n) < 0.5, "brightness": rand(n) * 0.4 - 0.2, "contrast": rand(n) * 0.4 + 0.8}
+                  for v in "ab"} if given else None for _ in range(k)]
+        step = lambda t, s, i, eager: (t.train_step_eager if eager else t.train_step)(s, xs[i], draws[i])  # noqa: E731
+        evaluate = None
+    else:
+        tr = FusionTrainer(FusionConfig(rna_hidden_dims=(64, 32)), backbone=tiny, device=dev)
+        st = tr.init_state((2, side, side, 3), genes)
+        bags = [torch.randint(0, 256, (4, 2, side, side, 3), generator=gen, device=dev, dtype=torch.uint8)
+                for _ in range(k)]
+        rna = [torch.randn(4, genes, generator=gen, device=dev) for _ in range(k)]
+        draws = [{"keep": rand(4, genes) < 0.5} if given else None for _ in range(k)]
+        step = lambda t, s, i, eager: (t.train_step_eager if eager else t.train_step)(  # noqa: E731
+            s, bags[i], rna[i], labels[:4], mask[-4:], draws[i])
+        evaluate = lambda t, s, eager: (t.eval_step_eager if eager else t.eval_step)(s, bags[0], rna[0])  # noqa: E731
+    warm_moments(st.opt, gen)
+    st.step = 5
+    return tr, st, step, evaluate
+
+
+def resnet_captured_small(dev, name, given, gen):
+    """A small configuration's ``RESNET_SMALL_STEPS`` steps captured against
+    the same steps eager from copies of one state, draws given or drawn:
+    bit-equal state, counts and metrics, K3 once a captured step, the frozen
+    fusion parameters bit-unchanged; the captured eval step (classifier and
+    fusion) bit-equal to the eager one."""
+    tr, s0, step, evaluate = resnet_small_case(dev, name, given, gen)
+    check(tr.captures(), f"small {name}: the step is not captured")
+    step(tr, copy.deepcopy(s0), 0, True)  # cuDNN's first calls
+    cap, eag = copy.deepcopy(s0), copy.deepcopy(s0)
+    frozen = {k: p.detach().clone() for k, p in s0.model.named_parameters() if not p.requires_grad}
+    before = launch_counts()
+    m_cap = [step(tr, cap, i, False)[1] for i in range(RESNET_SMALL_STEPS)]
+    launches = count_since(before)
+    m_eag = [step(tr, eag, i, True)[1] for i in range(RESNET_SMALL_STEPS)]
+    diff, mdiff = resnet_diff(cap, eag), loss_diff(m_cap, m_eag)
+    label = f"small {name}, draws {'given' if given else 'drawn'}"
+    want = {"infused_noise": 0, "fused_adam": RESNET_SMALL_STEPS}
+    check(launches == want, f"{label}: launches {launches}, expected {want}")
+    check(diff == 0.0 and mdiff == 0.0, f"{label}: captured vs eager differ by {diff} (metrics {mdiff})")
+    moved = [k for k, p in cap.model.named_parameters() if k in frozen and not torch.equal(p, frozen[k])]
+    check(not moved, f"{label}: captured steps moved frozen parameters {moved[:3]}")
+    out = {"state_max_abs_diff": diff, "metric_max_abs_diff": mdiff, "launches": launches,
+           "frozen_tensors": len(frozen)}
+    if evaluate is not None:
+        out["eval_max_abs_diff"] = outputs_diff([evaluate(tr, cap, False)], [evaluate(tr, eag, True)])
+        check(out["eval_max_abs_diff"] == 0.0, f"{label}: captured eval step differs by {out['eval_max_abs_diff']}")
+    return out
+
+
+def ml_captured_full_width(dev, gen):
+    """``MLConfig()`` (ResNet50, 224x224, 2 classes, batch 64, bfloat16): the
+    main path of the phase, ``ML_CAPTURED_STEPS`` captured steps (the
+    capture at the first) with the launch counters set to 0 before them and
+    read after (one K3 launch a step, K1 none); the same steps eager from a
+    copy of the state, bit-equal (cuDNN deterministic); the captured eval
+    step against the eager one; the graph pool; then with cuDNN as PyTorch
+    defaults it ``RESNET_TIMED_PAIRS`` alternating pairs of eager and
+    captured runs of ``STEPS_A_RUN`` steps, and one captured and one eager
+    step under ``torch.profiler``."""
+    from rnagan_tpu_torch.core.config import MLConfig
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.kernels.infusion import infused_noise
+    from rnagan_tpu_torch.train.ml_experiment import TileClassifierTrainer
+
+    cfg = MLConfig(**ML_KEYS)
+    tr = TileClassifierTrainer(cfg, device=dev)
+    s0 = tr.init_state()
+    batches = [drawn_tiles(gen, cfg.batch_size, cfg.image_size, dev) for _ in range(4)]
+    ones = torch.ones(cfg.batch_size, device=dev)
+    tr.train_step_eager(copy.deepcopy(s0), *batches[0], ones)  # cuDNN's first calls
+    cap, eag = copy.deepcopy(s0), copy.deepcopy(s0)
+    del s0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused_adam.launches = infused_noise.launches = 0
+    t0 = time.perf_counter()
+    m_cap = [tr.train_step(cap, *batches[i % 4], ones)[1] for i in range(ML_CAPTURED_STEPS)]
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    pool_gib = sum(g.pool_bytes for g in tr._graphs.values()) / 2**30
+    print(f"phase 17 main path: {ML_CAPTURED_STEPS} captured MLConfig() steps in {main_s:.3f} s "
+          f"(the capture included); launches {launches}")
+    check(launches == {"infused_noise": 0, "fused_adam": ML_CAPTURED_STEPS},
+          f"captured classifier steps launched {launches}, expected one K3 launch a step")
+    m_eag = [tr.train_step_eager(eag, *batches[i % 4], ones)[1] for i in range(ML_CAPTURED_STEPS)]
+    diff, mdiff = resnet_diff(cap, eag), loss_diff(m_cap, m_eag)
+    check(all(math.isfinite(float(v)) for m in m_cap for v in m.values()), "captured classifier losses not finite")
+    check(diff == 0.0 and mdiff == 0.0,
+          f"MLConfig(): {ML_CAPTURED_STEPS} captured steps vs eager differ by {diff} (metrics {mdiff})")
+    eval_diff = outputs_diff([tr.eval_step(cap, batches[1][0])], [tr.eval_step_eager(eag, batches[1][0])])
+    check(eval_diff == 0.0, f"MLConfig(): captured eval step differs by {eval_diff}")
+    out = {"main_path_s": main_s, "launches": launches, "state_max_abs_diff": diff, "metric_max_abs_diff": mdiff,
+           "eval_max_abs_diff": eval_diff, "graph_pool_gib": pool_gib,
+           "peak_gib_above_state_capture_and_steps": peak_gib,
+           "last_metrics": {k: float(v) for k, v in m_cap[-1].items()}}
+
+    torch.backends.cudnn.deterministic = False  # phase 6's setting: PyTorch's defaults
+    run = lambda fn: lambda st, b: fn(st, *b, ones)  # noqa: E731
+    tr.train_step(cap, *batches[0], ones)  # a capture for these flags
+    tr.train_step_eager(eag, *batches[0], ones)
+    eager_ms, captured_ms = [], []
+    for _ in range(RESNET_TIMED_PAIRS):
+        eager_ms.append(timed_runs(run(tr.train_step_eager), eag, batches))
+        captured_ms.append(timed_runs(run(tr.train_step), cap, batches))
+    med = lambda v: sorted(v)[len(v) // 2]  # noqa: E731
+    out.update(eager_ms_b64=eager_ms, captured_ms_b64=captured_ms, eager_ms_b64_median=med(eager_ms),
+               captured_ms_b64_median=med(captured_ms))
+    prof = profile_training(lambda: tr.train_step(cap, *batches[0], ones), steps=1)
+    out["profile_captured_b64"] = {k: v for k, v in prof.items() if k != "top_kernels"}
+    out["profile_eager_b64"] = {k: v for k, v in profile_training(
+        lambda: tr.train_step_eager(eag, *batches[0], ones), steps=1).items() if k != "top_kernels"}
+    torch.backends.cudnn.deterministic = True
+    print(f"phase 17 MLConfig() on the card: eager {med(eager_ms):.2f} ms, captured {med(captured_ms):.2f} ms a "
+          f"step; replay device busy {prof.get('device_busy_ms_per_step')} ms, idle share "
+          f"{prof.get('device_idle_share')}")
+    del tr, cap, eag, batches
+    return out
+
+
+@contextlib.contextmanager
+def syncs_refused(owner, name):
+    """``owner.name`` runs with ``torch.cuda.set_sync_debug_mode("error")``: an
+    operation inside it that waits for the card raises."""
+    fn = getattr(owner, name)
+
+    def strict(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    setattr(owner, name, strict)
+    try:
+        yield
+    finally:
+        setattr(owner, name, fn)
+
+
+def resident_captured(dev, gen):
+    """``fit_resident`` for one epoch (``MLConfig()``) on ``RESIDENT_TILES``
+    drawn uint8 tiles on the card, captured against eager from one state:
+    the same history and a bit-equal best state, K3 once a step. The
+    captured epoch's enqueue (``resident_epoch``: the permutation, the
+    steps' replays, the validation's) runs with synchronizing operations
+    refused, so the epoch-end fetch is its one wait. ``predict_resident``
+    captured against eager; one more epoch each way on the live states, timed."""
+    import numpy as np
+
+    from rnagan_tpu_torch.core.config import MLConfig
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.train.ml_experiment import TileClassifierTrainer
+
+    cfg = MLConfig(num_epochs=1, **ML_KEYS)
+    tr = TileClassifierTrainer(cfg, device=dev)
+    x, y = drawn_tiles(gen, RESIDENT_TILES, cfg.image_size, dev)
+    u8 = (x * 255).to(torch.uint8)
+    del x
+    n_train = RESIDENT_TILES * 3 // 4
+    steps = n_train // cfg.batch_size
+    s0 = tr.init_state()
+    train, val, y_train, y_val = u8[:n_train], u8[n_train:], y[:n_train], y[n_train:].cpu().numpy()
+    torch.cuda.synchronize()
+    fused_adam.launches = 0
+    t0 = time.perf_counter()
+    with syncs_refused(TileClassifierTrainer, "resident_epoch"):
+        cap, res_cap = tr.fit_resident(train, y_train, val, y_val, state=copy.deepcopy(s0))
+    torch.cuda.synchronize()
+    cap_s, launches = time.perf_counter() - t0, fused_adam.launches
+    t0 = time.perf_counter()
+    with eager_resnet_steps():
+        eag, res_eag = tr.fit_resident(train, y_train, val, y_val, state=copy.deepcopy(s0))
+    torch.cuda.synchronize()
+    eag_s = time.perf_counter() - t0
+    diff = resnet_diff(cap, eag)
+    check(launches == steps, f"captured fit_resident launched K3 {launches} times in {steps} steps")
+    check(res_cap == res_eag, f"fit_resident history captured {res_cap} vs eager {res_eag}")
+    check(diff == 0.0, f"fit_resident: captured best state differs from eager by {diff}")
+    check(all(math.isfinite(h["loss"]) for h in res_cap["history"]), f"fit_resident losses {res_cap}")
+    pred_cap = tr.predict_resident(val, cap)
+    with eager_resnet_steps():
+        pred_eag = tr.predict_resident(val, eag)
+    check(np.array_equal(pred_cap, pred_eag), "predict_resident: captured predictions differ from eager")
+    epoch_ms = {}
+    for name, ctx in (("captured", contextlib.nullcontext), ("eager", eager_resnet_steps)):
+        st = copy.deepcopy(s0)
+        with ctx():
+            tr.resident_epoch(st, train, y_train, val, 0)  # the capture, for the captured side
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.resident_epoch(st, train, y_train, val, 1)[1].cpu()
+        epoch_ms[name] = (time.perf_counter() - t0) * 1e3
+    out = {"tiles": RESIDENT_TILES, "train_tiles": n_train, "steps": steps, "launches": launches,
+           "captured_fit_s": cap_s, "eager_fit_s": eag_s, "history": res_cap["history"],
+           "state_max_abs_diff": diff, "sync_debug_mode": "error during resident_epoch",
+           "epoch_ms_after_capture": epoch_ms}
+    print(f"phase 17 fit_resident: {json.dumps(out)}")
+    del tr, cap, eag, s0, u8
+    return out
+
+
+def ssl_captured(dev, gen):
+    """``SSLConfig()`` (ResNet50 + projection, 256 tiles of 224x224, 2 views
+    each): ``SSL_CAPTURED_STEPS`` eager steps, then the same steps captured
+    from a copy of their start with K3 counted (once a step), bit-equal
+    (eager first: an eager step's ~54 GiB of activations and the graph's
+    pool of as much do not fit the card together); the eager and the
+    captured steps after the capture timed on the host clock."""
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.train.ssl_trainer import SimCLRTrainer, SSLConfig
+
+    cfg = SSLConfig(**SSL_KEYS)
+    tr = SimCLRTrainer(cfg, backbone=BACKBONE, device=dev)
+    s0 = tr.init_state()
+    x = drawn_tiles(gen, cfg.batch_size, cfg.image_size, dev)[0]
+    xs = [x, x.flip(1)]
+    tr.train_step_eager(copy.deepcopy(s0), x)  # cuDNN's first calls
+    cap, eag = copy.deepcopy(s0), copy.deepcopy(s0)
+    del s0
+    n = SSL_CAPTURED_STEPS
+    m_eag, m_cap, ends = [], [], {}
+    for name, fn, st, out_list in (("eager", tr.train_step_eager, eag, m_eag), ("captured", tr.train_step, cap, m_cap)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        fused_adam.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            out_list.append(fn(st, xs[i % 2])[1])
+            if i == 1:  # the capture is the first step's: time the steps after the second
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        ends[name] = (time.perf_counter() - t0, (time.perf_counter() - t1) * 1e3 / (n - 2), fused_adam.launches)
+    diff, mdiff = resnet_diff(cap, eag), loss_diff(m_cap, m_eag)
+    launches = ends["captured"][2]
+    check(launches == n, f"captured SimCLR steps launched K3 {launches} times in {n} steps")
+    check(all(math.isfinite(float(v)) for m in m_cap for v in m.values()), f"captured SimCLR metrics {m_cap}")
+    check(diff == 0.0 and mdiff == 0.0, f"SSLConfig(): captured steps vs eager differ by {diff} (metrics {mdiff})")
+    out = {"steps": n, "launches": launches, "captured_s_with_capture": ends["captured"][0],
+           "eager_s": ends["eager"][0], "eager_ms_steps_3_on": ends["eager"][1],
+           "captured_ms_steps_3_on": ends["captured"][1], "state_max_abs_diff": diff, "metric_max_abs_diff": mdiff,
+           "graph_pool_gib": sum(g.pool_bytes for g in tr._graphs.values()) / 2**30,
+           "last_metrics": {k: float(v) for k, v in m_cap[-1].items()}}
+    print(f"phase 17 SSLConfig(): {json.dumps(out)}")
+    del tr, cap, eag, x, xs
+    return out
+
+
+def fusion_captured(dev, gen):
+    """``FusionConfig()`` (ResNet50 with conv1 .. layer2 frozen, the RNA
+    encoder over 19,198 genes, batch 4 bags x 40 tiles of ``FUSION_SIDE``):
+    ``fit`` for ``FUSION_CAPTURED_EPOCHS`` epochs of ``FUSION_BAGS`` drawn
+    bags, captured (K3 once a step) against eager: the same history, a
+    bit-equal state, the frozen parameters bit-unchanged; ``predict``
+    captured against eager."""
+    import numpy as np
+
+    from rnagan_tpu_torch.core.config import VAEModelConfig
+    from rnagan_tpu_torch.data.patches import BagData
+    from rnagan_tpu_torch.kernels.fused_adam import fused_adam
+    from rnagan_tpu_torch.train.fusion_trainer import FusionConfig, FusionTrainer
+
+    cfg = FusionConfig(**FUSION_KEYS)
+    genes = VAEModelConfig().rna_features
+    tr = FusionTrainer(cfg, backbone=BACKBONE, device=dev)
+    bags = torch.randint(0, 256, (FUSION_BAGS, cfg.bag_size, FUSION_SIDE, FUSION_SIDE, 3), generator=gen,
+                         device=dev, dtype=torch.uint8).cpu().numpy()
+    labels = (torch.arange(FUSION_BAGS) % 2).numpy().astype("int64")
+    slide_idx = (torch.arange(FUSION_BAGS) // 2).numpy().astype("int32")
+    rna = torch.randn(FUSION_BAGS // 2, genes, generator=gen, device=dev).cpu().numpy()
+    data = BagData(bags, labels, slide_idx, [f"S{i}" for i in range(FUSION_BAGS // 2)], rna)
+    s0 = tr.init_state(bags.shape[1:], genes)
+    first = slice(0, cfg.batch_size)
+    tr.train_step_eager(copy.deepcopy(s0), bags[first], rna[slide_idx[first]], labels[first],
+                        torch.ones(cfg.batch_size).numpy())  # cuDNN's first calls
+    frozen = {k: p.detach().clone() for k, p in s0.model.named_parameters() if not p.requires_grad}
+    steps = FUSION_CAPTURED_EPOCHS * -(-FUSION_BAGS // cfg.batch_size)
+    torch.cuda.synchronize()
+    fused_adam.launches = 0
+    t0 = time.perf_counter()
+    cap, res_cap = tr.fit(data, num_epochs=FUSION_CAPTURED_EPOCHS, state=copy.deepcopy(s0))
+    torch.cuda.synchronize()
+    cap_s, launches = time.perf_counter() - t0, fused_adam.launches
+    t0 = time.perf_counter()
+    with eager_resnet_steps():
+        eag, res_eag = tr.fit(data, num_epochs=FUSION_CAPTURED_EPOCHS, state=copy.deepcopy(s0))
+    torch.cuda.synchronize()
+    eag_s = time.perf_counter() - t0
+    diff = resnet_diff(cap, eag)
+    check(launches == steps, f"captured fusion fit launched K3 {launches} times in {steps} steps")
+    check(res_cap == res_eag, f"fusion fit history captured {res_cap} vs eager {res_eag}")
+    check(diff == 0.0, f"fusion fit: captured state differs from eager by {diff}")
+    moved = [k for k, p in cap.model.named_parameters() if k in frozen and not torch.equal(p, frozen[k])]
+    check(not moved, f"captured fusion fit moved frozen parameters {moved[:3]}")
+    pred_cap = tr.predict(data, cap)
+    with eager_resnet_steps():
+        pred_eag = tr.predict(data, eag)
+    check(np.array_equal(pred_cap, pred_eag), "fusion predict: captured differs from eager")
+    step_ms = {}
+    for name, ctx, st in (("eager", eager_resnet_steps, eag), ("captured", contextlib.nullcontext, cap)):
+        with ctx():  # the live states: the captured side replays the graphs of its fit
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.fit(data, num_epochs=FUSION_CAPTURED_EPOCHS, state=st)
+            torch.cuda.synchronize()
+        step_ms[f"{name}_step_ms"] = (time.perf_counter() - t0) * 1e3 / steps
+    out = {"bags": FUSION_BAGS, "epochs": FUSION_CAPTURED_EPOCHS, "steps": steps, "launches": launches,
+           "captured_fit_s": cap_s, "eager_fit_s": eag_s, "history": res_cap["history"], **step_ms,
+           "state_max_abs_diff": diff, "frozen_tensors": len(frozen), "trainable_tensors": len(cap.opt.mu),
+           "graph_pool_gib": sum(g.pool_bytes for g in tr._graphs.values()) / 2**30}
+    print(f"phase 17 FusionConfig(): {json.dumps(out)}")
+    del tr, cap, eag, s0, data, bags
+    return out
+
+
+def captured_resnet_family(dev):
+    """Phase 17: K3 as AdamW with (c1, c2) in device memory at ResNet50's
+    shapes, the small classifier, SimCLR and fusion captured against eager,
+    ``MLConfig()`` at full width (the main path), ``fit_resident``'s epoch
+    with synchronizing operations refused, ``SSLConfig()`` and
+    ``FusionConfig()``."""
+    t0 = time.perf_counter()
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    out = {}
+    out["k3_device_corr"], k3 = check_k3_device_corr_resnet(dev, gen)
+    torch.cuda.empty_cache()
+    out["small"] = {f"{name},{'given' if given else 'drawn'}": resnet_captured_small(dev, name, given, gen)
+                    for name in ("ml", "ssl", "fusion") for given in (True, False)}
+    print(f"phase 17 small: {json.dumps(out['small'])}")
+    for name, fn in (("ml_full_width", ml_captured_full_width), ("fit_resident", resident_captured),
+                     ("ssl_full_width", ssl_captured), ("fusion_full_width", fusion_captured)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[name] = fn(dev, gen)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
+    out["phase_s"] = time.perf_counter() - t0
+    return out, k3
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4363,6 +4889,12 @@ def main():
         {k: v for k, v in vae_graphs.items() if k != "vae_fit"}))
     torch.cuda.empty_cache()
 
+    # ---- phase 17: the ResNet family's steps as captured programs, K3 with (c1, c2) on the device
+    resnet_graphs, k3_resnet = captured_resnet_family(dev)
+    print(f"captured ResNet family on {smi}: " + json.dumps(
+        {k: v for k, v in resnet_graphs.items() if k not in ("small", "fit_resident")}))
+    torch.cuda.empty_cache()
+
     # ---- phase 11: timings (serving as in its first measurement: cuDNN deterministic)
     torch.backends.cudnn.deterministic = True
     torch.cuda.reset_peak_memory_stats()
@@ -4476,6 +5008,11 @@ def main():
                     "replaces": "rnagan_tpu/ops/fused_adam.py:66",
                     "launches": vae_graphs["vae_full_width"]["launches"]["fused_adam"], "max_abs_err": k3_lr[0],
                     **k3_lr[1]})
+    # K3 as AdamW with (c1, c2) on the device: phase 17's captured MLConfig() steps
+    kernels.append({"name": "fused_adam_device_corr_resnet50", "route": "cuda",
+                    "source": "rnagan_tpu_torch/csrc/fused_adam.cu", "replaces": "rnagan_tpu/ops/fused_adam.py:66",
+                    "launches": resnet_graphs["ml_full_width"]["launches"]["fused_adam"], "max_abs_err": k3_resnet[0],
+                    **k3_resnet[1]})
     sn_runs = {name: rec["launches"] for name, rec in vae_graphs["sn_full_width"].items()}
     for i, k in ((0, "infused_noise"), (3, "fused_adam")):  # phase 16's captured SAGAN and BigGAN steps
         kernels[i]["launches"] += sum(v[k] for v in sn_runs.values())
@@ -4541,6 +5078,7 @@ def main():
                "k4_check": k4_errs, "k4_bytes": k4_bytes, "quantized_head_path": quantized,
                "serving_variants_vs_cpu": variants, "serving_options_b128": serving_options,
                "captured_training": captured, "captured_vae_and_sn": vae_graphs,
+               "captured_resnet_family": resnet_graphs,
                "total_s": time.perf_counter() - t_start}
     print("details: " + json.dumps(details))
     print(json.dumps({"kernels": kernels}))

@@ -10,23 +10,28 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
-def epoch_means(per_step: List[Dict[str, torch.Tensor]]) -> Dict[str, float]:
-    """The mean of per-step (0-dim tensor) metrics, summed in step order in
-    float64 as the JAX loops sum them; one copy off the card."""
-    if not per_step:
-        return {}
-    keys = list(per_step[0])
-    table = torch.stack([torch.stack([m[k].float() for k in keys]) for m in per_step]).cpu().tolist()
-    sums = dict.fromkeys(keys, 0.0)
+def epoch_means(rows: torch.Tensor, keys: Sequence[str],
+                preds: Optional[torch.Tensor] = None) -> Tuple[Dict[str, float], Optional[np.ndarray]]:
+    """An epoch's per-step metric rows (steps, len(keys)) and, optionally, a
+    vector of class predictions, off the card in one copy: the metrics'
+    means, summed in step order in float64 as the JAX loops sum them ({}
+    without steps), and the predictions as int64."""
+    flat = rows.detach().float().reshape(-1)
+    if preds is not None:
+        flat = torch.cat([flat, preds.reshape(-1).to(flat.device, torch.float32)])
+    host = flat.cpu()
+    table = host[:rows.numel()].reshape(rows.shape).tolist()
+    sums = [0.0] * len(keys)
     for row in table:
-        for k, v in zip(keys, row):
-            sums[k] += v
-    return {k: v / len(table) for k, v in sums.items()}
+        sums = [a + b for a, b in zip(sums, row)]
+    means = {k: v / len(table) for k, v in zip(keys, sums)} if table else {}
+    return means, None if preds is None else host[rows.numel():].numpy().astype(np.int64)
 
 
 class MetricsLogger:

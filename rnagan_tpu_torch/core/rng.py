@@ -12,9 +12,13 @@ infused-noise kernel's uniforms (key word 1 is 0 there); :func:`uniform` and
 standard-normal noise and the β-VAE step's reparametrization epsilon; and
 :func:`uniform4` and :func:`randint` (key word 1 is 2), which use all four
 words of a counter, the β-VAE step's dropout mask (128 x 19,198 uniforms a
-step at full width) and the rows a resident-matrix step draws. A seed is a
-host int or a one-element integer tensor on the device; both give the same
-bits, so a captured step draws what the eager step draws.
+step at full width) and the rows a resident-matrix step draws, and
+:func:`permutation`, an epoch's order. The ResNet trainers draw from them
+too: the classifier's flips (``"ml"``), SimCLR's seven draws a view
+(``"ssl"``), the fusion RNA encoder's dropout mask (``"fusion"``) and
+``fit_resident``'s permutation (``"ml_epoch"``). A seed is a host int or a
+one-element integer tensor on the device; both give the same bits, so a
+captured step draws what the eager step draws.
 ``torch.Generator``s seeded here (:meth:`SeedStream.generator`) draw
 everything else. Nothing draws from PyTorch's global generator. The streams
 are the port's own: they do not reproduce ``jax.random``'s bits, and the
@@ -108,6 +112,13 @@ def randint(seed, high: int, shape, device) -> torch.Tensor:
     if not 1 <= high <= 1 << 32:
         raise ValueError(f"randint draws from [0, high) with 1 <= high <= 2**32; got {high}")
     return (_words4(seed, math.prod(shape), device) % high).reshape(shape)
+
+
+def permutation(seed, n: int, device) -> torch.Tensor:
+    """A permutation of ``range(n)`` (int64) from ``seed``: the order that
+    sorts the :func:`uniform4` stream's first ``n`` words, ties by index
+    (a stable sort), drawn on ``device`` with no host synchronization."""
+    return torch.sort(_words4(seed, n, device), stable=True).indices
 
 
 def normal(seed, shape, device) -> torch.Tensor:

@@ -9,10 +9,11 @@
 Bags come in the JAX package's layout, (B, bag, H, W, C). The backbone is
 headless (``num_classes=0``): flax creates no ``fc`` for a backbone called
 with ``extract=True``. The RNA encoder is the β-VAE's
-(``models/betavae.py::RNAEncoder``: flax dropout with a given or drawn keep
-mask, flax BatchNorm), float32 as in the JAX model; its state_dict keys are
-``rna_encoder.encoder.{i+1}.{0,1}`` (``convert.resnet_flax_leaf`` maps them
-to flax's ``RNAEncoder_0/dense_i``, ``bn_i``).
+(``models/betavae.py::RNAEncoder``: flax dropout with a given keep mask or
+one drawn from a seed's Philox stream, flax BatchNorm), float32 as in the JAX
+model; its state_dict keys are ``rna_encoder.encoder.{i+1}.{0,1}``
+(``convert.resnet_flax_leaf`` maps them to flax's ``RNAEncoder_0/dense_i``,
+``bn_i``).
 """
 
 from __future__ import annotations
@@ -80,11 +81,12 @@ class FusionModel(nn.Module):
         return {f"rna_encoder.encoder.{i}.0.bias": f"rna_encoder.encoder.{i}.0.weight" for i in blocks}
 
     def forward(self, bags: torch.Tensor, rna: torch.Tensor, keep: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                seed=None) -> torch.Tensor:
         """Logits (B, num_classes); in train mode the RNA encoder's input
         dropout takes ``keep`` (bool, ``rna``'s shape) or draws it from
-        ``generator``."""
+        ``seed``, a host int or a one-element int tensor on the device (a
+        captured step's seed row): ``models/betavae.py::draw_keep``."""
         img = bag_features(self.backbone, bags)
-        rna_feat = self.rna_encoder(rna.float(), torch.float32, keep, generator)
+        rna_feat = self.rna_encoder(rna.float(), torch.float32, keep, seed=seed)
         joint = F.relu(self.fuse(torch.cat([img, rna_feat.to(img.dtype)], dim=-1)))
         return self.head(joint)

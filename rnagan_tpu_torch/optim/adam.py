@@ -8,8 +8,8 @@ corrections ``1 - b1^t`` and ``1 - b2^t`` on the host in float32 (as
 ``ops/fused_adam.py:87-89`` does), launches K3 once over every tensor and
 advances the count. A step captured in a CUDA graph passes ``corr``, the same
 two float32 values in device memory, read by the kernel on every replay
-(``train/step_graph.py``), or three: the β-VAE's scheduled rate after them
-(``optim/scheduled.py``). With ``mu_dtype=torch.bfloat16``, ``mu`` is stored in
+(``train/step_graph.py``; :meth:`Adam.plan` gives a run of steps' rows), or
+three: the β-VAE's scheduled rate after them (``optim/scheduled.py``). With ``mu_dtype=torch.bfloat16``, ``mu`` is stored in
 bfloat16 and the kernel computes in float32 from the stored value (optax's
 ``mu_dtype``); ``nu`` stays float32.
 
@@ -69,6 +69,14 @@ class Adam:
                        self.mu, self.nu, c1=c1, c2=c2, lr=rate,
                        b1=self.b1, b2=self.b2, eps=self.eps, wd=self.weight_decay, corr=corr)
         self.count += 1
+
+    def plan(self, steps: int) -> torch.Tensor:
+        """The next ``steps`` steps' bias corrections, a float32 (steps, 2)
+        CPU tensor whose row i is ``bias_corrections(count + 1 + i)``: the
+        ``corr`` rows that a run of captured steps reads from a device table
+        (the rate stays ``lr``). Nothing advances."""
+        return torch.tensor([bias_corrections(self.count + 1 + i, self.b1, self.b2) for i in range(steps)],
+                            dtype=torch.float32).reshape(steps, 2)
 
     def state_dict(self, device="cpu") -> Dict[str, Any]:
         """``torch.optim.Adam.state_dict()`` layout (torchgan ``.model`` bundles;

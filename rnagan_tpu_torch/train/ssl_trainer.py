@@ -11,8 +11,15 @@ as a state_dict (:meth:`SimCLRTrainer.backbone_variables`).
 
 Each view's seven draws (``scale``, ``off_x``, ``off_y``, ``flip_h``,
 ``flip_v``, ``brightness``, ``contrast``, the values ``jax.random`` draws in
-``augment_views``) come from a ``core/rng.py`` generator per step
-(``"ssl"``) or are given as ``draws={"a": {...}, "b": {...}}``.
+``augment_views``) are Philox uniforms from the step's seeds
+(``core/rng.py``, stream ``"ssl"``: stage 0 view A, stage 1 view B) or are
+given as ``draws={"a": {...}, "b": {...}}``.
+
+On a CUDA device with one rank the train step replays a captured CUDA graph
+(``train/graph_steps.py``); ``fit`` enqueues an epoch in chunks of tables
+that hold the batches (a host corpus: one step a chunk at ``SSLConfig()``,
+256 x 224² float32 is 154 MB) or row indices into a corpus on the card.
+:meth:`SimCLRTrainer.train_step_eager` is the plain version.
 
 Under a mesh (``SSLConfig.mesh``; the data axis) each rank augments its rows
 of the global batch with its slice of the global draws, and NT-Xent runs
@@ -37,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rnagan_tpu_torch.core import rng
 from rnagan_tpu_torch.core.config import MeshConfig
 from rnagan_tpu_torch.core.metrics import MetricsLogger, epoch_means
 from rnagan_tpu_torch.core.rng import SeedStream
@@ -44,7 +52,8 @@ from rnagan_tpu_torch.data.batching import batch_indices
 from rnagan_tpu_torch.models.resnet import ResNet, lecun_normal_, resnet50
 from rnagan_tpu_torch.optim.adam import AdamW
 from rnagan_tpu_torch.parallel import collectives
-from rnagan_tpu_torch.parallel.mesh import Mesh, local_rows, make_mesh, module_tensors, replicated, shard_batch
+from rnagan_tpu_torch.parallel.mesh import Mesh, local_rows, make_mesh, module_tensors, replicated
+from rnagan_tpu_torch.train.graph_steps import GraphSteps, chunk_steps
 from rnagan_tpu_torch.train.ml_experiment import IMAGENET_MEAN, IMAGENET_STD, as_draw, flip_views, load_adamw
 
 VIEW_DRAWS = ("scale", "off_x", "off_y", "flip_h", "flip_v", "brightness", "contrast")
@@ -134,7 +143,7 @@ def unit_linspace(n: int, device) -> torch.Tensor:
     """``jnp.linspace(0, 1, n)`` in float32 as XLA computes it: ``i * (1 / (n - 1))``
     with the reciprocal rounded once, the last value 1."""
     out = torch.arange(n, dtype=torch.float32, device=device) * float(np.float32(1) / np.float32(n - 1))
-    out[-1] = 1.0
+    out[-1:].fill_(1.0)  # a fill, not an assignment: that copies a host scalar, which a graph capture refuses
     return out
 
 
@@ -167,11 +176,22 @@ def _random_resized_crop(images01: torch.Tensor, scale: torch.Tensor, off_x: tor
     return c0 * (1 - fx) + c1 * fx
 
 
-def draw_view(n: int, scale_min: float, gen: torch.Generator, device) -> Dict[str, torch.Tensor]:
-    """The seven draws of one view of ``n`` tiles, from ``gen``."""
-    u = lambda lo=0.0, hi=1.0: lo + (hi - lo) * torch.rand(n, generator=gen, device=device)  # noqa: E731
+def draw_view(n: int, scale_min: float, seed, device) -> Dict[str, torch.Tensor]:
+    """The seven draws of one view of ``n`` tiles from ``seed`` (an int or a
+    one-element int tensor on ``device``): row i of Philox uniforms (7, n)
+    (``core/rng.py::uniform``) is draw i of ``VIEW_DRAWS``, spread over its range."""
+    rows = iter(rng.uniform(seed, (len(VIEW_DRAWS), n), device))
+    u = lambda lo=0.0, hi=1.0: lo + (hi - lo) * next(rows)  # noqa: E731
     return {"scale": u(scale_min), "off_x": u(), "off_y": u(),
             "flip_h": u() < 0.5, "flip_v": u() < 0.5, "brightness": u(-0.2, 0.2), "contrast": u(0.8, 1.2)}
+
+
+def given_views(draws: Dict[str, Dict[str, Any]]) -> torch.Tensor:
+    """Given views ``{"a": {...}, "b": {...}}`` as one float32 (2, 7, N)
+    tensor (``VIEW_DRAWS`` order; a flip as 0 or 1). Every draw is float32
+    where the augmentation reads it, so the table holds them exactly."""
+    return torch.stack([torch.stack([as_draw(draws[v][k]).reshape(-1).to(torch.float32) for k in VIEW_DRAWS])
+                        for v in "ab"])
 
 
 def augment_views(images01: torch.Tensor, draws: Dict[str, Any]) -> torch.Tensor:
@@ -188,11 +208,13 @@ def augment_views(images01: torch.Tensor, draws: Dict[str, Any]) -> torch.Tensor
     return torch.clamp((x - mean) * contrast + mean + brightness, 0.0, 1.0)
 
 
-class SimCLRTrainer:
+class SimCLRTrainer(GraphSteps):
     """SimCLR on one card, or data-parallel over ``mesh`` (default
     ``make_mesh(cfg.mesh, device)``); ``device="cuda"``, the default, raises
     without CUDA. ``backbone`` builds the headless ResNet (called with
     ``seed=`` and ``device=``; default ResNet50)."""
+
+    stream, stages, draw_table, metric_keys = "ssl", 2, "views", ("loss", "contrastive_acc")
 
     def __init__(self, cfg: SSLConfig, *, backbone: Optional[Callable[..., ResNet]] = None,
                  logger: Optional[MetricsLogger] = None, device="cuda", mesh: Optional[Mesh] = None):
@@ -204,6 +226,7 @@ class SimCLRTrainer:
         self.seeds = SeedStream(cfg.seed)
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
+        self._init_graphs()
 
     def init_state(self) -> SSLTrainState:
         bb = self.backbone(num_classes=0, seed=self.seeds.seed("init"), device=self.device)
@@ -223,50 +246,108 @@ class SimCLRTrainer:
         state.step = int(np.asarray(tree.step))
         return state
 
+    def _step(self, state: SSLTrainState, inputs, given: Optional[torch.Tensor], seeds,
+              corr) -> Dict[str, torch.Tensor]:
+        """One train step in place on ``inputs`` = (NHWC [0, 1] images,),
+        this rank's rows; ``given`` the global batch's views (float32 (2, 7,
+        N), :func:`given_views`) or None to draw view A from ``seeds[0]`` and
+        view B from ``seeds[1]``; ``corr`` AdamW's device corrections or None.
+        ``state.step`` does not advance."""
+        (x,) = inputs
+        mesh = self.mesh
+        n = len(x) * mesh.data
+        if given is None:
+            views = [draw_view(n, self.cfg.crop_scale_min, seeds[i], self.device) for i in range(2)]
+        else:
+            views = [dict(zip(VIEW_DRAWS, given.to(self.device)[i])) for i in range(2)]
+        rows = local_rows(n, mesh)
+        both = torch.cat([augment_views(x, {k: v[rows] for k, v in view.items()}) for view in views])
+        both = (both - self._mean) / self._std
+        model = state.model.train()
+        loss, acc = nt_xent_loss(model(both.permute(0, 3, 1, 2)).float(), self.cfg.temperature, mesh.data_group)
+        params = list(model.parameters())
+        grads = collectives.all_reduce_grads(torch.autograd.grad(loss, params), mesh.data_group)
+        state.opt.step(params, grads, corr=corr)
+        return collectives.reduce_metrics({"loss": loss.detach(), "contrastive_acc": acc.detach()},
+                                          mesh.data_group)
+
     def train_step(self, state: SSLTrainState, images01,
                    draws: Optional[Dict[str, Dict[str, Any]]] = None) -> Tuple[SSLTrainState, Dict[str, torch.Tensor]]:
         """One step on NHWC ``images01`` in [0, 1] (under a mesh, this rank's
         rows of the global batch): views A and B, normalized as the downstream
         classifier normalizes, through the model in train mode, NT-Xent,
-        AdamW. ``draws`` may give the global batch's view draws."""
-        mesh = self.mesh
-        x = torch.as_tensor(images01).to(self.device, torch.float32)
-        n = len(x) * mesh.data
-        if draws is None:
-            gen = self.seeds.generator("ssl", state.step, device=self.device)
-            draws = {v: draw_view(n, self.cfg.crop_scale_min, gen, self.device) for v in "ab"}
-        rows = local_rows(n, mesh)
-        mine = {v: {k: as_draw(draws[v][k])[rows] for k in VIEW_DRAWS} for v in "ab"}
-        both = torch.cat([augment_views(x, mine["a"]), augment_views(x, mine["b"])])
-        both = (both - self._mean) / self._std
-        model = state.model.train()
-        with collectives.active(mesh):
-            loss, acc = nt_xent_loss(model(both.permute(0, 3, 1, 2)).float(), self.cfg.temperature,
-                                     mesh.data_group)
-            params = list(model.parameters())
-            grads = collectives.all_reduce_grads(torch.autograd.grad(loss, params), mesh.data_group)
-        state.opt.step(params, grads)
-        state.step += 1
-        return state, collectives.reduce_metrics({"loss": loss.detach(), "contrastive_acc": acc.detach()},
-                                                 mesh.data_group)
+        AdamW. ``draws`` may give the global batch's view draws. Where
+        :meth:`captures`, a replay of the step's graph; else
+        :meth:`train_step_eager`."""
+        if not self.captures():
+            return self.train_step_eager(state, images01, draws)
+        x = torch.as_tensor(images01, dtype=torch.float32)
+        tables = {"images": x[None]}
+        if draws is not None:
+            tables["views"] = given_views(draws)[None]
+        vec = self.run_steps(state, tables, self._host_prepare(len(x)), 1)[0]
+        return state, dict(zip(self.metric_keys, vec.unbind(0)))
 
-    def fit(self, images01: np.ndarray, *, num_epochs: Optional[int] = None,
+    def train_step_eager(self, state: SSLTrainState, images01, draws: Optional[Dict[str, Dict[str, Any]]] = None
+                         ) -> Tuple[SSLTrainState, Dict[str, torch.Tensor]]:
+        """:meth:`train_step` op by op from the host (host-int seeds, host-float
+        corrections): its plain version, and the step of the CPU and of a
+        mesh of several ranks."""
+        x = torch.as_tensor(images01).to(self.device, torch.float32)
+        given = None if draws is None else given_views(draws)
+        with collectives.active(self.mesh):
+            metrics = self._step(state, (x,), given, self._step_seeds(state.step), None)
+        state.step += 1
+        return state, metrics
+
+    def _host_prepare(self, rows: int):
+        """Steps whose ``images`` table holds the global batch: this rank's rows."""
+        def build():
+            mesh, dev = self.mesh, self.device
+            return lambda step_rows: (step_rows["images"].to(dev)[local_rows(rows, mesh)],)
+        return self._prepared(("host", rows), build)
+
+    def _resident_prepare(self, images: torch.Tensor, rows: int):
+        """Steps whose ``idx`` table holds row indices into a float NHWC
+        corpus on the card: this rank's rows."""
+        def build():
+            mesh, dev = self.mesh, self.device
+            return lambda step_rows: (images.index_select(0, step_rows["idx"].to(dev)[local_rows(rows, mesh)]),)
+        return self._prepared(("idx", images.data_ptr(), tuple(images.shape), images.dtype, rows), build)
+
+    def fit(self, images01, *, num_epochs: Optional[int] = None,
             state: Optional[SSLTrainState] = None) -> Tuple[SSLTrainState, Dict[str, Any]]:
         """Epochs of full batches: NT-Xent takes every row as a real negative,
         so the batch is clamped to the corpus (rounded down to a multiple of
-        the data-axis size) and the remainder dropped."""
+        the data-axis size) and the remainder dropped. ``images01`` is a
+        host array, or a tensor on this trainer's device (the tables then
+        hold row indices into it); an epoch's steps are enqueued in chunks
+        and its metrics come off the card in one copy."""
         cfg, mesh = self.cfg, self.mesh
         state = state if state is not None else self.init_state()
         n = len(images01)
         bs = min(cfg.batch_size, n) // mesh.data * mesh.data
         if bs == 0:
             raise ValueError(f"a corpus of {n} images cannot fill one batch over {mesh.data} data ranks")
+        resident = isinstance(images01, torch.Tensor) and images01.device == self.device
+        if resident:
+            prepare, step_bytes = self._resident_prepare(images01, bs), bs * 8
+        else:
+            host = np.asarray(images01.cpu() if isinstance(images01, torch.Tensor) else images01, np.float32)
+            prepare, step_bytes = self._host_prepare(bs), bs * host[0].size * 4
         history = []
         for epoch in range(num_epochs or cfg.num_epochs):
-            per_step = [self.train_step(state, images01[shard_batch(idx, mesh)])[1]
-                        for idx, _ in batch_indices(n, bs, shuffle=True, seed=cfg.seed, epoch=epoch,
-                                                    drop_remainder=True)]
-            history.append(epoch_means(per_step))
+            idx = np.stack([i for i, _ in batch_indices(n, bs, shuffle=True, seed=cfg.seed, epoch=epoch,
+                                                          drop_remainder=True)])
+            steps = len(idx)
+            cap = chunk_steps(steps, step_bytes)
+            rows = []
+            for s in range(0, steps, cap):
+                k = min(cap, steps - s)
+                chunk = idx[s:s + k]
+                tables = {"idx": torch.from_numpy(chunk)} if resident else {"images": torch.from_numpy(host[chunk])}
+                rows.append(self.run_steps(state, tables, prepare, k, capacity=cap))
+            history.append(epoch_means(torch.cat(rows), self.metric_keys)[0])
             self.logger.scalars("ssl", history[-1], epoch)
         return state, {"history": history}
 

@@ -77,7 +77,7 @@ import torch
 from rnagan_tpu_torch.core import rng
 from rnagan_tpu_torch.core.checkpoint import BestKeeper, on_writer
 from rnagan_tpu_torch.core.config import VAEConfig
-from rnagan_tpu_torch.core.metrics import MetricsLogger
+from rnagan_tpu_torch.core.metrics import MetricsLogger, epoch_means
 from rnagan_tpu_torch.core.profiling import StepTimer
 from rnagan_tpu_torch.core.rng import SeedStream
 from rnagan_tpu_torch.data.batching import batch_indices
@@ -120,16 +120,6 @@ def _draw_tensors(draws: Optional[Dict[str, Any]]) -> Dict[str, torch.Tensor]:
     """Given draws as tensors: ``keep`` bool, ``eps`` float32."""
     return {k: torch.as_tensor(v, dtype=torch.bool if k == "keep" else torch.float32)
             for k, v in (draws or {}).items()}
-
-
-def _means(rows: torch.Tensor) -> Dict[str, float]:
-    """Per-step loss rows (steps, 3) -> their means, summed in float64 in step
-    order (one copy off the card)."""
-    table = rows.cpu().tolist()
-    sums = [0.0] * len(LOSS_KEYS)
-    for row in table:
-        sums = [a + b for a, b in zip(sums, row)]
-    return {k: v / len(table) for k, v in zip(LOSS_KEYS, sums)} if table else {}
 
 
 @dataclass
@@ -537,7 +527,7 @@ class VAETrainer:
     def _run_epoch(self, state: VAETrainState, data, *, train: bool, epoch: int):
         """An epoch of train steps, or the validation pass: ``(state, means)``."""
         losses = self._pass(state, data, train=train, name="train" if train else "eval", epoch=epoch)[0]
-        return state, _means(losses)
+        return state, epoch_means(losses, LOSS_KEYS)[0]
 
     def fit(self, train_data: np.ndarray, val_data: np.ndarray, *, save_dir: Optional[str] = None,
             scaler: Optional[Scaler] = None,
@@ -589,4 +579,4 @@ class VAETrainer:
         if outs is None:
             return {}, np.zeros((0,))
         outs = collectives.gather(outs, self.mesh.data_group, dim=1)
-        return _means(losses), outs.cpu().numpy()[masks > 0]
+        return epoch_means(losses, LOSS_KEYS)[0], outs.cpu().numpy()[masks > 0]
