@@ -1,0 +1,3 @@
+"""The device's idle share of the profiled GAN steps, %."""
+
+from perfbench.metrics import idle_share as read  # noqa: F401

@@ -1,0 +1,3 @@
+"""The device's idle share of the profiled quality-run steps, %."""
+
+from perfbench.metrics import idle_share as read  # noqa: F401
