@@ -1,63 +1,75 @@
-"""Step timing and device memory (port of ``rnagan_tpu/core/profiling.py``).
+"""What the port records about its own work: host spans, device stage marks and counters.
 
-:class:`StepTimer` is wall-clock timing that waits for the card
-(``torch.cuda.synchronize``) before it reads the clock, so a duration covers
-the work it names; :func:`memory_usage` reads the CUDA caching allocator's
-statistics.
+All three read the clock of a ``torch.profiler`` trace, so a span, a mark
+and the kernels around them line up on one timeline.
+
+* :func:`span` names a piece of host work. While a profiler records, it is
+  a ``record_function("rnagan.<name>")`` range (a ``user_annotation`` event
+  in the trace, nested by time on its thread); otherwise it is one check
+  and a shared no-op context.
+* :func:`mark` names the stage of a step that the device work after it
+  belongs to. It launches one empty kernel, ``rnagan_mark_<stage>``
+  (``csrc/marks.cu``), on the current stream, only while a CUDA graph is
+  being captured or a profiler records. A captured step then carries its
+  stage boundaries into every replay, where no host range reaches: a
+  stage's device time is the device work between its mark and the next.
+  On the CPU, and on the card outside both, it launches nothing.
+* :func:`count` adds to a process-wide counter in :data:`counters` (plain
+  numbers, always on), as the kernel wrappers count their ``launches``.
 """
 
 from __future__ import annotations
 
-import time
-from typing import Dict, List, Optional, Union
+import contextlib
+from typing import Dict
 
 import torch
 
+from rnagan_tpu_torch.kernels import _build
 
-def memory_usage(device: Union[str, torch.device, None] = None) -> Dict[str, float]:
-    """Allocator statistics of a CUDA device in GiB (all 0 without CUDA)."""
-    if not torch.cuda.is_available():
-        return {"bytes_in_use_gib": 0.0, "peak_bytes_in_use_gib": 0.0, "bytes_limit_gib": 0.0}
-    device = torch.device(device or "cuda")
-    gib = 1024**3
-    return {
-        "bytes_in_use_gib": torch.cuda.memory_allocated(device) / gib,
-        "peak_bytes_in_use_gib": torch.cuda.max_memory_allocated(device) / gib,
-        "bytes_limit_gib": torch.cuda.get_device_properties(device).total_memory / gib,
-    }
+#: the stages :func:`mark` names, in the order of ``csrc/marks.cu``'s ``RNAGAN_STAGES``; ``end`` closes a step
+STAGES = ("gan_ingest", "gan_encode", "gan_noise", "gan_g_forward", "gan_d_forward", "gan_gp", "gan_d_backward",
+          "gan_d_adam", "gan_g_step", "gan_g_adam", "gan_stats", "render",
+          "vae_rows", "vae_mask", "vae_forward", "vae_backward", "vae_adam", "vae_stats",
+          "synth_encode", "synth_noise", "synth_generator", "synth_quantize", "end")
+_STAGE_INDEX = {s: i for i, s in enumerate(STAGES)}
+#: the prefix of every span's name in a trace
+SPAN_PREFIX = "rnagan."
+#: the prefix of every mark kernel's name
+MARK_PREFIX = "rnagan_mark_"
+
+#: process-wide counters, by name (``graph.h2d_bytes``, ``graph.loaded_steps``, ``graph.capture_s``)
+counters: Dict[str, float] = {}
+
+_NO_SPAN = contextlib.nullcontext()
 
 
-class StepTimer:
-    """Rolling window of step durations; reports mean/p50/p90 and steps/s."""
+#: whether a profiler records on this process
+recording = torch.autograd._profiler_enabled
 
-    def __init__(self, window: int = 100):
-        self.window = window
-        self._durs: List[float] = []
-        self._t: Optional[float] = None
 
-    def start(self) -> None:
-        self._t = time.perf_counter()
+def _capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (never before CUDA is initialized)."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
 
-    def stop(self, *sync_tensors: torch.Tensor) -> float:
-        """End the step once the card has finished the work of ``sync_tensors``
-        (any tensor on a CUDA device synchronizes that device)."""
-        for dev in {t.device for t in sync_tensors if t.is_cuda}:
-            torch.cuda.synchronize(dev)
-        dur = time.perf_counter() - self._t
-        self._durs.append(dur)
-        if len(self._durs) > self.window:
-            self._durs.pop(0)
-        return dur
 
-    def stats(self) -> Dict[str, float]:
-        if not self._durs:
-            return {}
-        ds = sorted(self._durs)
-        n = len(ds)
-        mean = sum(ds) / n
-        return {
-            "step_ms_mean": mean * 1e3,
-            "step_ms_p50": ds[n // 2] * 1e3,
-            "step_ms_p90": ds[min(n - 1, int(0.9 * n))] * 1e3,
-            "steps_per_sec": 1.0 / mean if mean > 0 else 0.0,
-        }
+def span(name: str):
+    """A context that names the host work inside it ``rnagan.<name>`` in a profiler's trace."""
+    if not recording():
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
+def mark(stage: str, device: torch.device) -> None:
+    """Begin device stage ``stage`` (one of :data:`STAGES`) on ``device``'s current stream."""
+    index = _STAGE_INDEX[stage]
+    if not (recording() or _capturing()) or device.type != "cuda":
+        return
+    with torch.cuda.device(device):
+        err = _build.library().rnagan_mark(index, torch.cuda.current_stream().cuda_stream)
+    _build.check("rnagan_mark", err)
+
+
+def count(name: str, n: float) -> None:
+    """Add ``n`` to counter ``name``."""
+    counters[name] = counters.get(name, 0) + n

@@ -38,6 +38,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from rnagan_tpu_torch.core import profiling
 from rnagan_tpu_torch.data.batching import batch_indices
 from rnagan_tpu_torch.data.rna import RNATable
 from rnagan_tpu_torch.data.store import LMDBTileStore
@@ -183,11 +184,12 @@ class PatchBatches:
     def epoch(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         for idx, _ in batch_indices(len(self.data), self.batch_size, shuffle=self.shuffle,
                                     seed=self.seed, epoch=epoch, pad_to=self.pad_to):
-            batch = {"image": tiles_to_float(self.data.images[idx])}
-            if self.with_rna:
-                batch["rna_data"] = self.data.rna_for_tiles(idx)
-            if self.with_labels:
-                batch["labels"] = self.data.labels[idx]
+            with profiling.span("data.batch"):
+                batch = {"image": tiles_to_float(self.data.images[idx])}
+                if self.with_rna:
+                    batch["rna_data"] = self.data.rna_for_tiles(idx)
+                if self.with_labels:
+                    batch["labels"] = self.data.labels[idx]
             yield batch
 
 

@@ -34,6 +34,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from rnagan_tpu_torch.core import profiling
 from rnagan_tpu_torch.core.device import resolve_device
 from rnagan_tpu_torch.core.rng import SeedStream
 from rnagan_tpu_torch.kernels.infusion import _MASK, philox4x32
@@ -353,11 +354,12 @@ class SyntheticCorpus:
         on every device, and for a step whatever chunk of steps draws it.
         No host synchronization: the ids of a chunk of captured steps are
         drawn at once, and each step's render reads its row on the device."""
-        rows = torch.arange(start, start + steps, dtype=torch.int64, device=self.device)
-        d = _draws(key, STREAM_BATCH_IDS, rows,
-                   {"slide": (0, (batch,), "uniform"), "tile": (1, (batch,), "uniform")})
-        sl = (d["slide"] * self.n_slides).to(torch.int64).clamp_(max=self.n_slides - 1)
-        ti = (d["tile"] * self.tiles_per_slide).to(torch.int64).clamp_(max=self.tiles_per_slide - 1)
+        with profiling.span("synthetic.batch_ids"):
+            rows = torch.arange(start, start + steps, dtype=torch.int64, device=self.device)
+            d = _draws(key, STREAM_BATCH_IDS, rows,
+                       {"slide": (0, (batch,), "uniform"), "tile": (1, (batch,), "uniform")})
+            sl = (d["slide"] * self.n_slides).to(torch.int64).clamp_(max=self.n_slides - 1)
+            ti = (d["tile"] * self.tiles_per_slide).to(torch.int64).clamp_(max=self.tiles_per_slide - 1)
         return sl, ti
 
     def render(self, slide_ids, tile_ids) -> torch.Tensor:
@@ -365,7 +367,9 @@ class SyntheticCorpus:
         deterministic per (slide, tile). Tile indices in [0, tiles_per_slide)
         are the training corpus; [tiles_per_slide, tiles_per_slide +
         HELDOUT_SPAN) are held out. Ids already on the device render with
-        device ops only, so the render can be captured in a step's CUDA graph."""
+        device ops only, so the render can be captured in a step's CUDA graph
+        (its device work begins with the ``render`` mark, ``core/profiling.py``)."""
+        profiling.mark("render", self.device)
         sl = torch.as_tensor(slide_ids, dtype=torch.int64).to(self.device)
         ti = torch.as_tensor(tile_ids, dtype=torch.int64).to(self.device)
         return render_batch(self.seed, self.slides.s[sl], ti + sl * self.id_stride, self.size)

@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from rnagan_tpu_torch.core import profiling
 from rnagan_tpu_torch.core.config import GANConfig
 from rnagan_tpu_torch.core.device import resolve_device
 from rnagan_tpu_torch.eval.serving import make_serving_fn
@@ -125,23 +126,29 @@ class Synthesizer:
         ``z_pop`` the noise is standardized over the batch, as the reference
         does; with ``z_pop = (mean, std)`` of z over the training population
         (``z_population_stats``) it keeps the patient signal. ``labels`` (n,)
-        int classes are required by ``condgan`` and refused by the others."""
+        int classes are required by ``condgan`` and refused by the others.
+        The host's work is the span ``synth.request``, the rows' copy to the
+        device ``synth.ingress`` inside it (``core/profiling.py``)."""
         if (labels is None) == (self.cfg.model.arch == "condgan"):
             raise ValueError("labels go with arch='condgan', and only with it")
-        gene = torch.as_tensor(gene, dtype=torch.float32).to(self.device)
-        if gene.ndim != 2:
-            raise ValueError(f"gene must be (B, F); got {tuple(gene.shape)}")
-        n = gene.shape[0] if n is None else n
-        if u is not None:
-            u = torch.as_tensor(u, dtype=torch.float32).to(self.device).contiguous()
-        z = encode_z_mean(self.vae, gene)
-        r = self.cfg.noise_range
-        if z_pop is None:
-            noise = infused_noise(z, n, seed=seed, u=u, noise_range=r)
-        else:
-            pop_mean, pop_std = (torch.as_tensor(t, dtype=torch.float32).to(self.device).contiguous()
-                                 for t in z_pop)
-            noise = infused_noise_population(z, pop_mean, pop_std, n, seed=seed, u=u, noise_range=r)
-        if labels is not None:
-            return self.serve(noise, torch.as_tensor(labels).to(self.device))
-        return self.serve(noise)
+        with profiling.span("synth.request"):
+            with profiling.span("synth.ingress"):
+                gene = torch.as_tensor(gene, dtype=torch.float32).to(self.device)
+                if u is not None:
+                    u = torch.as_tensor(u, dtype=torch.float32).to(self.device).contiguous()
+            if gene.ndim != 2:
+                raise ValueError(f"gene must be (B, F); got {tuple(gene.shape)}")
+            n = gene.shape[0] if n is None else n
+            profiling.mark("synth_encode", self.device)
+            z = encode_z_mean(self.vae, gene)
+            profiling.mark("synth_noise", self.device)
+            r = self.cfg.noise_range
+            if z_pop is None:
+                noise = infused_noise(z, n, seed=seed, u=u, noise_range=r)
+            else:
+                pop_mean, pop_std = (torch.as_tensor(t, dtype=torch.float32).to(self.device).contiguous()
+                                     for t in z_pop)
+                noise = infused_noise_population(z, pop_mean, pop_std, n, seed=seed, u=u, noise_range=r)
+            if labels is not None:
+                return self.serve(noise, torch.as_tensor(labels).to(self.device))
+            return self.serve(noise)

@@ -28,7 +28,9 @@ port has:
 ``fn``'s output keeps the JAX package's NHWC layout at this public boundary:
 uint8 through the fused tanh->uint8 kernel (``kernels/quantize.py``), or
 float32 in [-1, 1]. ``fn.generator`` is the stage before it (pre-tanh NCHW
-float32) and ``fn.weights`` the tensors it serves from.
+float32) and ``fn.weights`` the tensors it serves from. Under a profiler
+``fn`` marks the two on the device as ``synth_generator`` and
+``synth_quantize`` (``core/profiling.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rnagan_tpu_torch.core import profiling
 from rnagan_tpu_torch.core.config import GANModelConfig
 from rnagan_tpu_torch.core.device import compute_dtype, resolve_device
 from rnagan_tpu_torch.kernels.quant_matmul import int8_matmul, quantize_per_channel
@@ -372,7 +375,12 @@ def make_serving_fn(cfg: GANModelConfig, g_state_dict: StateDict, *,
 
     @torch.inference_mode()
     def fn(noise: torch.Tensor, *labels: torch.Tensor) -> torch.Tensor:
-        return finish(generator(noise.float(), *labels))
+        profiling.mark("synth_generator", dev)
+        pre = generator(noise.float(), *labels)
+        profiling.mark("synth_quantize", dev)
+        out = finish(pre)
+        profiling.mark("end", dev)
+        return out
 
     fn.generator = generator
     fn.weights = weights

@@ -11,4 +11,7 @@ version; a CUDA tensor launches the kernel or raises. ``_build`` compiles
 | ``quantize``  | ``csrc/quantize.cu``      | ``rnagan_tpu/ops/quantize.py::pallas_tanh_to_uint8`` |
 | ``fused_adam``| ``csrc/fused_adam.cu``    | ``rnagan_tpu/ops/fused_adam.py::adam_update_flat`` |
 | ``quant_matmul`` | ``csrc/quant_matmul.cu`` | ``rnagan_tpu/ops/quant_matmul.py::pallas_int8_matmul`` |
+
+``csrc/marks.cu`` replaces no TPU kernel: its empty stage marks are launched
+by ``core/profiling.py::mark``.
 """

@@ -45,6 +45,8 @@ SIGNATURES = {
     "rnagan_int8_matmul_wgmma": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, xb scratch, w_q, scale, bias, out, n, k, m, stream
     "rnagan_int8_matmul_bytewise": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # stage, stream
+    "rnagan_mark": [_I, _P],
 }
 
 

@@ -96,7 +96,7 @@ import numpy as np
 import torch
 
 from rnagan_tpu_torch import convert
-from rnagan_tpu_torch.core import rng
+from rnagan_tpu_torch.core import profiling, rng
 from rnagan_tpu_torch.core.checkpoint import AsyncSaver, load_bundle, on_writer, to_host
 from rnagan_tpu_torch.core.config import GANConfig, VAEModelConfig
 from rnagan_tpu_torch.core.rng import SeedStream
@@ -319,11 +319,13 @@ class GANTrainer:
         runs as a captured CUDA graph (:meth:`run_steps`); a mesh of several
         ranks and the CPU run :meth:`train_step_eager`. Both draw the same
         bits."""
-        if not self.captures():
-            return self.train_step_eager(state, batch, draws)
-        rows = {k: t[None] for k, t in self._host_batch(batch, draws).items()}
-        vec = self.run_steps(state, rows, given_batch, 1)
-        return state, dict(zip(self.metric_keys(), vec.unbind(0)))
+        with profiling.span("gan.train_step"):
+            if not self.captures():
+                return self.train_step_eager(state, batch, draws)
+            with profiling.span("gan.plan"):
+                rows = {k: t[None] for k, t in self._host_batch(batch, draws).items()}
+            vec = self.run_steps(state, rows, given_batch, 1)
+            return state, dict(zip(self.metric_keys(), vec.unbind(0)))
 
     def train_step_eager(self, state: GANTrainState, batch: Dict[str, Any],
                          draws: Optional[Dict[str, Any]] = None):
@@ -332,9 +334,10 @@ class GANTrainer:
         Its seeds are host ints (K1's group mode takes them so), the graph's
         device scalars of the same values."""
         dev = self.device
-        given = {k: t.to(dev) for k, t in self._host_batch(batch, draws).items()}
-        step = state.step
-        seeds = [self.seeds.seed("train", step, i) for i in range(len(_STAGES))]
+        with profiling.span("gan.plan"):
+            given = {k: t.to(dev) for k, t in self._host_batch(batch, draws).items()}
+            step = state.step
+            seeds = [self.seeds.seed("train", step, i) for i in range(len(_STAGES))]
         with collectives.active(self.mesh):
             metrics = self._step(state, given_batch(given), _draws_of(given), seeds, None, self._runs_g(step))
         state.step += 1
@@ -368,7 +371,8 @@ class GANTrainer:
                 if sums is not None:
                     sums.add_(vec)
             return vec
-        runs, seeds, corr, after = self._plan(state, steps)
+        with profiling.span("gan.plan"):
+            runs, seeds, corr, after = self._plan(state, steps)
         graph = self._graph(state, {**tables, "seeds": seeds, "corr": corr}, prepare, capacity or steps)
         graph.load({**tables, "seeds": seeds, "corr": corr}, steps)
         for run_g in runs:
@@ -441,8 +445,11 @@ class GANTrainer:
         int64 (stages,) device tensor), ``corr`` None (Adam computes its bias
         corrections from its counts) or a float32 (3, 2) device tensor of
         them. The state's tensors are updated in place (statistics by
-        ``copy_``) and the Adam counts advance; ``state.step`` does not."""
+        ``copy_``) and the Adam counts advance; ``state.step`` does not.
+        Each stage begins with its device mark (``core/profiling.py``)."""
         cfg, dev, group = self.cfg, self.device, self.mesh.data_group
+        mark = lambda stage: profiling.mark(stage, dev)  # noqa: E731
+        mark("gan_ingest")
         real = batch["image"]
         if real.dtype == torch.uint8:
             real = real.float() / 127.5 - 1.0
@@ -453,6 +460,7 @@ class GANTrainer:
         g_stats, d_stats = state.g_stats, state.d_stats
         z_mean = None
         if cfg.loss_type == "wganvae":
+            mark("gan_encode")
             with torch.no_grad():
                 z_mean = encode_z_mean(self.vae, batch["rna_data"])
         cond = z_mean if cfg.model.critic == "projection" else None
@@ -466,30 +474,39 @@ class GANTrainer:
             gan_losses.clip_params(d_params, *cfg.clip)
 
         # ---------------- D stage (critic loss, fused with the GP by default)
+        mark("gan_noise")
+        noise = self._noise(seeds, "d", n, z_mean, draws)
+        mark("gan_g_forward")
         with torch.no_grad():
-            fake, g_stats = G.forward_stats(self._noise(seeds, "d", n, z_mean, draws), g_stats, True,
-                                            labels=labels)
+            fake, g_stats = G.forward_stats(noise, g_stats, True, labels=labels)
+        mark("gan_d_forward")
         dx, s1 = D(real, d_stats, True, cond, labels)
         dgz, s2 = D(fake, s1, True, cond, labels)
         loss = self._share(gan_losses.DISCRIMINATOR_LOSSES[cfg.loss_type](dx, dgz))
         metrics.update(d_loss=loss.detach(), dx=self._share(dx.detach().mean()),
                        dgz=self._share(dgz.detach().mean()))
         if fused_gp:
+            mark("gan_gp")
             eps = self._eps(seeds, n, draws)
             interp = eps * real + (1.0 - eps) * fake
             gp = gan_losses.gradient_penalty(lambda x: D(x, s2, True, cond, labels)[0], interp,
                                              per_sample=True, group=group)
             metrics["gp"] = gp.detach()
             loss = loss + cfg.gp_lambda * gp
-        state.d_opt.step(d_params, collectives.all_reduce_grads(torch.autograd.grad(loss, d_params), group),
-                         corr=adam_corr(0))
+        mark("gan_d_backward")
+        grads = collectives.all_reduce_grads(torch.autograd.grad(loss, d_params), group)
+        mark("gan_d_adam")
+        state.d_opt.step(d_params, grads, corr=adam_corr(0))
         d_stats = s2
 
         # ---------------- GP stage (a second D step: the reference's dynamics)
         if wgan_family and not fused_gp:
+            mark("gan_noise")
+            noise = self._noise(seeds, "gp", n, z_mean, draws)
+            mark("gan_g_forward")
             with torch.no_grad():
-                fake_gp, g_stats = G.forward_stats(
-                    self._noise(seeds, "gp", n, z_mean, draws), g_stats, True, labels=labels)
+                fake_gp, g_stats = G.forward_stats(noise, g_stats, True, labels=labels)
+            mark("gan_gp")
             eps = self._eps(seeds, None, draws)
             interp = eps * real + (1.0 - eps) * fake_gp
             kept: List[Stats] = []
@@ -500,19 +517,24 @@ class GANTrainer:
                 return out
 
             gp = gan_losses.gradient_penalty(critic, interp, per_sample=False, group=group)
+            mark("gan_d_backward")
             grads = collectives.all_reduce_grads(torch.autograd.grad(cfg.gp_lambda * gp, d_params), group)
             d_stats = kept[0]
+            mark("gan_d_adam")
             state.d_opt.step(d_params, grads, corr=adam_corr(1))
             metrics["gp"] = gp.detach()
 
         # ---------------- G stage
         if run_g:
-            fake, gs = G.forward_stats(self._noise(seeds, "g", n, z_mean, draws), g_stats, True,
-                                       labels=labels)
+            mark("gan_noise")
+            noise = self._noise(seeds, "g", n, z_mean, draws)
+            mark("gan_g_step")
+            fake, gs = G.forward_stats(noise, g_stats, True, labels=labels)
             dgz, ds = D(fake, d_stats, True, cond, labels)
             g_loss = self._share(gan_losses.GENERATOR_LOSSES[cfg.loss_type](dgz))
-            state.g_opt.step(g_params, collectives.all_reduce_grads(torch.autograd.grad(g_loss, g_params), group),
-                             corr=adam_corr(2))
+            grads = collectives.all_reduce_grads(torch.autograd.grad(g_loss, g_params), group)
+            mark("gan_g_adam")
+            state.g_opt.step(g_params, grads, corr=adam_corr(2))
             g_stats, d_stats = gs, ds
             metrics["g_loss"] = g_loss.detach().float()
             if state.g_ema is not None:
@@ -522,11 +544,13 @@ class GANTrainer:
                         e.copy_(e * decay + (1.0 - decay) * p)
         else:
             metrics["g_loss"] = torch.zeros((), device=dev)
+        mark("gan_stats")
         with torch.no_grad():  # into the state's own tensors: a captured step writes where it reads
             for old, new in ((state.g_stats, g_stats), (state.d_stats, d_stats)):
                 for pair, new_pair in zip(old, new, strict=True):
                     for t, v in zip(pair, new_pair):
                         t.copy_(v)
+        mark("end")
         return metrics
 
     def _share(self, x: torch.Tensor) -> torch.Tensor:
@@ -752,9 +776,10 @@ class GANTrainer:
                 for k, v in metrics.items():
                     sums[k] = sums[k] + v if k in sums else v
                 count += 1
-            self._sync()
-            epoch_s = time.perf_counter() - t0
-            means = {k: float(v) / max(count, 1) for k, v in sums.items()}
+            with profiling.span("gan.fit.sync"):
+                self._sync()
+                epoch_s = time.perf_counter() - t0
+                means = {k: float(v) / max(count, 1) for k, v in sums.items()}
             means["steps_per_sec"] = count / max(epoch_s, 1e-9)
             means["step_ms_mean"] = 1e3 * epoch_s / max(count, 1)
             if eval_fn is not None and eval_every and (epoch + 1) % eval_every == 0:

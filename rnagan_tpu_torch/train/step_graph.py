@@ -39,14 +39,22 @@ are taken back.
 A capture that fails raises; nothing falls back to eager execution. On a
 machine without CUDA :class:`StepGraph` raises: the eager step is the
 caller's choice, never a silent fallback.
+
+What it records (``core/profiling.py``): the spans ``graph.load``,
+``graph.replay`` (each ``CUDAGraph.replay``: a full launch queue shows as
+its time) and ``graph.capture`` (warm-up included), and the counters
+``graph.h2d_bytes`` (every byte ``load`` copies from the host),
+``graph.loaded_steps`` (the rows it loads) and ``graph.capture_s``.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable, Dict, Hashable, List, Sequence, Tuple
 
 import torch
 
+from rnagan_tpu_torch.core import profiling
 from rnagan_tpu_torch.core.checkpoint import AsyncSaver
 from rnagan_tpu_torch.kernels import fused_adam, infusion
 
@@ -62,6 +70,11 @@ def _counts() -> List[int]:
 def _set_counts(values: Sequence[int]) -> None:
     for (fn, attr), v in zip(COUNTERS, values):
         setattr(fn, attr, v)
+
+
+def host_bytes(tables: Dict[str, torch.Tensor], steps: int) -> int:
+    """The bytes that loading rows ``[0, steps)`` of ``tables`` copies from host memory."""
+    return sum(t[:steps].nbytes for t in tables.values() if t.device.type == "cpu")
 
 
 class StepGraph:
@@ -96,11 +109,14 @@ class StepGraph:
             raise ValueError(f"{steps} steps do not fit the graph's {self.capacity} rows")
         if set(tables) != set(self.tables):
             raise ValueError(f"tables {sorted(tables)} are not the graph's {sorted(self.tables)}")
-        for name, t in tables.items():
-            if t.device.type == "cpu":
-                t = t.pin_memory()
-            self.tables[name][:steps].copy_(t[:steps], non_blocking=True)
-        self.counter.zero_()
+        with profiling.span("graph.load"):
+            for name, t in tables.items():
+                if t.device.type == "cpu":
+                    t = t.pin_memory()
+                self.tables[name][:steps].copy_(t[:steps], non_blocking=True)
+            self.counter.zero_()
+        profiling.count("graph.h2d_bytes", host_bytes(tables, steps))
+        profiling.count("graph.loaded_steps", steps)
 
     def replay(self, variant: Hashable) -> Any:
         """One step of ``variant`` (captured at its first replay). The output
@@ -108,7 +124,8 @@ class StepGraph:
         if variant not in self.graphs:
             self._capture(variant)
         graph, out, deltas = self.graphs[variant]
-        graph.replay()
+        with profiling.span("graph.replay"):
+            graph.replay()
         _set_counts([c + d for c, d in zip(_counts(), deltas)])
         return out
 
@@ -124,6 +141,12 @@ class StepGraph:
         return out
 
     def _capture(self, variant) -> None:
+        t0 = time.perf_counter()
+        with profiling.span("graph.capture"):
+            self._capture_variant(variant)
+        profiling.count("graph.capture_s", time.perf_counter() - t0)
+
+    def _capture_variant(self, variant) -> None:
         AsyncSaver.wait_all()  # a worker's device copy would invalidate the capture
         before = _counts()
         live = [*self.state, self.counter]

@@ -74,11 +74,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from rnagan_tpu_torch.core import rng
+from rnagan_tpu_torch.core import profiling, rng
 from rnagan_tpu_torch.core.checkpoint import BestKeeper, on_writer
 from rnagan_tpu_torch.core.config import VAEConfig
 from rnagan_tpu_torch.core.metrics import MetricsLogger, epoch_means
-from rnagan_tpu_torch.core.profiling import StepTimer
 from rnagan_tpu_torch.core.rng import SeedStream
 from rnagan_tpu_torch.data.batching import batch_indices
 from rnagan_tpu_torch.data.rna import Scaler
@@ -219,17 +218,25 @@ class VAETrainer:
         global batch's given ``keep``/``eps``, ``seeds`` the step's (host ints
         or an int64 device row), ``row``/``variant`` the optimizer's (None:
         computed on the host). The state is updated in place; ``state.step``
-        does not advance."""
-        mesh = self.mesh
+        does not advance. Each stage begins with its device mark
+        (``core/profiling.py``); ``vae_stats`` holds the losses' reduction."""
+        mesh, dev = self.mesh, self.device
         n = len(x) * mesh.data
+        profiling.mark("vae_mask", dev)
         keep, eps = self._draws(draws, seeds[_STAGES["keep"]], seeds[_STAGES["eps"]], n, local_rows(n, mesh))
+        profiling.mark("vae_forward", dev)
         model = state.model.train()
         out, z_mean, z_logvar = model(x, keep=keep, eps=eps)
         losses = masked_beta_vae_loss(x, out, z_mean, z_logvar, m, self.cfg.model.beta, True, mesh.data_group)
+        profiling.mark("vae_backward", dev)
         params = list(model.parameters())
-        grads = torch.autograd.grad(losses["total_loss"], params)
-        state.opt.step(params, collectives.all_reduce_grads(grads, mesh.data_group), row=row, variant=variant)
-        return collectives.reduce_metrics({k: v.detach() for k, v in losses.items()}, mesh.data_group)
+        grads = collectives.all_reduce_grads(torch.autograd.grad(losses["total_loss"], params), mesh.data_group)
+        profiling.mark("vae_adam", dev)
+        state.opt.step(params, grads, row=row, variant=variant)
+        profiling.mark("vae_stats", dev)
+        losses = collectives.reduce_metrics({k: v.detach() for k, v in losses.items()}, mesh.data_group)
+        profiling.mark("end", dev)
+        return losses
 
     @torch.no_grad()
     def _eval(self, state: VAETrainState, x, m, draws, seed) -> Tuple[Losses, torch.Tensor]:
@@ -327,6 +334,7 @@ class VAETrainer:
         and returns its losses vector, or one eval step and returns
         ``(losses vector, reconstructions)``."""
         def train(variant, rows):
+            profiling.mark("vae_rows", self.device)
             x, m = prepare(rows)
             with collectives.active(self.mesh):
                 losses = self._step(state, x, m, _draws_of(rows), rows["seeds"], rows["opt"], variant)
@@ -363,19 +371,22 @@ class VAETrainer:
         table shapes, ``prepare`` and ``capacity`` rows (default ``steps``),
         one per RAdam variant: the host fills the tables (the seeds and the
         optimizer's rows too) once and enqueues the replays with no
-        synchronization. Otherwise each step runs op by op."""
+        synchronization. Otherwise each step runs op by op. A step's
+        ``prepare`` is its device stage ``vae_rows`` (``core/profiling.py``)."""
         out = torch.empty((steps, len(LOSS_KEYS)), device=self.device)
         if not self.captures():
             for i in range(steps):
                 rows = {k: t[i] for k, t in tables.items()}
                 rows["seeds"] = self._step_seeds(state.step)
+                profiling.mark("vae_rows", self.device)
                 x, m = prepare(rows)
                 with collectives.active(self.mesh):
                     vec = self._vector(self._step(state, x, m, _draws_of(rows), rows["seeds"], None, None))
                 state.step += 1
                 out[i].copy_(vec)
             return out
-        seeds, opt_rows, variants, after = self._plan(state, steps)
+        with profiling.span("vae.plan"):
+            seeds, opt_rows, variants, after = self._plan(state, steps)
         full = {**tables, "seeds": seeds, "opt": opt_rows}
         graph = self._graph("train", state, full, prepare, capacity or steps)
         graph.load(full, steps)
@@ -536,17 +547,14 @@ class VAETrainer:
         ``betaVAE.py:165-284``). ``train_data`` and ``val_data`` are (rows,
         genes) float32 arrays, or tensors (on the card, the tables hold row
         indices into them). Returns the best state (a copy) and
-        ``{"best_epoch", "best_loss", "history", "timing"}``."""
+        ``{"best_epoch", "best_loss", "history"}``."""
         state = state if state is not None else self.init_state()
         mesh = self.mesh
         keeper = BestKeeper(save_dir) if save_dir and mesh.writer else None
-        timer = StepTimer()
         history: Dict[str, List[Dict[str, float]]] = {"train": [], "val": []}
         best_loss, best_epoch, best_state = float("inf"), -1, None
         for epoch in range(self.cfg.num_epochs):
-            timer.start()
             state, train_losses = self._run_epoch(state, train_data, train=True, epoch=epoch)
-            timer.stop(*state.model.z_mu.parameters())
             _, val_losses = self._run_epoch(state, val_data, train=False, epoch=epoch)
             val_losses = collectives.broadcast_scalars(val_losses, mesh)  # one decision on every rank
             history["train"].append(train_losses)
@@ -568,8 +576,7 @@ class VAETrainer:
             on_writer(mesh, lambda: keeper.save_last(full, scaler))
         if best_state is None:
             best_state = state  # every validation loss NaN: the final state
-        results = {"best_epoch": best_epoch, "best_loss": {"total_loss": best_loss},
-                   "history": history, "timing": timer.stats()}
+        results = {"best_epoch": best_epoch, "best_loss": {"total_loss": best_loss}, "history": history}
         return best_state, results
 
     def evaluate(self, data: np.ndarray, state: VAETrainState) -> Tuple[Dict[str, float], np.ndarray]:

@@ -51,7 +51,6 @@ from rnagan_tpu_torch.cli import betavae_train
 from rnagan_tpu_torch.core import config as tcfg
 from rnagan_tpu_torch.core.checkpoint import BestKeeper
 from rnagan_tpu_torch.core.metrics import MetricsLogger
-from rnagan_tpu_torch.core.profiling import StepTimer, memory_usage
 from rnagan_tpu_torch.data import batching as tbatching
 from rnagan_tpu_torch.data import rna as trna
 from rnagan_tpu_torch.eval import interpolate as tinterp
@@ -701,10 +700,3 @@ def test_metrics_logger_and_step_timer(tmp_path):
     log.close()
     lines = [json.loads(s) for s in (tmp_path / "r.jsonl").read_text().splitlines()]
     assert [(r["tag"], r["step"], r["loss"]) for r in lines] == [("train", 3, 0.5), ("val", 3, 0.25)]
-    timer = StepTimer(window=2)
-    for _ in range(3):
-        timer.start()
-        timer.stop(torch.zeros(1))
-    assert len(timer._durs) == 2 and timer.stats()["steps_per_sec"] > 0
-    if not torch.cuda.is_available():
-        assert memory_usage() == {"bytes_in_use_gib": 0.0, "peak_bytes_in_use_gib": 0.0, "bytes_limit_gib": 0.0}
