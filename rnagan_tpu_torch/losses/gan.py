@@ -46,7 +46,7 @@ def gradient_penalty(critic: Callable[[torch.Tensor], torch.Tensor], interpolate
     grads = grads.float()
     size = collectives.group_size(group)
     if per_sample:
-        norms = torch.sqrt((grads * grads).reshape(grads.shape[0], -1).sum(dim=1) + 1e-12)
+        norms = torch.sqrt((grads * grads).sum(dim=tuple(range(1, grads.ndim))) + 1e-12)
         return ((norms - 1.0) ** 2).mean() / size
     norm = torch.sqrt(collectives.all_reduce_sum((grads * grads).sum().reshape(1), group)[0] + 1e-12)
     return (norm - 1.0) ** 2 / size

@@ -28,6 +28,7 @@ one-device arithmetic runs, bit for bit as before.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -39,6 +40,38 @@ EPS = 1e-5
 
 #: running (mean, var) of each BatchNorm of a module, in module order
 Stats = List[Tuple[torch.Tensor, torch.Tensor]]
+
+
+class _Mean(torch.autograd.Function):
+    """``x.mean(axes)``, whose gradient goes back broadcast (:class:`_MeanGrad`)."""
+
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.shape, ctx.axes = x.shape, axes
+        return x.mean(axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _MeanGrad.apply(g, ctx.shape, ctx.axes), None
+
+
+class _MeanGrad(torch.autograd.Function):
+    """A mean's gradient ``g / n`` expanded to the input's shape with no
+    copy: the values of autograd's own mean backward, which writes them out
+    as a contiguous map. The op that takes the broadcast gradient then keeps
+    its other operand's layout, so a channels-last map's gradients stay
+    channels-last. Its own gradient divides and then sums, in autograd's
+    order, so a double backward keeps autograd's bits too."""
+
+    @staticmethod
+    def forward(ctx, g, shape, axes):
+        ctx.n, ctx.axes = math.prod(shape[a] for a in axes), axes
+        kept = [1 if a in axes else s for a, s in enumerate(shape)]
+        return (g / ctx.n).reshape(kept).expand(shape)
+
+    @staticmethod
+    def backward(ctx, gg):
+        return (gg / ctx.n).sum(ctx.axes), None, None
 
 
 def batch_norm(x: torch.Tensor, scale: Optional[torch.Tensor], bias: Optional[torch.Tensor],
@@ -54,8 +87,8 @@ def batch_norm(x: torch.Tensor, scale: Optional[torch.Tensor], bias: Optional[to
     if train:
         group = collectives.data_group()
         if group is None:
-            m = xf.mean(axes)
-            v = torch.clamp((xf * xf).mean(axes) - m * m, min=0.0)
+            m = _Mean.apply(xf, axes)
+            v = torch.clamp(_Mean.apply(xf * xf, axes) - m * m, min=0.0)
         else:
             count = xf.numel() // xf.shape[1] * collectives.group_size(group)  # equal shards
             sums = collectives.all_reduce_sum(torch.stack([xf.sum(axes), (xf * xf).sum(axes)]), group)
@@ -69,7 +102,8 @@ def batch_norm(x: torch.Tensor, scale: Optional[torch.Tensor], bias: Optional[to
     mul = torch.rsqrt(v + EPS)
     if scale is not None:
         mul = mul * scale
-    y = (xf - m.reshape(shape)) * mul.reshape(shape)
+    # + (-m), exactly xf - m: the double backward then negates the (C,) gradient, not a broadcast map
+    y = (xf + (-m).reshape(shape)) * mul.reshape(shape)
     if bias is not None:
         y = y + bias.reshape(shape)
     return y.to(x.dtype), new_mean, new_var

@@ -41,7 +41,30 @@ num_classes`` channels.
 (``cfg.batchnorm=False``; for the generator also the BN-folded serving form)
 every conv carries a bias. A stride-2 ``ConvTranspose2d`` with padding 1
 equals flax's ``padding="SAME"`` once the kernel is flipped in transit; a
-``Conv2d`` kernel is only transposed (``convert.py``). Layout is NCHW.
+``Conv2d`` kernel is only transposed (``convert.py``).
+
+Layout: the nets take and give NCHW shapes. On a CUDA card every
+convolution they issue runs on channels-last (NHWC-strided) operands, so
+cuDNN's NHWC kernels get the order they compute in and transpose nothing
+(:func:`conv_layout`; on the CPU the order stays contiguous NCHW):
+
+* the weights are cast to the compute dtype straight into that order
+  (:func:`cast_weight`: one copy, whose gradient comes back as one copy into
+  the float32 master's contiguous order); the discriminator's input is cast
+  into it the same way, the noise enters as an NHWC view (:func:`noise_map`),
+  and convolution, BatchNorm, LeakyReLU, the upsample and the pad keep it;
+* a train-mode generator hands its output to the discriminator in that
+  order; in eval mode its output is contiguous NCHW.
+
+On every device the discriminator's convolutions differentiate through
+first-order convolutions (:class:`_Conv2d`), so the gradient penalty's
+double backward keeps the maps' order too, and its last block, one output
+channel over the whole 4x4 map, is computed as the dot product it is
+(:func:`discriminator_conv`).
+
+Each convolution layer a forward runs adds 1 to the counter ``gan.convs``,
+and to ``gan.convs_channels_last`` when both operands are channels-last
+(``core/profiling.py``).
 
 BatchNorm has flax's semantics (``models/batchnorm.py``). ``forward_stats`` /
 the discriminator's ``forward`` take the running statistics as an argument
@@ -60,6 +83,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rnagan_tpu_torch.core import profiling
 from rnagan_tpu_torch.core.config import GANModelConfig
 from rnagan_tpu_torch.core.device import compute_dtype
 from rnagan_tpu_torch.models.batchnorm import Stats, batch_norm
@@ -116,11 +140,17 @@ class _Upsample2x(torch.autograd.Function):
 
 class _ReflectPad1(torch.autograd.Function):
     """``F.pad(x, (1, 1, 1, 1), mode="reflect")`` with a deterministic
-    backward (PyTorch's CUDA backward adds with atomics)."""
+    backward (PyTorch's CUDA backward adds with atomics). A channels-last
+    ``x`` is padded by slices and concatenations, which keep its order: the
+    CUDA reflection pad makes its input contiguous."""
 
     @staticmethod
     def forward(ctx, x):
-        return F.pad(x, (1, 1, 1, 1), mode="reflect")
+        if x.is_contiguous():
+            return F.pad(x, (1, 1, 1, 1), mode="reflect")
+        h, w = x.shape[2], x.shape[3]
+        x = torch.cat([x.narrow(3, 1, 1), x, x.narrow(3, w - 2, 1)], 3)
+        return torch.cat([x.narrow(2, 1, 1), x, x.narrow(2, h - 2, 1)], 2)
 
     @staticmethod
     def backward(ctx, g):
@@ -152,6 +182,110 @@ def up_block(x: torch.Tensor, weight3: torch.Tensor, bias: torch.Tensor) -> torc
     return F.conv2d(reflect_pad_hw(upsample2x_bilinear(x), 1), weight3, bias)
 
 
+def conv_layout(x: torch.Tensor) -> torch.memory_format:
+    """The order the nets convolve ``x``'s batch in: channels-last on a CUDA
+    card, where cuDNN's NHWC kernels want it; contiguous NCHW on the CPU,
+    whose float32 convolutions sum in another order in channels-last and then
+    lie outside the port's parity tolerances with the JAX package."""
+    return torch.channels_last if x.is_cuda else torch.contiguous_format
+
+
+def noise_map(z: torch.Tensor, layout: torch.memory_format) -> torch.Tensor:
+    """The (N, C) noise as the head's (N, C, 1, 1) input map, a view. A 1x1
+    map is contiguous in either order, and a convolution takes the ambiguous
+    one for NCHW: in channels-last order it is given channels-last strides,
+    as an NHWC view, so cuDNN's weight gradient of the head stays NHWC."""
+    if layout == torch.channels_last:
+        return z[:, None, None, :].permute(0, 3, 1, 2)
+    return z[:, :, None, None]
+
+
+class _ChannelsLastCast(torch.autograd.Function):
+    """A weight cast to ``dtype`` in channels-last order, one copy. The
+    gradient goes back as one copy too, into the weight's dtype and
+    contiguous order: the order of the float32 master, its Adam moments and
+    K3, which reads each buffer element by element. The backward is an
+    ordinary differentiable op."""
+
+    @staticmethod
+    def forward(ctx, w, dtype):
+        ctx.dtype = w.dtype
+        return w.to(dtype, memory_format=torch.channels_last)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype, memory_format=torch.contiguous_format), None
+
+
+def cast_weight(w: torch.Tensor, dtype: torch.dtype, layout: torch.memory_format) -> torch.Tensor:
+    """A convolution's weight (``Conv2d``'s (out, in, kH, kW) or
+    ``ConvTranspose2d``'s (in, out, kH, kW)) in ``dtype`` and ``layout``;
+    in channels-last order its gradient comes back contiguous
+    (:class:`_ChannelsLastCast`)."""
+    if layout == torch.channels_last:
+        return _ChannelsLastCast.apply(w, dtype)
+    return w.to(dtype)
+
+
+class _Conv2d(torch.autograd.Function):
+    """``F.conv2d`` whose backward is built of first-order convolutions on
+    the maps themselves: the input's gradient a transposed convolution of
+    the output's gradient with the weight, the weight's cuDNN's
+    weight-gradient kernel. A double backward (the gradient penalty's)
+    then differentiates the transposed convolution as it differentiates any
+    convolution. Autograd's own double backward of a convolution computes
+    the weight term as a convolution of the batch-transposed maps
+    (``_convolution_double_backward``): operands in neither layout, made
+    contiguous and transposed again by cuDNN, and a convolution whose filter
+    is the whole output map, which cuDNN runs slowly."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, padding):
+        ctx.save_for_backward(x, w)
+        ctx.stride, ctx.padding = stride, padding
+        return F.conv2d(x, w, b, stride, padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding = ctx.stride, ctx.padding
+        gx = gw = gb = None
+        if ctx.needs_input_grad[0]:
+            # the output padding that gives back x's size from a strided convolution
+            extra = [x.shape[i] - ((g.shape[i] - 1) * stride[i - 2] - 2 * padding[i - 2] + w.shape[i])
+                     for i in (2, 3)]
+            gx = F.conv_transpose2d(g, w, None, stride, padding, extra)
+        if ctx.needs_input_grad[1]:
+            gw = torch.ops.aten.convolution_backward(g, x, w, None, stride, padding, (1, 1), False, (0, 0), 1,
+                                                     (False, True, False))[1]
+        if ctx.needs_input_grad[2]:
+            gb = g.sum((0, 2, 3))
+        return gx, gw, gb, None, None
+
+
+def discriminator_conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], stride,
+                       padding) -> torch.Tensor:
+    """The discriminator's convolution, through :class:`_Conv2d`, whose
+    double backward keeps the maps' order. The last block, one output
+    channel whose kernel covers the whole map, is the dot product it equals,
+    of map and kernel flattened in the map's order (NHWC for a channels-last
+    map: cuDNN transposes around a channels-last convolution with one output
+    channel)."""
+    if w.shape[0] == 1 and x.shape[2:] == w.shape[2:] and not any(padding):
+        order = (0, 2, 3, 1) if x.is_contiguous(memory_format=torch.channels_last) else (0, 1, 2, 3)
+        flat = lambda t: t.permute(order).reshape(t.shape[0], -1)  # noqa: E731
+        return F.linear(flat(x), flat(w), b)[:, :, None, None]
+    return _Conv2d.apply(x, w, b, tuple(stride), tuple(padding))
+
+
+def count_conv(x: torch.Tensor, w: torch.Tensor) -> None:
+    """Count a convolution layer run on input ``x`` and weight ``w``:
+    ``gan.convs``, and ``gan.convs_channels_last`` when both are channels-last."""
+    profiling.count("gan.convs", 1)
+    if x.is_contiguous(memory_format=torch.channels_last) and w.is_contiguous(memory_format=torch.channels_last):
+        profiling.count("gan.convs_channels_last", 1)
+
+
 def join_onehot(x: torch.Tensor, labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     """``x`` with the labels' one-hot joined on the channel axis (1): after a
     generator's (N, z) noise, or after a discriminator's image channels as
@@ -162,6 +296,14 @@ def join_onehot(x: torch.Tensor, labels: torch.Tensor, num_classes: int) -> torc
     return torch.cat([x, onehot], dim=1)
 
 
+def _output(x: torch.Tensor, train: bool) -> torch.Tensor:
+    """A generator's last map in float32: channels-last as it is in train
+    mode (the discriminator reads it so), contiguous NCHW in eval mode."""
+    if train:
+        return x.float()
+    return x.to(torch.float32, memory_format=torch.contiguous_format)
+
+
 class _DCGAN(nn.Module):
     """What the nets share: seeded init and the BN buffers as ``Stats``."""
 
@@ -170,6 +312,9 @@ class _DCGAN(nn.Module):
     ARCHS: Tuple[str, ...] = ()
     #: one-hot labels join the input (the ``condgan`` variants)
     conditional = False
+    #: the nets convolve channels-last operands: a caller may hand the
+    #: discriminator an NHWC batch as its permuted (N, C, H, W) view
+    channels_last = True
 
     @torch.no_grad()
     def _init_weights(self, seed: int) -> None:
@@ -272,20 +417,22 @@ class DCGANGenerator(_Generator):
         p = dict(self.named_parameters())
         if params is not None:
             p = dict(zip(p, params, strict=True))
-        x = self._labelled(z, labels).to(dt)[:, :, None, None]
+        layout = conv_layout(z)
+        x = noise_map(self._labelled(z, labels).to(dt), layout)
         new: Stats = []
         last = len(self.model) - 1
         for i, block in enumerate(self.model):
             conv = block[0]
             bias = p.get(f"model.{i}.0.bias")
-            x = F.conv_transpose2d(x, p[f"model.{i}.0.weight"].to(dt),
-                                   None if bias is None else bias.to(dt), conv.stride, conv.padding)
+            w = cast_weight(p[f"model.{i}.0.weight"], dt, layout)
+            count_conv(x, w)
+            x = F.conv_transpose2d(x, w, None if bias is None else bias.to(dt), conv.stride, conv.padding)
             if i == last:
                 break
             if self.cfg.batchnorm:
                 x = self._bn(x, p, i, stats, i, train, new)
             x = F.leaky_relu(x, self.cfg.leaky_slope)
-        x = x.float()
+        x = _output(x, train)
         return (torch.tanh(x) if self.final_tanh else x), new
 
 
@@ -332,17 +479,23 @@ class DCGANUpGenerator(_Generator):
         new: Stats = []
         last = len(self.model) - 1
         bias = p.get("model.0.0.bias")
-        x = F.conv_transpose2d(z.to(dt)[:, :, None, None], p["model.0.0.weight"].to(dt),
-                               None if bias is None else bias.to(dt))
+        layout = conv_layout(z)
+        x = noise_map(z.to(dt), layout)
+        w = cast_weight(p["model.0.0.weight"], dt, layout)
+        count_conv(x, w)
+        x = F.conv_transpose2d(x, w, None if bias is None else bias.to(dt))
         for i in range(last + 1):
             if i > 0:
-                x = up_block(x, p[f"model.{i}.0.weight"].to(dt), p[f"model.{i}.0.bias"].to(dt))
+                x = reflect_pad_hw(upsample2x_bilinear(x), 1)
+                w = cast_weight(p[f"model.{i}.0.weight"], dt, layout)
+                count_conv(x, w)
+                x = F.conv2d(x, w, p[f"model.{i}.0.bias"].to(dt))
             if i == last:
                 break
             if self.cfg.batchnorm:
                 x = self._bn(x, p, i, stats, i, train, new)
             x = F.leaky_relu(x, self.cfg.leaky_slope)
-        x = x.float()
+        x = _output(x, train)
         return (x if self.compat_no_tanh else torch.tanh(x)), new
 
 
@@ -388,15 +541,17 @@ class DCGANDiscriminator(_DCGAN):
         dt = compute_dtype(cfg.compute_dtype)
         p = dict(self.named_parameters())
         new: Stats = []
-        x = self._labelled(x, labels).to(dt)
+        layout = conv_layout(x)
+        x = self._labelled(x, labels).to(dt, memory_format=layout)
         last = len(self.model) - 1
         for i, block in enumerate(self.model):
             conv = block[0]
             if i == last:
                 h = x  # the final 4x4 feature map
             bias = p.get(f"model.{i}.0.bias")
-            x = F.conv2d(x, p[f"model.{i}.0.weight"].to(dt), None if bias is None else bias.to(dt),
-                         conv.stride, conv.padding)
+            w = cast_weight(p[f"model.{i}.0.weight"], dt, layout)
+            count_conv(x, w)
+            x = discriminator_conv(x, w, None if bias is None else bias.to(dt), conv.stride, conv.padding)
             if i == last:
                 break
             if cfg.batchnorm and i > 0:

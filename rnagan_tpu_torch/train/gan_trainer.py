@@ -450,12 +450,14 @@ class GANTrainer:
         cfg, dev, group = self.cfg, self.device, self.mesh.data_group
         mark = lambda stage: profiling.mark(stage, dev)  # noqa: E731
         mark("gan_ingest")
+        G, D = state.generator, state.discriminator
         real = batch["image"]
         if real.dtype == torch.uint8:
             real = real.float() / 127.5 - 1.0
-        real = real.float().permute(0, 3, 1, 2).contiguous()
+        real = real.float().permute(0, 3, 1, 2)  # NHWC: a channels-last view
+        if not getattr(D, "channels_last", False):
+            real = real.contiguous()
         n = real.shape[0]
-        G, D = state.generator, state.discriminator
         g_params, d_params = list(G.parameters()), list(D.parameters())
         g_stats, d_stats = state.g_stats, state.d_stats
         z_mean = None
