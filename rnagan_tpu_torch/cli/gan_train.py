@@ -43,8 +43,8 @@ def build_parser():
     p.add_argument("--num_epochs", type=int, default=None)
     p.add_argument("--num_patches", type=int, default=250, help="tiles per slide")
     p.add_argument("--gan_type", type=str, default="dcgan",
-                   help="dcgan | dcgan_up | condgan | sagan | biggan (biggan is class-conditional "
-                        "over the config's CSVs)")
+                   help="dcgan | dcgan_up | condgan | sagan | biggan | biggan_pub (biggan and biggan_pub, "
+                        "the published BigGAN, are class-conditional over the config's CSVs)")
     p.add_argument("--loss_type", type=str, default="wganvae", help="minimax | wgan | wganvae | lsgan")
     p.add_argument("--vae_checkpoint", type=str, default=None,
                    help="beta-VAE checkpoint for wganvae: a .pt state_dict or a JAX bundle")
@@ -107,16 +107,18 @@ def main(argv=None):
     load_s = time.perf_counter() - t0
     print(f"Loaded {len(data)} tiles from {len(data.slides)} slides in {load_s:.3f} s")
 
-    # condgan and biggan are class-conditional over the tissue CSVs (the reference's
+    # condgan and the BigGANs are class-conditional over the tissue CSVs (the reference's
     # biggan wiring's n_classes=2 is its 2 CSVs); sagan is unconditional
-    conditional = args.gan_type in ("condgan", "biggan")
+    conditional = args.gan_type in ("condgan", "biggan", "biggan_pub")
+    published = args.gan_type == "biggan_pub"  # attention at 64x64 and a 128-wide shared embedding
     model_cfg = GANModelConfig(
         arch=args.gan_type,
         out_size=int(config.get("img_size", 256)),
         encoding_dims=int(config.get("encoding_dims", 2048)),
         step_channels=int(config.get("step_channels", 32 if args.gan_type in ("condgan", "sagan") else 64)),
         num_classes=len(config["path_csv"]) if conditional else 0,
-        attn_size=int(config.get("attn_size", 32)),
+        attn_size=int(config.get("attn_size", 64 if published else 32)),
+        **({"embed_dim": int(config.get("embed_dim", 128))} if published else {}),
         critic=args.critic,
         compute_dtype=str(config.get("compute_dtype", "bfloat16")),
     )

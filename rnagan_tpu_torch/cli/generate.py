@@ -52,6 +52,9 @@ def _load_trainer(cfg_json, ckpt, vae_path, args):
     from rnagan_tpu_torch.train.gan_trainer import GANTrainer
 
     arch = getattr(args, "gan_type", None) or cfg_json.get("gan_type", "dcgan")
+    if arch == "biggan_pub":
+        raise SystemExit("arch 'biggan_pub' (the published BigGAN) trains through gan-train only: "
+                         "generate and the tools that load a generator through it do not serve it")
     num_classes = len(cfg_json.get("path_csv", ())) if arch in ("condgan", "biggan") else 0
     model_cfg = GANModelConfig(
         arch=arch,

@@ -17,7 +17,7 @@
 #define RNAGAN_STAGES(X)                                                            \
   X(gan_ingest) X(gan_encode) X(gan_noise) X(gan_g_forward) X(gan_d_forward)        \
   X(gan_gp) X(gan_d_backward) X(gan_d_adam) X(gan_g_step) X(gan_g_adam)             \
-  X(gan_stats) X(render)                                                            \
+  X(gan_stats) X(gan_attn) X(render)                                                \
   X(vae_rows) X(vae_mask) X(vae_forward) X(vae_backward) X(vae_adam) X(vae_stats)   \
   X(synth_encode) X(synth_noise) X(synth_generator) X(synth_quantize) X(end)
 

@@ -578,18 +578,20 @@ class ConditionalDCGANDiscriminator(DCGANDiscriminator):
 
 
 def _classes(net: str):
-    """The registry (``rnagan_tpu/models/dcgan.py:262-297``); SAGAN and BigGAN
-    are imported here, as they import this module."""
+    """The registry (``rnagan_tpu/models/dcgan.py:262-297``, and the port's
+    ``biggan_pub``); SAGAN and the BigGANs are imported here, as they import
+    this module."""
     from rnagan_tpu_torch.models.biggan import BigGANDiscriminator, BigGANGenerator
+    from rnagan_tpu_torch.models.biggan_pub import PublishedBigGANDiscriminator, PublishedBigGANGenerator
     from rnagan_tpu_torch.models.sagan import SAGANDiscriminator, SAGANGenerator
 
     if net == "generator":
         return {"dcgan": DCGANGenerator, "dcgan_up": DCGANUpGenerator,
                 "condgan": ConditionalDCGANGenerator, "sagan": SAGANGenerator,
-                "biggan": BigGANGenerator}
+                "biggan": BigGANGenerator, "biggan_pub": PublishedBigGANGenerator}
     return {"dcgan": DCGANDiscriminator, "dcgan_up": DCGANDiscriminator,
             "condgan": ConditionalDCGANDiscriminator, "sagan": SAGANDiscriminator,
-            "biggan": BigGANDiscriminator}
+            "biggan": BigGANDiscriminator, "biggan_pub": PublishedBigGANDiscriminator}
 
 
 def make_generator(cfg: GANModelConfig, **kwargs) -> nn.Module:

@@ -33,6 +33,14 @@ compute dtype, cast to float32; softmax in float32, cast back; an output
 1x1 conv back to C; ``x + gamma * o`` with a float32 scalar ``gamma`` that
 starts at 0. It is written with ``torch.bmm`` and ``softmax`` to keep the
 JAX package's rounding points (its einsums are XLA, not a Pallas kernel).
+Each call is the device stage ``gan_attn`` inside the stage that runs it
+(``core/profiling.py::nested``) and adds 1 to the counter ``gan.attn_calls``.
+
+Counters (``core/profiling.py``): a training forward adds 1 to ``gan.layers``
+for each weight it reads through ``Walk.weight`` or ``Walk.dense`` (the
+convolutions and linear maps; in ``biggan_pub`` also the critic's projection
+embedding), and 1 to ``gan.sn_layers`` for each of those it normalizes
+spectrally. A class embedding looked up as a plain table counts in neither.
 
 Module names follow the flax tree (``ConvTranspose_i``, ``_BN_i``,
 ``Conv_i``, ``Attention_<size>.{theta,phi,g,o}``), so
@@ -50,6 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rnagan_tpu_torch.core import profiling
 from rnagan_tpu_torch.core.config import GANModelConfig
 from rnagan_tpu_torch.core.device import compute_dtype
 from rnagan_tpu_torch.models.batchnorm import Stats, batch_norm
@@ -140,9 +149,17 @@ class Walk:
     def weight(self, m: nn.Module) -> torch.Tensor:
         """``m``'s weight, spectrally normalized, in the compute dtype."""
         u, sigma = self.stats[m.slot]
-        w, u_new, s_new = spectral_norm(self.param(m, "weight"), u, _kind(m))
+        w, u_new, s_new = self.normalize(self.param(m, "weight"), u, m)
         self.new[m.slot] = (u_new, s_new) if self.train else (u, sigma)
+        if self.train:
+            profiling.count("gan.layers", 1)
+            profiling.count("gan.sn_layers", 1)
         return w.to(self.dt)
+
+    def normalize(self, weight: torch.Tensor, u: torch.Tensor,
+                  m: nn.Module) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(weight / sigma, new u, sigma)``: flax's spectral norm."""
+        return spectral_norm(weight, u, _kind(m))
 
     def bias(self, m: nn.Module) -> Optional[torch.Tensor]:
         return None if m.bias is None else self.param(m, "bias").to(self.dt)
@@ -154,6 +171,8 @@ class Walk:
         return F.conv_transpose2d(x, self.weight(m), self.bias(m), m.stride, m.padding)
 
     def dense(self, m: nn.Linear, x: torch.Tensor, sn: bool = True) -> torch.Tensor:
+        if not sn and self.train:
+            profiling.count("gan.layers", 1)
         w = self.weight(m) if sn else self.param(m, "weight").to(self.dt)
         return F.linear(x.to(self.dt), w, self.bias(m))
 
@@ -233,6 +252,11 @@ class SelfAttention2d(nn.Module):
         self.gamma = nn.Parameter(torch.zeros((), device=device))
 
     def attend(self, walk: Walk, x: torch.Tensor) -> torch.Tensor:
+        profiling.count("gan.attn_calls", 1)
+        with profiling.nested("gan_attn", x.device):
+            return self._attend(walk, x)
+
+    def _attend(self, walk: Walk, x: torch.Tensor) -> torch.Tensor:
         n, c, h, w = x.shape
         theta = walk.conv(self.theta, x)
         phi = F.max_pool2d(walk.conv(self.phi, x), 2)

@@ -20,10 +20,11 @@ One :meth:`GANTrainer.train_step` is the JAX package's ``_train_step_impl``
 * the EMA of G's weights, on steps that updated G.
 
 G and D come from the model registry: ``dcgan``, ``dcgan_up`` (the
-resize-conv generator with the plain discriminator), ``condgan``, ``sagan``
-and ``biggan``. ``condgan``'s batch ``labels``, and ``biggan``'s when
-``num_classes`` > 0, go into G and D at every stage, the GP's included.
-SAGAN and BigGAN keep spectral-norm state ``(u, sigma)`` beside the
+resize-conv generator with the plain discriminator), ``condgan``, ``sagan``,
+``biggan`` and ``biggan_pub`` (the published BigGAN). ``condgan``'s and
+``biggan_pub``'s batch ``labels``, and ``biggan``'s when ``num_classes`` > 0,
+go into G and D at every stage, the GP's included.
+SAGAN and the BigGANs keep spectral-norm state ``(u, sigma)`` beside the
 BatchNorm statistics in ``g_stats``/``d_stats`` and thread it the same way:
 D's real pass gives ``s1``, its fake pass ``s2``, the GP reads ``s2`` and its
 update is dropped.
@@ -119,7 +120,7 @@ _STAGES = {"d": 0, "gp": 1, "g": 2, "eps": 3}
 #: a step's metrics, in the order of its vectors (``gp`` for the wgan family only)
 METRICS = ("d_loss", "dx", "dgz", "gp", "g_loss")
 #: the archs whose one-rank CUDA step is a captured graph
-CAPTURED_ARCHS = ("dcgan", "dcgan_up", "condgan", "sagan", "biggan")
+CAPTURED_ARCHS = ("dcgan", "dcgan_up", "condgan", "sagan", "biggan", "biggan_pub")
 #: the step graphs a trainer keeps (a graph pins its state and its memory pool)
 MAX_GRAPHS = 4
 #: a step's given draws, as ``draws`` keys and table names
@@ -197,9 +198,9 @@ class GANTrainer:
                              "it requires loss_type=wganvae")
         if cfg.adam_mu_dtype not in (None, "float32", "bfloat16"):
             raise ValueError("adam_mu_dtype must be None, 'float32' or 'bfloat16'")
-        if cfg.fused_critic_batch and cfg.model.arch in ("sagan", "biggan"):
+        if cfg.fused_critic_batch and cfg.model.arch in ("sagan", "biggan", "biggan_pub"):
             raise ValueError("fused_critic_batch is unsupported for spectral-norm architectures "
-                             "(sagan/biggan)")
+                             "(sagan/biggan/biggan_pub)")
         self.cfg = cfg
         self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh, device)
         if self.mesh.model != 1:
@@ -270,12 +271,12 @@ class GANTrainer:
 
     def _conditional(self) -> bool:
         m = self.cfg.model
-        return m.arch == "condgan" or (m.arch == "biggan" and m.num_classes > 0)
+        return m.arch in ("condgan", "biggan_pub") or (m.arch == "biggan" and m.num_classes > 0)
 
     def _host_batch(self, batch, draws) -> Dict[str, torch.Tensor]:
         """A step's inputs as tensors where the caller holds them: the batch's
-        ``image``, ``rna_data`` (wganvae) and ``labels`` (``condgan``, and
-        ``biggan`` with ``num_classes`` > 0, JAX's ``_labels``,
+        ``image``, ``rna_data`` (wganvae) and ``labels`` (``condgan``,
+        ``biggan_pub``, and ``biggan`` with ``num_classes`` > 0, JAX's ``_labels``,
         ``gan_trainer.py:184-189``), and the draws when given."""
         out = {"image": torch.as_tensor(batch["image"])}
         if self.cfg.loss_type == "wganvae":
@@ -569,7 +570,7 @@ class GANTrainer:
         patients' z_mean ((B, F) rows, B = n or 1), standardized over the batch,
         or with ``z_pop = (mean, std)`` by population statistics; both through
         K1 with Philox ``seed``. Without ``gene`` it is standard normal.
-        ``condgan`` and ``biggan`` with ``num_classes`` > 0 draw the labels
+        ``condgan``, ``biggan_pub`` and ``biggan`` with ``num_classes`` > 0 draw the labels
         uniformly from their ``num_classes`` with a generator of ``seed``, or
         take ``labels`` (n,) when given.
         ``use_ema=None`` picks the EMA generator whenever the state has one."""

@@ -273,3 +273,63 @@ def test_a_traced_step_holds_each_stage_mark_in_order(card, tmp_path, path):
     for n in names:
         assert trace.category(n) == "elementwise and other", n
         assert not any(pattern in n for pattern in trace.COUNTED), n
+
+
+# ------------------------------------------------------- nested stages
+
+#: a tiny ``biggan_pub`` whose attention runs in both nets (64x64 table, attention at 32x32)
+BIGGAN_PUB = GANConfig(model=GANModelConfig(arch="biggan_pub", out_size=64, encoding_dims=40, step_channels=4,
+                                            num_classes=2, attn_size=32, embed_dim=8, compute_dtype="float32"),
+                       vae=VAEModelConfig(rna_features=16, z_dim=40, encoder_dims=(12, 8), decoder_dims=(12,)),
+                       batch_size=4)
+
+
+def _seen_marks(monkeypatch):
+    """The stages marked, in order, while the real ``mark`` still runs (and keeps the stage it named)."""
+    seen, real = [], profiling.mark
+
+    def record(stage, device):
+        seen.append(stage)
+        real(stage, device)
+    monkeypatch.setattr(profiling, "mark", record)
+    return seen
+
+
+def _with_attention(marks, inside):
+    """``marks`` with ``gan_attn`` nested in each stage of ``inside`` (stage -> attention calls)."""
+    out = []
+    for stage in marks:
+        out.append(stage)
+        for _ in range(inside.get(stage, 0)):
+            out += ["gan_attn", stage]
+    return out
+
+
+def test_attention_is_a_stage_nested_in_the_one_that_runs_it(monkeypatch):
+    """``gan_attn`` marks each attention call and the enclosing stage is
+    marked again when it returns: G's in the D stage's G forward and in the G
+    stage, D's on the real tiles and the fakes, in the penalty's forward and in
+    the G stage. Without attention (DCGAN) the marks are the parent's exactly."""
+    seen = _seen_marks(monkeypatch)
+    trainer, state = _gan()
+    trainer.train_step(state, _batch())
+    assert seen == GAN_MARKS and "gan_attn" not in seen
+    seen.clear()
+    trainer = GANTrainer(BIGGAN_PUB, vae_state_dict=BetaVAE(BIGGAN_PUB.vae, seed=3).state_dict(), device="cpu")
+    state = trainer.init_state()
+    rs = np.random.RandomState(3)
+    trainer.train_step(state, {"image": rs.randint(0, 256, (4, 64, 64, 3)).astype(np.uint8),
+                               "rna_data": rs.randn(4, 16).astype(np.float32), "labels": np.array([0, 1, 1, 0])})
+    assert seen == _with_attention(GAN_MARKS, {"gan_g_forward": 1, "gan_d_forward": 2, "gan_gp": 1, "gan_g_step": 2})
+
+
+def test_a_nested_stage_resumes_the_stage_marked_before_it(monkeypatch):
+    seen = _seen_marks(monkeypatch)
+    cpu = torch.device("cpu")
+    profiling.mark("gan_d_forward", cpu)
+    with profiling.nested("gan_attn", cpu):
+        assert seen[-1] == "gan_attn"
+    profiling.mark("end", cpu)
+    with profiling.nested("gan_attn", cpu):
+        pass
+    assert seen == ["gan_d_forward", "gan_attn", "gan_d_forward", "end", "gan_attn", "end"]
