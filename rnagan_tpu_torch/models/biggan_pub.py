@@ -56,10 +56,28 @@ the unbiased variance; the state (BatchNorm statistics and each spectral
 norm's ``(u, sigma)``) is the ``Stats`` list the trainer threads
 (``models/sagan.py``), not buffers written in place; compute runs in
 ``cfg.compute_dtype`` on float32 parameters, with the power iteration, the
-BatchNorm statistics and attention's softmax in float32. Layout is NCHW and
-the convolutions are ``F.conv2d``, as in the port's other spectrally
-normalized nets. ``cfg.remat`` recomputes each block in the backward pass
-(``models/biggan.py::_remat``).
+BatchNorm statistics and attention's softmax in float32. ``cfg.remat``
+recomputes each block in the backward pass (``models/biggan.py::_remat``).
+
+Convolutions (:meth:`PublishedWalk.conv`) take the DCGAN nets' route
+(``models/dcgan.py``). On a CUDA card every one runs on channels-last
+operands (``dcgan.conv_layout``; the CPU keeps NCHW): each normalized
+float32 weight is cast into bf16 channels-last by one copy
+(``dcgan.cast_weight``, whose gradient comes back float32 and contiguous), the
+generator's first map is made channels-last once, the discriminator's input
+is cast into that order (the trainer hands it the NHWC tiles as a permuted
+view), and CCBN, the upsample, the pools, the residual sums and attention's
+products keep it. There the convolutions differentiate through first-order
+convolutions (``dcgan._Conv2d``), so the penalty's double backward keeps the
+maps' order and never runs autograd's own double backward of a convolution.
+The pools (:class:`_AvgPool2`, ``sagan._MaxPool2``: PyTorch's kernels) keep
+it in that double backward too. One map leaves it there: the critic
+attention's query product hands the query convolution a contiguous gradient
+(``bmm``'s double backward), which cuDNN transposes (a few µs a step). Each
+convolution a forward runs adds 1 to the counter ``gan.convs``, and to
+``gan.convs_channels_last`` when both operands are channels-last
+(``dcgan.count_conv``). An evaluation forward of the generator hands back
+contiguous NCHW float32.
 """
 
 from __future__ import annotations
@@ -71,6 +89,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from rnagan_tpu_torch.core.config import GANModelConfig
+from rnagan_tpu_torch.models import dcgan
 from rnagan_tpu_torch.models.batchnorm import Stats
 from rnagan_tpu_torch.models.biggan import _remat, upsample2x_nearest
 from rnagan_tpu_torch.models.dcgan import check_arch
@@ -114,11 +133,39 @@ def spectral_norm(weight: torch.Tensor, u: torch.Tensor) -> Tuple[torch.Tensor, 
     return weight / sigma, u_new, sigma.detach()
 
 
+class _AvgPool2(torch.autograd.Function):
+    """``F.avg_pool2d(x, 2)`` with the backward of ``sagan._MaxPool2``'s kind:
+    PyTorch's kernel, recording no dependence on x, so the penalty's double
+    backward hands x no contiguous NCHW gradient of zeros."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.avg_pool2d(x, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.ops.aten.avg_pool2d_backward(g, x.detach(), (2, 2), (2, 2), (0, 0), False, True, None)
+
+
 class PublishedWalk(Walk):
-    """A forward's view of a ``biggan_pub`` net: the published spectral norm."""
+    """A forward's view of a ``biggan_pub`` net: the published spectral norm,
+    and the convolution route of the module docstring."""
 
     def normalize(self, weight, u, m):
         return spectral_norm(weight, u)
+
+    def conv(self, m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        layout = dcgan.conv_layout(x)
+        w, b = self.weight(m, layout), self.bias(m)
+        dcgan.count_conv(x, w)
+        if layout == torch.channels_last:
+            return dcgan._Conv2d.apply(x, w, b, tuple(m.stride), tuple(m.padding))
+        # NCHW (the CPU): F.conv2d's own backward, whose rounding the float32 tests against the
+        # plain reference were set on; a bias gradient that cancels exactly in a balanced batch
+        # takes Adam's first step in the sign of that rounding, and the next stage's loss with it
+        return F.conv2d(x, w, b, m.stride, m.padding)
 
 
 class CCBN(nn.Module):
@@ -166,7 +213,7 @@ class DBlock(nn.Module):
             self.conv_sc = _conv(cin, cout, 1, device)
 
     def _pool(self, x: torch.Tensor) -> torch.Tensor:
-        return F.avg_pool2d(x, 2) if self.pools else x
+        return _AvgPool2.apply(x) if self.pools else x
 
     def run(self, walk: Walk, x: torch.Tensor) -> torch.Tensor:
         h = walk.conv(self.conv1, F.relu(x) if self.preactivation else x)
@@ -244,16 +291,20 @@ class PublishedBigGANGenerator(_Published, _Generator):
         y = F.embedding(_labels(labels, z.device), walk.param(self.shared, "weight").to(walk.dt))
         h = walk.dense(self.linear, chunks[0])
         h = h.reshape(h.shape[0], -1, 4, 4)
+        h = h.contiguous(memory_format=dcgan.conv_layout(h))
         for i, block in enumerate(self.blocks):
             h = _remat(walk, block[0].run, self.cfg.remat, h, torch.cat([y, chunks[i + 1]], dim=1))
             if len(block) > 1:
                 h = block[1].attend(walk, h)
-        h = walk.conv(self.output_conv, F.relu(walk.bn(self.output_bn, h))).float()
+        h = dcgan._output(walk.conv(self.output_conv, F.relu(walk.bn(self.output_bn, h))), train)
         return (torch.tanh(h) if self.final_tanh else h), walk.result()
 
 
 class PublishedBigGANDiscriminator(_Published):
     """images (N, out_channels, out_size, out_size) and labels (N,) -> (N,) critic scores."""
+
+    #: a caller may hand the critic an NHWC batch as its permuted (N, C, H, W) view
+    channels_last = True
 
     def __init__(self, cfg: GANModelConfig, *, seed: int = 0, device=None):
         super().__init__()
@@ -276,7 +327,7 @@ class PublishedBigGANDiscriminator(_Published):
                 labels: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Stats]:
         """``(scores, new_stats)``; ``cond`` is ignored."""
         walk = PublishedWalk(self, stats, train)
-        h = x.to(walk.dt)
+        h = x.to(walk.dt, memory_format=dcgan.conv_layout(x))
         for block in self.blocks:
             h = _remat(walk, block[0].run, self.cfg.remat, h)
             if len(block) > 1:

@@ -28,13 +28,15 @@ keeps both in ``batch_stats``). A forward takes that list and returns the
 new one, as ``models/batchnorm.py`` does: nothing is written in place.
 
 **Attention** (``SelfAttention2d``): 1x1 convs theta and phi to C/8, g to
-C/2 (each floored at 1), phi and g 2x2 max-pooled; logits a product in the
-compute dtype, cast to float32; softmax in float32, cast back; an output
-1x1 conv back to C; ``x + gamma * o`` with a float32 scalar ``gamma`` that
-starts at 0. It is written with ``torch.bmm`` and ``softmax`` to keep the
-JAX package's rounding points (its einsums are XLA, not a Pallas kernel).
-Each call is the device stage ``gan_attn`` inside the stage that runs it
-(``core/profiling.py::nested``) and adds 1 to the counter ``gan.attn_calls``.
+C/2 (each floored at 1), phi and g 2x2 max-pooled (``_MaxPool2``: the
+library pool, whose backward records no dependence on its input); logits a
+product in the compute dtype, cast to float32; softmax in float32, cast
+back; an output 1x1 conv back to C; ``x + gamma * o`` with a float32 scalar
+``gamma`` that starts at 0. It is written with ``torch.bmm`` and ``softmax``
+to keep the JAX package's rounding points (its einsums are XLA, not a Pallas
+kernel). Each call is the device stage ``gan_attn`` inside the stage that
+runs it (``core/profiling.py::nested``) and adds 1 to the counter
+``gan.attn_calls``.
 
 Counters (``core/profiling.py``): a training forward adds 1 to ``gan.layers``
 for each weight it reads through ``Walk.weight`` or ``Walk.dense`` (the
@@ -62,7 +64,7 @@ from rnagan_tpu_torch.core import profiling
 from rnagan_tpu_torch.core.config import GANModelConfig
 from rnagan_tpu_torch.core.device import compute_dtype
 from rnagan_tpu_torch.models.batchnorm import Stats, batch_norm
-from rnagan_tpu_torch.models.dcgan import check_arch, num_repeats
+from rnagan_tpu_torch.models.dcgan import cast_weight, check_arch, num_repeats
 
 SN_EPS = 1e-12
 
@@ -146,15 +148,16 @@ class Walk:
     def param(self, m: nn.Module, name: str) -> torch.Tensor:
         return self.p[f"{m.qualname}.{name}" if m.qualname else name]
 
-    def weight(self, m: nn.Module) -> torch.Tensor:
-        """``m``'s weight, spectrally normalized, in the compute dtype."""
+    def weight(self, m: nn.Module, layout: torch.memory_format = torch.contiguous_format) -> torch.Tensor:
+        """``m``'s weight, spectrally normalized, in the compute dtype and
+        ``layout`` (``dcgan.cast_weight``: a channels-last weight is one copy)."""
         u, sigma = self.stats[m.slot]
         w, u_new, s_new = self.normalize(self.param(m, "weight"), u, m)
         self.new[m.slot] = (u_new, s_new) if self.train else (u, sigma)
         if self.train:
             profiling.count("gan.layers", 1)
             profiling.count("gan.sn_layers", 1)
-        return w.to(self.dt)
+        return cast_weight(w, self.dt, layout)
 
     def normalize(self, weight: torch.Tensor, u: torch.Tensor,
                   m: nn.Module) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -240,6 +243,26 @@ class _Generator(SNNet):
         return out
 
 
+class _MaxPool2(torch.autograd.Function):
+    """``F.max_pool2d(x, 2)`` whose backward, PyTorch's kernel, reads x's size
+    and order but records no dependence on x. Autograd's own records one, and
+    a double backward (the penalty's) turns it into a gradient of zeros for x
+    in contiguous NCHW order, which a sum carries into a channels-last
+    gradient. The values are the library pool's."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y, indices = torch.ops.aten.max_pool2d_with_indices(x, (2, 2), (2, 2))
+        ctx.save_for_backward(x, indices)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, indices = ctx.saved_tensors
+        return torch.ops.aten.max_pool2d_with_indices_backward(g, x.detach(), (2, 2), (2, 2), (0, 0), (1, 1), False,
+                                                               indices)
+
+
 class SelfAttention2d(nn.Module):
     """Self-attention over the H*W tokens with 2x2-pooled keys and values."""
 
@@ -259,8 +282,8 @@ class SelfAttention2d(nn.Module):
     def _attend(self, walk: Walk, x: torch.Tensor) -> torch.Tensor:
         n, c, h, w = x.shape
         theta = walk.conv(self.theta, x)
-        phi = F.max_pool2d(walk.conv(self.phi, x), 2)
-        g = F.max_pool2d(walk.conv(self.g, x), 2)
+        phi = _MaxPool2.apply(walk.conv(self.phi, x))
+        g = _MaxPool2.apply(walk.conv(self.g, x))
         q = theta.flatten(2).transpose(1, 2)  # (N, HW, C/8), tokens in (h, w) order
         logits = torch.bmm(q, phi.flatten(2)).float()  # (N, HW, HW/4)
         attn = torch.softmax(logits, dim=-1).to(walk.dt)

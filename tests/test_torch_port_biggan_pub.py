@@ -249,6 +249,36 @@ def test_a_trainer_step_matches_the_reference_step(size):
         _close(v, out["state"][k], 1e-4, 1e-5)
 
 
+@pytest.mark.parametrize("layout", [torch.contiguous_format, torch.channels_last], ids=["nchw", "channels_last"])
+@pytest.mark.parametrize("kind", ["avg", "max"])
+def test_the_pools_differentiate_twice_as_the_library_pools(kind, layout):
+    """``biggan_pub._AvgPool2`` and ``sagan._MaxPool2`` against ``F.avg_pool2d`` and
+    ``F.max_pool2d`` at float64: the output, a penalty-style double
+    backward's gradient for x, and x's first gradient in x's order. Their
+    backward records no dependence on x, so the double backward hands x no
+    gradient of zeros (autograd's own hands x a contiguous NCHW one)."""
+    from rnagan_tpu_torch.models import biggan_pub, sagan
+
+    pool, ref = ((biggan_pub._AvgPool2.apply, lambda t: torch.nn.functional.avg_pool2d(t, 2)) if kind == "avg" else
+                 (sagan._MaxPool2.apply, lambda t: torch.nn.functional.max_pool2d(t, 2)))
+    gen = torch.Generator().manual_seed(6)
+    x0 = torch.randn((2, 3, 6, 8), generator=gen, dtype=torch.float64).to(memory_format=layout)
+    cot = torch.randn((2, 3, 3, 4), generator=gen, dtype=torch.float64)
+
+    def penalty(fn):
+        x = x0.clone(memory_format=torch.preserve_format).requires_grad_(True)
+        y = fn(torch.sin(x))
+        (gx,) = torch.autograd.grad((y * cot).sum(), x, create_graph=True)
+        assert gx.is_contiguous(memory_format=layout)
+        return (y, gx, *torch.autograd.grad((gx * gx).sum(), x))
+
+    for got, want in zip(penalty(pool), penalty(ref), strict=True):
+        torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    x = x0.clone().requires_grad_(True)
+    grads = [torch.autograd.grad(fn(x).sum(), x, create_graph=True)[0] for fn in (pool, ref)]
+    assert grads[0].grad_fn is None and grads[1].grad_fn is not None  # the library's: an edge back to x
+
+
 # -------------------------------------------------------------- wiring
 
 
@@ -312,18 +342,28 @@ def test_the_counters_count_as_stated(monkeypatch):
     and each spectrally normalized one in ``gan.sn_layers`` (all of
     ``biggan_pub``'s; the port's ``biggan`` leaves its conditional BatchNorm
     projections unnormalized); every attention call counts in
-    ``gan.attn_calls``, an evaluation forward's too; DCGAN counts none of them."""
+    ``gan.attn_calls``, an evaluation forward's too; DCGAN counts none of them.
+    Every forward counts each convolution layer it runs in ``gan.convs``,
+    attention's four included. On the CPU the maps stay NCHW, and of those
+    only attention's output convolution counts in ``gan.convs_channels_last``:
+    the attention product hands it a channels-last-strided map and its 1x1
+    weight is contiguous in either order."""
     m = _m("64_attention")
     g, d = _nets(m, _weights(m))
     z, labels, x = _inputs(m)
     sn_g = sum(1 for mod in g.modules() if hasattr(mod, "sn_u"))
+    conv_g = sum(1 for mod in g.modules() if isinstance(mod, torch.nn.Conv2d))
     c = _counted(monkeypatch, lambda: g.forward_stats(z, g.bn_stats(), True, labels=labels))
-    assert c == {"gan.layers": sn_g, "gan.sn_layers": sn_g, "gan.attn_calls": 1}
+    assert c == {"gan.layers": sn_g, "gan.sn_layers": sn_g, "gan.attn_calls": 1, "gan.convs": conv_g,
+                 "gan.convs_channels_last": 1}
     sn_d = sum(1 for mod in d.modules() if hasattr(mod, "sn_u"))
+    conv_d = sum(1 for mod in d.modules() if isinstance(mod, torch.nn.Conv2d))
     c = _counted(monkeypatch, lambda: d(x, d.bn_stats(), True, labels=labels))
-    assert c == {"gan.layers": sn_d, "gan.sn_layers": sn_d, "gan.attn_calls": 1}
+    assert c == {"gan.layers": sn_d, "gan.sn_layers": sn_d, "gan.attn_calls": 1, "gan.convs": conv_d,
+                 "gan.convs_channels_last": 1}
     c = _counted(monkeypatch, lambda: g.forward_stats(z, g.bn_stats(), False, labels=labels))
-    assert c == {"gan.attn_calls": 1}
+    assert c == {"gan.attn_calls": 1, "gan.convs": conv_g, "gan.convs_channels_last": 1}
+    assert (conv_g, conv_d) == (4 * 3 + 1 + 4, 5 * 3 + 4)  # blocks x (conv1, conv2, conv_sc), G's head, attention
     old = make_generator(GANModelConfig(arch="biggan", out_size=16, step_channels=4, encoding_dims=24, num_classes=2,
                                         attn_size=8, embed_dim=6, compute_dtype="float32"))
     c = _counted(monkeypatch, lambda: old.forward_stats(torch.randn(2, 24), old.bn_stats(), True,
@@ -486,3 +526,50 @@ def test_a_captured_step_is_the_eager_step_and_marks_its_attention(card, tmp_pat
              if profiling.MARK_PREFIX in e["name"]]
     assert marks == _with_attention(GAN_MARKS, {"gan_g_forward": 1, "gan_d_forward": 2, "gan_gp": 1,
                                                 "gan_g_step": 2})
+
+
+@pytest.mark.card
+def test_the_captured_published_step_convolves_channels_last(card, tmp_path):
+    """``rnagan-biggan256``'s model (256x256, bf16, batch 8, wganvae) captured:
+    every convolution counts as channels-last, and between the step's
+    ``gan_ingest`` and ``end`` marks the profile holds no
+    ``fprop_implicit_gemm_indexed`` kernel (the one autograd's own double
+    backward of a convolution runs on) and cuDNN's layout transposes only
+    where ``test_torch_port_channels_last.py`` finds a contiguous gradient map
+    (the critic attention's query convolution in the penalty's double
+    backward): each just ahead of a dgrad kernel, together under 0.1 % of the
+    step's kernel time (the NCHW route's took 7.9 %). On a machine with a card:
+    ``python -m pytest tests/test_torch_port_biggan_pub.py -q -m card --noconftest``."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from perfbench.drivers.biggan_fit import gan_config
+    from test_torch_port_channels_last import _kernels_between
+
+    config = json.loads((REPO / "perfbench" / "configs" / "rnagan-biggan256.json").read_text())
+    cfg = gan_config(config, 8, 11)
+    assert (cfg.model.out_size, cfg.model.compute_dtype, cfg.loss_type) == (256, "bfloat16", "wganvae")
+    rs = np.random.RandomState(0)
+    batches = [{"image": rs.randint(0, 256, (8, 256, 256, 3)).astype(np.uint8),
+                "rna_data": rs.randn(8, cfg.vae.rna_features).astype(np.float32),
+                "labels": np.arange(8) % 2} for _ in range(2)]
+    trainer = GANTrainer(cfg, vae_state_dict=vae_weights(config["vae"], 7, card), device=card)
+    assert trainer.captures()
+    state = trainer.init_state()
+    profiling.counters.pop("gan.convs", None)
+    profiling.counters.pop("gan.convs_channels_last", None)
+    trainer.train_step(state, batches[0])  # captures
+    assert profiling.counters["gan.convs_channels_last"] == profiling.counters["gan.convs"] > 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device=card).add_(1)  # the session's first device record can go missing
+        trainer.train_step(state, batches[1])
+        torch.cuda.synchronize()
+    kernels = _kernels_between(prof, tmp_path, "gan_ingest", "end", durations=True)
+    names = [name for name, _ in kernels]
+    assert any("fused_adam" in k for k in names)
+    assert not [k for k in names if "fprop_implicit_gemm_indexed" in k]
+    at = [i for i, k in enumerate(names) if "nchwToNhwc" in k or "nhwcToNchw" in k]
+    assert all("dgrad" in names[i + 1] for i in at), [names[i + 1] for i in at]
+    assert sum(kernels[i][1] for i in at) < 1e-3 * sum(us for _, us in kernels)

@@ -1,18 +1,20 @@
-"""The DCGAN nets' channels-last convolutions (``models/dcgan.py``), on the CPU.
+"""The GAN nets' channels-last convolutions (``models/dcgan.py``,
+``models/biggan_pub.py``), on the CPU.
 
-On a CUDA card the ``dcgan``, ``condgan`` and ``dcgan_up`` nets convolve
-channels-last operands; on the CPU they keep contiguous NCHW
+On a CUDA card the ``dcgan``, ``condgan``, ``dcgan_up`` and ``biggan_pub``
+nets convolve channels-last operands; on the CPU they keep contiguous NCHW
 (``dcgan.conv_layout``, keyed on the input's device). These tests put the CPU
 on the card's path by patching ``conv_layout`` and hold it, at float32, to a
 plain NCHW reference written here with ``torch.nn.functional`` from the same
-weights: the forwards at 1e-5, and one ``train_step_eager`` with the
+weights (for ``biggan_pub``, the benchmark's plain reference
+``perfbench/reference/biggan.py``): the forwards at 1e-5, and one ``train_step_eager`` with the
 reference nets in the trainer's step at the parity tests' tolerances
 (metrics rtol 1e-4, parameters rtol 1e-6 / atol 1e-7, Adam moments rtol 1e-4
 plus 1e-5 of each tensor's largest value, statistics rtol 1e-5 / atol 1e-6),
 from a state whose weights make activations O(1) and whose Adam ``nu`` is far
 above ``(1-b2)*g^2``. The gradients that reach Adam, the masters and the
 moments stay contiguous, eval-mode images come back contiguous NCHW, every
-convolution of the step counts as channels-last, SAGAN and BigGAN keep
+convolution of the step counts as channels-last, SAGAN and the port's BigGAN keep
 their NCHW path and leave the counters alone, and ``batch_norm`` keeps the
 bits of ``Tensor.mean`` and ``xf - m`` in every derivative it is taken to.
 
@@ -23,6 +25,8 @@ card it runs without this directory's conftest (which loads JAX), as
 
 import json
 import math
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -32,19 +36,23 @@ from torch import nn
 from torch.profiler import ProfilerActivity, profile
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from rnagan_tpu_torch.core import profiling
-from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig, VAEModelConfig
-from rnagan_tpu_torch.losses import gan as gan_losses
-from rnagan_tpu_torch.models import dcgan
-from rnagan_tpu_torch.models.betavae import BetaVAE
-from rnagan_tpu_torch.optim.adam import Adam
-from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from perfbench.reference import biggan as ref_biggan  # noqa: E402
+from rnagan_tpu_torch.core import profiling  # noqa: E402
+from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig, VAEModelConfig  # noqa: E402
+from rnagan_tpu_torch.losses import gan as gan_losses  # noqa: E402
+from rnagan_tpu_torch.models import dcgan  # noqa: E402
+from rnagan_tpu_torch.models.betavae import BetaVAE  # noqa: E402
+from rnagan_tpu_torch.optim.adam import Adam  # noqa: E402
+from rnagan_tpu_torch.train.gan_trainer import GANTrainer  # noqa: E402
 
 N = 2  # batch: no channel count of these nets, so a batch map is told apart by its first size
 VAE_MODEL = VAEModelConfig(rna_features=12, z_dim=8, encoder_dims=(10, 8), decoder_dims=(10,),
                            compute_dtype="float32")
 MODEL = dict(out_size=16, encoding_dims=8, step_channels=4, compute_dtype="float32")
-ARCHS = {"dcgan": {}, "condgan": {"num_classes": 3}, "dcgan_up": {}}
+ARCHS = {"dcgan": {}, "condgan": {"num_classes": 3}, "dcgan_up": {},
+         "biggan_pub": {"out_size": 64, "attn_size": 32, "num_classes": 2, "embed_dim": 4, "step_channels": 16}}
 CL = torch.channels_last
 
 
@@ -70,8 +78,12 @@ def counters(monkeypatch):
 
 
 def _cfg(arch, **model_kw):
-    return GANConfig(model=GANModelConfig(arch=arch, **MODEL, **ARCHS.get(arch, {}), **model_kw),
+    return GANConfig(model=GANModelConfig(arch=arch, **{**MODEL, **ARCHS.get(arch, {})}, **model_kw),
                      vae=VAE_MODEL, batch_size=N)
+
+
+def _labels(cfg):
+    return torch.arange(N) % cfg.model.num_classes if cfg.model.num_classes else None
 
 
 def _trainer(cfg):
@@ -124,6 +136,10 @@ def _module(net, param_name):
     return net.get_submodule(param_name.rsplit(".", 1)[0])
 
 
+def _convs(net):
+    return sum(1 for m in net.modules() if isinstance(m, nn.modules.conv._ConvNd))
+
+
 # ---------------------------------------------------------------- reference
 
 
@@ -145,9 +161,47 @@ def _onehot_maps(x, labels, k):
     return torch.cat([x, oh[:, :, None, None].expand(-1, -1, x.shape[2], x.shape[3])], 1)
 
 
+def _published(net, stats, params, train, forward):
+    """``forward(p, state, m)`` of ``perfbench/reference/biggan.py`` on a
+    ``biggan_pub`` net's parameters (or ``params`` in their place) and its
+    state list, and the new state as that list: a BatchNorm's statistics,
+    a spectral norm's ``u`` and, in train mode, the ``sigma`` of
+    ``layers.SN``'s power iteration."""
+    p = dict(net.named_parameters())
+    if params is not None:
+        p = dict(zip(p, params, strict=True))
+    names = {id(t): n for n, t in net.named_buffers()}
+    slots = [names[id(a)].rsplit(".", 1) for a, _ in net.bn_stats()]  # (prefix, "running_mean" or "sn_u")
+    state = {}
+    for (prefix, leaf), (a, b) in zip(slots, stats, strict=True):
+        state[f"{prefix}.{leaf}"] = a
+        if leaf == "running_mean":
+            state[f"{prefix}.running_var"] = b
+    m = {k: getattr(net.cfg, k) for k in ("out_size", "attn_size", "step_channels", "out_channels",
+                                          "encoding_dims", "num_classes", "embed_dim")}
+    out, new = forward(p, state, m)
+    new_stats = []
+    for (prefix, leaf), (a, b) in zip(slots, stats, strict=True):
+        if leaf == "running_mean":
+            new_stats.append((new[f"{prefix}.running_mean"], new[f"{prefix}.running_var"]))
+        elif not train:
+            new_stats.append((a, b))
+        else:
+            u = new[f"{prefix}.sn_u"]
+            w = p[f"{prefix}.weight"].detach()
+            mat = w.reshape(w.shape[0], -1)
+            v = F.normalize(a @ mat, eps=1e-12)
+            new_stats.append((u, ((v @ mat.t()) @ u.t())[0, 0]))
+    return out, new_stats
+
+
 def ref_generator(net, z, stats, train, params=None, labels=None):
-    """A DCGAN generator's ``forward_stats`` in float32 NCHW, from its weights."""
+    """A generator's ``forward_stats`` in float32 NCHW, from its weights
+    (``biggan_pub``'s: the benchmark's plain reference)."""
     cfg = net.cfg
+    if cfg.arch == "biggan_pub":
+        return _published(net, stats, params, train,
+                          lambda p, state, m: ref_biggan.generator(p, state, z, labels.long(), train, m))
     p = dict(net.named_parameters())
     if params is not None:
         p = dict(zip(p, params))
@@ -171,8 +225,12 @@ def ref_generator(net, z, stats, train, params=None, labels=None):
 
 
 def ref_discriminator(net, x, stats, train, cond=None, labels=None):
-    """A DCGAN discriminator's ``forward`` (unconditional critic) in float32 NCHW, from its weights."""
+    """A discriminator's ``forward`` (DCGAN's unconditional critic) in float32 NCHW, from its weights
+    (``biggan_pub``'s: the benchmark's plain reference)."""
     cfg = net.cfg
+    if cfg.arch == "biggan_pub":
+        return _published(net, stats, None, train,
+                          lambda p, state, m: ref_biggan.discriminator(p, state, x, labels.long(), train, m))
     p = dict(net.named_parameters())
     if net.conditional:
         x = _onehot_maps(x, labels, cfg.num_classes)
@@ -228,18 +286,19 @@ def test_forwards_match_the_nchw_reference(channels_last, counters, arch, train)
     G, D = st.generator, st.discriminator
     gen = torch.Generator().manual_seed(2)
     z = torch.rand((N, cfg.model.encoding_dims), generator=gen) - 0.5
-    labels = torch.arange(N) % 3 if G.conditional else None
+    labels = _labels(cfg)
     img, g_new = G.forward_stats(z, st.g_stats, train, labels=labels)
+    size = cfg.model.out_size
+    x = torch.rand((N, 3, size, size), generator=gen) * 2 - 1
+    score, d_new = D(x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2), st.d_stats, train, labels=labels)
+    assert counters["gan.convs_channels_last"] == counters["gan.convs"] == _convs(G) + _convs(D)
     ref_img, ref_g_new = ref_generator(G, z, st.g_stats, train, labels=labels)
     _close([img], [ref_img], rtol=0, atol=1e-5, what="G")
     _close([t for pair in g_new for t in pair], [t for pair in ref_g_new for t in pair], rtol=1e-5, atol=1e-6)
     assert img.is_contiguous(memory_format=CL if train else torch.contiguous_format)
-    x = torch.rand((N, 3, 16, 16), generator=gen) * 2 - 1
-    score, d_new = D(x.permute(0, 2, 3, 1).contiguous().permute(0, 3, 1, 2), st.d_stats, train, labels=labels)
     ref_score, ref_d_new = ref_discriminator(D, x, st.d_stats, train, labels=labels)
     _close([score], [ref_score], rtol=0, atol=1e-5, what="D")
     _close([t for pair in d_new for t in pair], [t for pair in ref_d_new for t in pair], rtol=1e-5, atol=1e-6)
-    assert counters["gan.convs_channels_last"] == counters["gan.convs"] == 2 * len(G.model)
 
 
 @torch.no_grad()
@@ -289,15 +348,18 @@ def test_a_train_step_matches_the_nchw_reference_step(channels_last, counters, m
         assert t.is_contiguous()
 
 
-def test_sampling_and_eval_hand_back_contiguous_nchw(channels_last):
-    cfg = _cfg("dcgan")
+@pytest.mark.parametrize("arch", ["dcgan", "biggan_pub"])
+def test_sampling_and_eval_hand_back_contiguous_nchw(channels_last, arch):
+    cfg = _cfg(arch)
     tr = _trainer(cfg)
     st = tr.init_state()
     tr.train_step_eager(st, _batch(cfg))
     imgs = tr.sample(st, N, gene=_batch(cfg)["rna_data"], seed=3)
-    assert imgs.shape == (N, 16, 16, 3) and imgs.permute(0, 3, 1, 2).is_contiguous()
-    out, _ = st.generator.forward_stats(torch.zeros(N, cfg.model.encoding_dims), st.g_stats, False)
-    assert out.is_contiguous() and not out.is_contiguous(memory_format=CL)
+    size = cfg.model.out_size
+    assert imgs.shape == (N, size, size, 3) and imgs.permute(0, 3, 1, 2).is_contiguous()
+    out, _ = st.generator.forward_stats(torch.zeros(N, cfg.model.encoding_dims), st.g_stats, False,
+                                        labels=_labels(cfg))
+    assert out.dtype == torch.float32 and out.is_contiguous() and not out.is_contiguous(memory_format=CL)
 
 
 def test_the_cpu_keeps_nchw_and_counts_no_channels_last_convolution(counters):
@@ -341,15 +403,23 @@ def test_every_convolution_of_the_step_reads_channels_last_operands(channels_las
     reads the batch-transposed maps of autograd's own double backward. One
     exception: ``condgan``'s discriminator joins the labels' maps to its
     input, and the double backward of that join (a slice's backward) hands
-    its first layer one contiguous gradient map."""
+    its first layer one contiguous gradient map. ``biggan_pub``'s pools
+    (its critic's average pools, attention's max pools) keep the order; one
+    exception there: in the penalty's double backward, the product of the
+    critic attention's queries and keys (a ``bmm``) hands the query
+    convolution one contiguous gradient map (its transposed convolution and
+    its weight gradient; at 16 channels and up, where the queries have more
+    than one)."""
     cfg = _cfg(arch)
     tr = _trainer(cfg)
-    with _Convolutions(3 + cfg.model.num_classes) as log:
+    with _Convolutions(3 + (cfg.model.num_classes if arch == "condgan" else 0)) as log:
         tr.train_step_eager(tr.init_state(), _batch(cfg), _draws(cfg))
     assert {name for name, _ in log.seen} == {"convolution", "convolution_backward"}
     other = [(name, layouts) for name, layouts in log.seen if not set(layouts) <= {"channels_last", "both"}]
-    assert other == ([("convolution_backward", ("nchw", "channels_last", "channels_last"))]
-                     if arch == "condgan" else [])
+    expected = {"condgan": [("convolution_backward", ("nchw", "channels_last", "channels_last"))],
+                "biggan_pub": [("convolution", ("nchw", "both")),
+                               ("convolution_backward", ("nchw", "channels_last", "both"))]}
+    assert other == expected.get(arch, [])
     assert log.images and set(log.images) == {"channels_last"}
 
 
@@ -481,21 +551,23 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _kernels_between(prof, tmp_path, first, last):
+def _kernels_between(prof, tmp_path, first, last, durations=False):
+    """The names of the kernels between two stage marks, in order; with
+    ``durations``, (name, device µs) pairs."""
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())
     events = events.get("traceEvents", events) if isinstance(events, dict) else events
-    kernels = [e["name"] for e in sorted((e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"),
-                                         key=lambda e: e["ts"])]
+    kernels = sorted((e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"), key=lambda e: e["ts"])
     inside, out = False, []
-    for name in kernels:
+    for e in kernels:
+        name = e["name"]
         if profiling.MARK_PREFIX + first in name:
             inside = True
         elif profiling.MARK_PREFIX + last in name:
             inside = False
         elif inside:
-            out.append(name)
+            out.append((name, float(e["dur"])) if durations else name)
     return out
 
 
