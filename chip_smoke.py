@@ -616,7 +616,7 @@ def serving_variants_match_cpu(dev):
     CPU test's bound: within 0.05, and 1e-5 on 99 % of the values."""
     from rnagan_tpu_torch.core.config import GANModelConfig
     from rnagan_tpu_torch.eval.serving import make_serving_fn
-    from rnagan_tpu_torch.models.dcgan import make_generator
+    from rnagan_tpu_torch.models.registry import make_generator
 
     gen = torch.Generator().manual_seed(SEED + 1)
     out = {}
@@ -1784,7 +1784,7 @@ def sn_step_costs(dev, gen, vae_cfg, vae_sd):
         out[name] = {"step_ms_b8": step_ms, "peak_gib": peak / 2**30, "state_gib": state_bytes / 2**30,
                      "activation_peak_gib": (peak - state_bytes) / 2**30,
                      # a captured step's activations live in its graph pool, which state_gib holds
-                     "graph_pool_gib": sum(g.pool_bytes for g in tr._graphs.values()) / 2**30,
+                     "graph_pool_gib": tr.step_graphs.pool_bytes() / 2**30,
                      "g_params": sum(p.numel() for p in st.generator.parameters()),
                      "d_params": sum(p.numel() for p in st.discriminator.parameters()),
                      "profile_b8": profile_training(lambda: tr.train_step(st, batch))}
@@ -3582,7 +3582,7 @@ def captured_small(dev, arch, cfg_kw, given, model_kw=None):
           f"captured small {name}: counts {(cap.step, cap.g_opt.count, cap.d_opt.count)} vs "
           f"{(eag.step, eag.g_opt.count, eag.d_opt.count)}")
     return {"state_max_abs_diff": diff, "metric_max_abs_diff": metric_diff, "launches": launches,
-            "graphs": sum(len(g.graphs) for g in tr._graphs.values())}
+            "graphs": sum(len(g.graphs) for _, g in tr.step_graphs.graphs())}
 
 
 def timed_runs(fn, state, batches):
@@ -3628,7 +3628,7 @@ def captured_full_width(dev, gen, vae_sd):
     main_s = time.perf_counter() - t0
     launches = launch_counts()
     peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
-    pool_gib = sum(g.pool_bytes for g in tr._graphs.values()) / 2**30
+    pool_gib = tr.step_graphs.pool_bytes() / 2**30
     print(f"phase 15 main path: {CAPTURED_STEPS} captured GANConfig() steps in {main_s:.3f} s "
           f"(the capture included); launches {launches}")
     check(launches == {"infused_noise": 2 * CAPTURED_STEPS, "fused_adam": 2 * CAPTURED_STEPS},
@@ -3759,7 +3759,7 @@ def captured_quality_epoch(dev):
         rec = {"epoch0_losses": dict(zip(tr.metric_keys(), (v / steps for v in sums_cap))),
                "launches": launches, "state_max_abs_diff": diff, "capture_epoch_s": capture_epoch_s,
                **times, "render_share_of_captured_step": out["render_ms_b32"] / times["captured_step_ms"],
-               "graph_pool_gib": sum(g.pool_bytes for g in tr._graphs.values()) / 2**30}
+               "graph_pool_gib": tr.step_graphs.pool_bytes() / 2**30}
         out[loss_type] = rec
         print(f"phase 15 quality epoch, {loss_type}: " + json.dumps(rec))
         del tr, cap, eag, run_epoch
@@ -3976,7 +3976,7 @@ def vae_captured_small(dev, name, given):
     want = {"infused_noise": 0, "fused_adam": n if cfg_kw.get("optimizer", "adam") == "adam" else 0}
     check(launches == want, f"{label}: launches {launches}, expected {want}")
     check(diff == 0.0 and ldiff == 0.0, f"{label}: captured vs eager differ by {diff} (losses {ldiff})")
-    variants = sorted(str(v) for key, g in tr._graphs.items() if key[0] == "train" for v in g.graphs)
+    variants = sorted(str(v) for kind, g in tr.step_graphs.graphs() if kind == "train" for v in g.graphs)
     want_variants = ["False", "True"] if name == "radam" else ["None"]
     check(variants == want_variants, f"{label}: train graph variants {variants}, expected {want_variants}")
     e_cap, o_cap = tr.eval_step(cap, xs[0], mask, seed=5)
@@ -4015,7 +4015,7 @@ def vae_captured_full_width(dev, gen):
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     launches = launch_counts()
-    pool_gib = sum(g.pool_bytes for g in tr._graphs.values()) / 2**30
+    pool_gib = tr.step_graphs.pool_bytes() / 2**30
     print(f"phase 16 main path: {VAE_CAPTURED_STEPS} captured VAEConfig() steps in {main_s:.3f} s "
           f"(the capture included); launches {launches}")
     check(launches == {"infused_noise": 0, "fused_adam": VAE_CAPTURED_STEPS},
@@ -4091,7 +4091,7 @@ def vae_captured_fit(dev):
         check(all(torch.equal(sd[k], v.cpu()) for k, v in best.model.state_dict().items()),
               "the captured fit's best .pt is not its best state")
         best.model.load_state_dict(sd, strict=True)  # its own values: the keys and shapes checked
-    graphs = sorted(k[0] for k in tr._graphs)
+    graphs = sorted(kind for kind, _ in tr.step_graphs.graphs())
     out = {"fit_s": fit_s, "launches": launches, "steps": steps, "graphs": graphs, "history": res["history"]}
     print(f"phase 16 captured VAE fit: {json.dumps(out)}")
     return out
@@ -4191,7 +4191,7 @@ def sn_captured_full_width(dev, gen, vae_sd):
               f"{name}: {SN_CAPTURED_STEPS} captured steps vs eager differ by {diff} (metrics {metric_diff})")
         rec = {"main_path_s": main_s, "launches": launches, "state_max_abs_diff": diff,
                "metric_max_abs_diff": metric_diff,
-               "graph_pool_gib": sum(g.pool_bytes for g in tr._graphs.values()) / 2**30}
+               "graph_pool_gib": tr.step_graphs.pool_bytes() / 2**30}
         torch.backends.cudnn.deterministic = False
         tr.train_step(cap, batches[0])  # a capture for these flags
         eager_ms, captured_ms = [], []
@@ -4460,7 +4460,7 @@ def ml_captured_full_width(dev, gen):
     main_s = time.perf_counter() - t0
     launches = launch_counts()
     peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
-    pool_gib = sum(g.pool_bytes for g in tr._graphs.values()) / 2**30
+    pool_gib = tr.step_graphs.pool_bytes() / 2**30
     print(f"phase 17 main path: {ML_CAPTURED_STEPS} captured MLConfig() steps in {main_s:.3f} s "
           f"(the capture included); launches {launches}")
     check(launches == {"infused_noise": 0, "fused_adam": ML_CAPTURED_STEPS},
@@ -4624,7 +4624,7 @@ def ssl_captured(dev, gen):
     out = {"steps": n, "launches": launches, "captured_s_with_capture": ends["captured"][0],
            "eager_s": ends["eager"][0], "eager_ms_steps_3_on": ends["eager"][1],
            "captured_ms_steps_3_on": ends["captured"][1], "state_max_abs_diff": diff, "metric_max_abs_diff": mdiff,
-           "graph_pool_gib": sum(g.pool_bytes for g in tr._graphs.values()) / 2**30,
+           "graph_pool_gib": tr.step_graphs.pool_bytes() / 2**30,
            "last_metrics": {k: float(v) for k, v in m_cap[-1].items()}}
     print(f"phase 17 SSLConfig(): {json.dumps(out)}")
     del tr, cap, eag, x, xs
@@ -4692,7 +4692,7 @@ def fusion_captured(dev, gen):
     out = {"bags": FUSION_BAGS, "epochs": FUSION_CAPTURED_EPOCHS, "steps": steps, "launches": launches,
            "captured_fit_s": cap_s, "eager_fit_s": eag_s, "history": res_cap["history"], **step_ms,
            "state_max_abs_diff": diff, "frozen_tensors": len(frozen), "trainable_tensors": len(cap.opt.mu),
-           "graph_pool_gib": sum(g.pool_bytes for g in tr._graphs.values()) / 2**30}
+           "graph_pool_gib": tr.step_graphs.pool_bytes() / 2**30}
     print(f"phase 17 FusionConfig(): {json.dumps(out)}")
     del tr, cap, eag, s0, data, bags
     return out
@@ -4741,7 +4741,8 @@ def main():
     from rnagan_tpu_torch.kernels.quantize import tanh_to_uint8, tanh_to_uint8_plain
     from rnagan_tpu_torch.losses.rna_infusion import encode_z_mean, z_population_stats
     from rnagan_tpu_torch.models.betavae import BetaVAE
-    from rnagan_tpu_torch.models.dcgan import DCGANDiscriminator, DCGANGenerator, make_generator
+    from rnagan_tpu_torch.models.dcgan import DCGANDiscriminator, DCGANGenerator
+    from rnagan_tpu_torch.models.registry import make_generator
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)

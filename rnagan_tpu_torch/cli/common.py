@@ -33,6 +33,28 @@ def training_mesh(args, mesh_cfg):
     return make_mesh(mesh_cfg, args.device)
 
 
+def gan_model_config(config: Dict[str, Any], arch: str, critic: str = "unconditional"):
+    """The ``GANModelConfig`` of ``arch`` from a run's JSON: the arch's keys
+    with their defaults (``registry.cli_defaults``), and as ``num_classes``
+    the number of ``path_csv`` files where the nets then take labels (the
+    reference's biggan wiring's ``n_classes=2``), else 0."""
+    import dataclasses
+
+    from rnagan_tpu_torch.core.config import GANModelConfig
+    from rnagan_tpu_torch.models import registry
+
+    cfg = GANModelConfig(
+        arch=arch,
+        out_size=int(config.get("img_size", 256)),
+        encoding_dims=int(config.get("encoding_dims", 2048)),
+        num_classes=len(config.get("path_csv", ())),
+        compute_dtype=str(config.get("compute_dtype", "bfloat16")),
+        critic=critic,
+        **{k: int(config.get(k, v)) for k, v in registry.cli_defaults(arch).items()},
+    )
+    return cfg if registry.takes_labels(cfg) else dataclasses.replace(cfg, num_classes=0)
+
+
 def load_vae(checkpoint: str, model_cfg, device):
     """A trained betaVAE for the sampling CLIs: ``(model in eval mode, scaler
     or None, metadata)``. A ``.pt``/``.pth`` state_dict takes the

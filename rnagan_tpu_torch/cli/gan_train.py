@@ -77,12 +77,12 @@ def main(argv=None):
 
     import numpy as np
 
-    from rnagan_tpu_torch.cli.common import load_gan_dataframe
-    from rnagan_tpu_torch.core.config import (GANConfig, GANModelConfig, MeshConfig, VAEModelConfig,
-                                              load_reference_json)
+    from rnagan_tpu_torch.cli.common import gan_model_config, load_gan_dataframe
+    from rnagan_tpu_torch.core.config import GANConfig, MeshConfig, load_reference_json, vae_model_config_from_json
     from rnagan_tpu_torch.core.device import resolve_device
     from rnagan_tpu_torch.data.patches import PatchBatches, load_patch_data
     from rnagan_tpu_torch.data.rna import Scaler, log_transform
+    from rnagan_tpu_torch.models.registry import takes_labels
     from rnagan_tpu_torch.train.gan_trainer import GANTrainer
 
     resolve_device(args.device)  # before any data is read
@@ -107,30 +107,10 @@ def main(argv=None):
     load_s = time.perf_counter() - t0
     print(f"Loaded {len(data)} tiles from {len(data.slides)} slides in {load_s:.3f} s")
 
-    # condgan and the BigGANs are class-conditional over the tissue CSVs (the reference's
-    # biggan wiring's n_classes=2 is its 2 CSVs); sagan is unconditional
-    conditional = args.gan_type in ("condgan", "biggan", "biggan_pub")
-    published = args.gan_type == "biggan_pub"  # attention at 64x64 and a 128-wide shared embedding
-    model_cfg = GANModelConfig(
-        arch=args.gan_type,
-        out_size=int(config.get("img_size", 256)),
-        encoding_dims=int(config.get("encoding_dims", 2048)),
-        step_channels=int(config.get("step_channels", 32 if args.gan_type in ("condgan", "sagan") else 64)),
-        num_classes=len(config["path_csv"]) if conditional else 0,
-        attn_size=int(config.get("attn_size", 64 if published else 32)),
-        **({"embed_dim": int(config.get("embed_dim", 128))} if published else {}),
-        critic=args.critic,
-        compute_dtype=str(config.get("compute_dtype", "bfloat16")),
-    )
-    vae_model = VAEModelConfig(
-        rna_features=int(config.get("rna_features", 19198)),
-        z_dim=int(config.get("z_dim", 2048)),
-        encoder_dims=tuple(config.get("encoder_dims", (6000, 4000, 2048))),
-        decoder_dims=tuple(config.get("decoder_dims", (4000, 6000))),
-    )
+    model_cfg = gan_model_config(config, args.gan_type, critic=args.critic)
     cfg = GANConfig(
         model=model_cfg, loss_type=args.loss_type, batch_size=args.batch_size,
-        num_epochs=args.num_epochs or int(config.get("num_epochs", 900)), vae=vae_model,
+        num_epochs=args.num_epochs or int(config.get("num_epochs", 900)), vae=vae_model_config_from_json(config),
         vae_checkpoint=args.vae_checkpoint or config.get("encoder_checkpoint"),
         compat_reference_gp=args.compat_reference_gp, n_critic=args.n_critic,
         adam_mu_dtype=args.adam_mu_dtype, g_ema_decay=args.g_ema_decay,
@@ -161,7 +141,7 @@ def main(argv=None):
             return {"fid": calculate_fid(real01, fake, batch_size=min(32, len(real01)), extractor=extractor)}
 
     batches = PatchBatches(data, batch_size=cfg.batch_size, with_rna=with_rna,
-                           with_labels=conditional, seed=args.seed, pad_to=mesh.data)
+                           with_labels=takes_labels(model_cfg), seed=args.seed, pad_to=mesh.data)
     state, results = trainer.fit(lambda e: batches.epoch(e), state=state, auto_resume=args.auto_resume,
                                  eval_fn=eval_fn, eval_every=args.fid_every,
                                  keep_best_metric="fid" if eval_fn else None)

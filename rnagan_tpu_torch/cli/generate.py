@@ -48,32 +48,18 @@ def build_parser():
 def _load_trainer(cfg_json, ckpt, vae_path, args):
     """A ``GANTrainer`` for the config's architecture (wganvae with ``vae_path``,
     else wgan) and the state of ``ckpt``."""
-    from rnagan_tpu_torch.core.config import GANConfig, GANModelConfig, VAEModelConfig
+    from rnagan_tpu_torch.cli.common import gan_model_config
+    from rnagan_tpu_torch.core.config import GANConfig, vae_model_config_from_json
     from rnagan_tpu_torch.train.gan_trainer import GANTrainer
 
     arch = getattr(args, "gan_type", None) or cfg_json.get("gan_type", "dcgan")
     if arch == "biggan_pub":
         raise SystemExit("arch 'biggan_pub' (the published BigGAN) trains through gan-train only: "
                          "generate and the tools that load a generator through it do not serve it")
-    num_classes = len(cfg_json.get("path_csv", ())) if arch in ("condgan", "biggan") else 0
-    model_cfg = GANModelConfig(
-        arch=arch,
-        out_size=int(cfg_json.get("img_size", 256)),
-        encoding_dims=int(cfg_json.get("encoding_dims", 2048)),
-        step_channels=int(cfg_json.get("step_channels", 32 if arch in ("condgan", "sagan") else 64)),
-        num_classes=num_classes,
-        attn_size=int(cfg_json.get("attn_size", 32)),
-        compute_dtype=str(cfg_json.get("compute_dtype", "bfloat16")),
-    )
     cfg = GANConfig(
-        model=model_cfg,
+        model=gan_model_config(cfg_json, arch),
         loss_type="wganvae" if vae_path else "wgan",
-        vae=VAEModelConfig(
-            rna_features=int(cfg_json.get("rna_features", 19198)),
-            z_dim=int(cfg_json.get("z_dim", 2048)),
-            encoder_dims=tuple(cfg_json.get("encoder_dims", (6000, 4000, 2048))),
-            decoder_dims=tuple(cfg_json.get("decoder_dims", (4000, 6000))),
-        ),
+        vae=vae_model_config_from_json(cfg_json),
         vae_checkpoint=vae_path,
         seed=args.seed,
     )

@@ -113,7 +113,7 @@ SN_ARCHS = ("sagan", "biggan")
 def _layout(cfg: GANModelConfig, net: str) -> torch.nn.Module:
     """The port's net of ``cfg.arch`` on the ``meta`` device: names and
     shapes, no storage."""
-    from rnagan_tpu_torch.models.dcgan import make_discriminator, make_generator
+    from rnagan_tpu_torch.models.registry import make_discriminator, make_generator
 
     return (make_generator if net == "generator" else make_discriminator)(cfg, device="meta")
 

@@ -165,19 +165,23 @@ def load_reference_json(path: str) -> Dict[str, Any]:
         return json.load(f)
 
 
-def vae_config_from_json(raw: Dict[str, Any]) -> VAEConfig:
-    """A :class:`VAEConfig` from a reference-format JSON dict (the reads at
-    reference ``betaVAE_training.py:53-59``; the architecture keys are
-    extensions, absent from the reference's files)."""
-    model = VAEModelConfig(
+def vae_model_config_from_json(raw: Dict[str, Any]) -> VAEModelConfig:
+    """The β-VAE of a pre-train's or a GAN run's JSON dict (the architecture
+    keys are extensions, absent from the reference's files)."""
+    return VAEModelConfig(
         rna_features=int(raw.get("rna_features", 19198)),
         beta=float(raw.get("beta", 0.0005)),
         z_dim=int(raw.get("z_dim", 2048)),
         encoder_dims=tuple(raw.get("encoder_dims", (6000, 4000, 2048))),
         decoder_dims=tuple(raw.get("decoder_dims", (4000, 6000))),
     )
+
+
+def vae_config_from_json(raw: Dict[str, Any]) -> VAEConfig:
+    """A :class:`VAEConfig` from a reference-format JSON dict (the reads at
+    reference ``betaVAE_training.py:53-59``)."""
     return VAEConfig(
-        model=model,
+        model=vae_model_config_from_json(raw),
         lr=float(raw.get("lr", 5e-5)),
         weight_decay=float(raw.get("weights_decay", 0.0)),
         optimizer=str(raw.get("optimizer", "adam")),

@@ -130,6 +130,11 @@ class DBlock(nn.Module):
 class _BigGAN(SNNet):
     ARCHS = ("biggan",)
 
+    @classmethod
+    def takes_labels(cls, cfg: GANModelConfig) -> bool:
+        """Labels join G's latent chunks and D's projection when ``num_classes`` > 0."""
+        return cfg.num_classes > 0
+
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:
         """Drawn from ``gen`` in module order: convs, Linear and embeddings

@@ -227,6 +227,9 @@ class DBlock(nn.Module):
 
 class _Published(SNNet):
     ARCHS = ("biggan_pub",)
+    conditional = True
+    #: attention at 64x64 and a 128-wide shared embedding
+    CLI_DEFAULTS = {"step_channels": 64, "attn_size": 64, "embed_dim": 128}
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:

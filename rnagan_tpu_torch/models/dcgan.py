@@ -77,7 +77,7 @@ copies of the weights, float32 output), as the JAX modules do.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Collection, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -94,7 +94,7 @@ def num_repeats(size: int) -> int:
     return size.bit_length() - 4
 
 
-def check_arch(cfg: GANModelConfig, archs: Sequence[str]) -> None:
+def check_arch(cfg: GANModelConfig, archs: Collection[str]) -> None:
     """Raise ValueError unless ``cfg.arch`` is one of ``archs``."""
     if cfg.arch not in archs:
         raise ValueError(f"arch={cfg.arch!r} is not one of {tuple(archs)} here")
@@ -304,14 +304,27 @@ def _output(x: torch.Tensor, train: bool) -> torch.Tensor:
     return x.to(torch.float32, memory_format=torch.contiguous_format)
 
 
-class _DCGAN(nn.Module):
+class ArchTraits:
+    """What ``models/registry.py`` asks of a GAN net's class."""
+
+    #: the ``cfg.arch`` values the class builds
+    ARCHS: Tuple[str, ...] = ()
+    #: the nets take a batch's labels (the ``condgan`` variants join their one-hot to the input)
+    conditional = False
+    #: the run JSON's model keys a CLI reads for this arch, with the defaults
+    #: it takes where the JSON leaves them out (``cli/common.py``)
+    CLI_DEFAULTS: Dict[str, int] = {"step_channels": 64, "attn_size": 32}
+
+    @classmethod
+    def takes_labels(cls, cfg: GANModelConfig) -> bool:
+        """Whether the net reads a batch's labels under ``cfg``."""
+        return cls.conditional
+
+
+class _DCGAN(ArchTraits, nn.Module):
     """What the nets share: seeded init and the BN buffers as ``Stats``."""
 
     cfg: GANModelConfig
-    #: the ``cfg.arch`` values the class builds
-    ARCHS: Tuple[str, ...] = ()
-    #: one-hot labels join the input (the ``condgan`` variants)
-    conditional = False
     #: the nets convolve channels-last operands: a caller may hand the
     #: discriminator an NHWC batch as its permuted (N, C, H, W) view
     channels_last = True
@@ -442,6 +455,7 @@ class ConditionalDCGANGenerator(DCGANGenerator):
 
     ARCHS = ("condgan",)
     conditional = True
+    CLI_DEFAULTS = {"step_channels": 32, "attn_size": 32}
 
 
 class DCGANUpGenerator(_Generator):
@@ -576,35 +590,3 @@ class ConditionalDCGANDiscriminator(DCGANDiscriminator):
     ARCHS = ("condgan",)
     conditional = True
 
-
-def _classes(net: str):
-    """The registry (``rnagan_tpu/models/dcgan.py:262-297``, and the port's
-    ``biggan_pub``); SAGAN and the BigGANs are imported here, as they import
-    this module."""
-    from rnagan_tpu_torch.models.biggan import BigGANDiscriminator, BigGANGenerator
-    from rnagan_tpu_torch.models.biggan_pub import PublishedBigGANDiscriminator, PublishedBigGANGenerator
-    from rnagan_tpu_torch.models.sagan import SAGANDiscriminator, SAGANGenerator
-
-    if net == "generator":
-        return {"dcgan": DCGANGenerator, "dcgan_up": DCGANUpGenerator,
-                "condgan": ConditionalDCGANGenerator, "sagan": SAGANGenerator,
-                "biggan": BigGANGenerator, "biggan_pub": PublishedBigGANGenerator}
-    return {"dcgan": DCGANDiscriminator, "dcgan_up": DCGANDiscriminator,
-            "condgan": ConditionalDCGANDiscriminator, "sagan": SAGANDiscriminator,
-            "biggan": BigGANDiscriminator, "biggan_pub": PublishedBigGANDiscriminator}
-
-
-def make_generator(cfg: GANModelConfig, **kwargs) -> nn.Module:
-    """The generator of ``cfg.arch``; ``kwargs`` go to the class (``seed``,
-    ``device``, ...)."""
-    classes = _classes("generator")
-    check_arch(cfg, tuple(classes))
-    return classes[cfg.arch](cfg, **kwargs)
-
-
-def make_discriminator(cfg: GANModelConfig, **kwargs) -> nn.Module:
-    """The discriminator of ``cfg.arch``; ``dcgan`` and ``dcgan_up`` share the
-    plain one."""
-    classes = _classes("discriminator")
-    check_arch(cfg, tuple(classes))
-    return classes[cfg.arch](cfg, **kwargs)

@@ -64,7 +64,7 @@ from rnagan_tpu_torch.core import profiling
 from rnagan_tpu_torch.core.config import GANModelConfig
 from rnagan_tpu_torch.core.device import compute_dtype
 from rnagan_tpu_torch.models.batchnorm import Stats, batch_norm
-from rnagan_tpu_torch.models.dcgan import cast_weight, check_arch, num_repeats
+from rnagan_tpu_torch.models.dcgan import ArchTraits, cast_weight, check_arch, num_repeats
 
 SN_EPS = 1e-12
 
@@ -187,12 +187,11 @@ class Walk:
         return y
 
 
-class SNNet(nn.Module):
+class SNNet(ArchTraits, nn.Module):
     """What the SAGAN and BigGAN nets share: the state pairs (BatchNorm and
     spectral norm, module order), seeded init and the flax names."""
 
     cfg: GANModelConfig
-    ARCHS: Tuple[str, ...] = ()
 
     def _finish(self, seed: int) -> None:
         """Number the state modules, name every module, draw the weights
@@ -298,6 +297,7 @@ class SAGANGenerator(_Generator):
     ``Attention_<attn_size>`` after the block that reaches that size."""
 
     ARCHS = ("sagan",)
+    CLI_DEFAULTS = {"step_channels": 32, "attn_size": 32}
 
     def __init__(self, cfg: GANModelConfig, *, final_tanh: bool = True, seed: int = 0, device=None):
         super().__init__()

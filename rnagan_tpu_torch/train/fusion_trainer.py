@@ -52,7 +52,8 @@ from rnagan_tpu_torch.models.resnet import ResNet, resnet50
 from rnagan_tpu_torch.optim.adam import AdamW
 from rnagan_tpu_torch.parallel import collectives
 from rnagan_tpu_torch.parallel.mesh import Mesh, local_rows, make_mesh, module_tensors, replicated
-from rnagan_tpu_torch.train.graph_steps import GraphSteps, chunk_steps
+from rnagan_tpu_torch.train.graph_steps import GraphSteps
+from rnagan_tpu_torch.train.step_graph import StepGraphs, chunk_steps
 from rnagan_tpu_torch.train.ml_experiment import as_draw, load_adamw, masked_cross_entropy, unit_from_uint8
 
 #: top-level backbone modules frozen by ``freeze_backbone_early``
@@ -110,7 +111,7 @@ class FusionTrainer(GraphSteps):
         self.backbone = backbone or resnet50
         self.logger = logger or MetricsLogger()
         self.seeds = SeedStream(cfg.seed)
-        self._init_graphs()
+        self.step_graphs = StepGraphs(self.device, self.mesh)
 
     def init_state(self, bag_shape: Tuple[int, ...], rna_features: int) -> FusionTrainState:
         """A fresh state for bags of ``bag_shape`` (bag, H, W, C) and
@@ -230,7 +231,7 @@ class FusionTrainer(GraphSteps):
                     return x, r
                 return x, r, step_rows["labels"].to(dev)[local], step_rows["mask"].to(dev)[local]
             return fn
-        return self._prepared(("host", rows, shard), build)
+        return self.step_graphs.prepared(("host", rows, shard), build)
 
     def _pass(self, state: FusionTrainState, bags: BagData, *, train: bool, epoch: int = 0):
         """An epoch of train steps (shuffled, padded to the data-axis size)

@@ -19,11 +19,11 @@ One :meth:`GANTrainer.train_step` is the JAX package's ``_train_step_impl``
   of G. With ``n_critic > 1`` only every ``n_critic``-th step runs it;
 * the EMA of G's weights, on steps that updated G.
 
-G and D come from the model registry: ``dcgan``, ``dcgan_up`` (the
+G and D come from ``models/registry.py``: ``dcgan``, ``dcgan_up`` (the
 resize-conv generator with the plain discriminator), ``condgan``, ``sagan``,
-``biggan`` and ``biggan_pub`` (the published BigGAN). ``condgan``'s and
-``biggan_pub``'s batch ``labels``, and ``biggan``'s when ``num_classes`` > 0,
-go into G and D at every stage, the GP's included.
+``biggan`` and ``biggan_pub`` (the published BigGAN). Where the registry
+says the nets take labels (``condgan``, ``biggan_pub``, ``biggan`` with
+``num_classes`` > 0), they go into G and D at every stage, the GP's too.
 SAGAN and the BigGANs keep spectral-norm state ``(u, sigma)`` beside the
 BatchNorm statistics in ``g_stats``/``d_stats`` and thread it the same way:
 D's real pass gives ``s1``, its fake pass ``s2``, the GP reads ``s2`` and its
@@ -35,9 +35,9 @@ uniforms drawn from a seed of ``core/rng.py`` or given in ``draws``. The
 frozen VAE encodes z_mean once a step: JAX encodes it per stage, with the
 same result. ``fused_critic_batch=True`` is accepted and runs this two-pass
 step: in the JAX package it is a TPU schedule of the same function, and its
-test shows the two agree (``tests/test_gan_trainer.py:337``). For ``sagan``
-and ``biggan`` it raises the JAX package's ValueError (its closed-form
-statistics blend would corrupt the power-iteration state).
+test shows the two agree (``tests/test_gan_trainer.py:337``). For nets
+with spectral-norm state it raises the JAX package's ValueError (its
+closed-form statistics blend would corrupt the power-iteration state).
 
 Under a mesh (``parallel/mesh.py``; ``GANConfig.mesh``, every rank of the
 process group on the data axis by default) the step is data-parallel, with
@@ -62,7 +62,7 @@ One program a step (the JAX trainer's ``jax.jit(_train_step_impl,
 donate_argnums=(0,))``, ``:148``): on a CUDA device with one rank, the steps
 of every arch (every loss, ``compat_reference_gp``, ``n_critic``, the EMA,
 the projection critic, ``clip``, BigGAN's remat) replay a CUDA graph of the
-step (``train/step_graph.py``), captured at the first step of a state.
+step (``train/step_graph.py::StepGraphs``), captured at a state's first step.
 SAGAN's and BigGAN's spectral-norm pairs ``(u, sigma)`` are ``copy_``'d into
 the state's own tensors with BatchNorm's statistics; BigGAN's checkpointed
 blocks keep ``preserve_rng_state=False`` (reading a CUDA generator's state
@@ -106,11 +106,11 @@ from rnagan_tpu_torch.losses.rna_infusion import (encode_z_mean, infused_noise,
                                                   infused_noise_population, z_population_stats)
 from rnagan_tpu_torch.models.batchnorm import Stats
 from rnagan_tpu_torch.models.betavae import BetaVAE
-from rnagan_tpu_torch.models.dcgan import make_discriminator, make_generator
+from rnagan_tpu_torch.models.registry import make_discriminator, make_generator, spectral_norm, takes_labels
 from rnagan_tpu_torch.optim.adam import Adam, bias_corrections
 from rnagan_tpu_torch.parallel import collectives
 from rnagan_tpu_torch.parallel.mesh import Mesh, local_rows, make_mesh, module_tensors, replicated, shard_batch
-from rnagan_tpu_torch.train.step_graph import StepGraph
+from rnagan_tpu_torch.train.step_graph import StepGraphs, vector
 from rnagan_tpu_torch.utils.images import save_image_grid
 
 log = logging.getLogger(__name__)
@@ -119,10 +119,6 @@ log = logging.getLogger(__name__)
 _STAGES = {"d": 0, "gp": 1, "g": 2, "eps": 3}
 #: a step's metrics, in the order of its vectors (``gp`` for the wgan family only)
 METRICS = ("d_loss", "dx", "dgz", "gp", "g_loss")
-#: the archs whose one-rank CUDA step is a captured graph
-CAPTURED_ARCHS = ("dcgan", "dcgan_up", "condgan", "sagan", "biggan", "biggan_pub")
-#: the step graphs a trainer keeps (a graph pins its state and its memory pool)
-MAX_GRAPHS = 4
 #: a step's given draws, as ``draws`` keys and table names
 DRAW_KEYS = ("u_d", "u_gp", "u_g", "eps")
 
@@ -198,9 +194,9 @@ class GANTrainer:
                              "it requires loss_type=wganvae")
         if cfg.adam_mu_dtype not in (None, "float32", "bfloat16"):
             raise ValueError("adam_mu_dtype must be None, 'float32' or 'bfloat16'")
-        if cfg.fused_critic_batch and cfg.model.arch in ("sagan", "biggan", "biggan_pub"):
-            raise ValueError("fused_critic_batch is unsupported for spectral-norm architectures "
-                             "(sagan/biggan/biggan_pub)")
+        if cfg.fused_critic_batch and spectral_norm(cfg.model):
+            raise ValueError(f"fused_critic_batch is unsupported for spectral-norm architectures "
+                             f"(arch={cfg.model.arch!r})")
         self.cfg = cfg
         self.mesh = mesh if mesh is not None else make_mesh(cfg.mesh, device)
         if self.mesh.model != 1:
@@ -222,7 +218,7 @@ class GANTrainer:
         #: that keeps the patient signal; saved into every checkpoint
         self.z_pop: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
         self._mu_dtype = torch.bfloat16 if cfg.adam_mu_dtype == "bfloat16" else torch.float32
-        self._graphs: Dict[Any, StepGraph] = {}
+        self.step_graphs = StepGraphs(self.device, self.mesh)
         self._saver = AsyncSaver()
 
     # ------------------------------------------------------------------ state
@@ -269,19 +265,15 @@ class GANTrainer:
             given = rng.uniform(seeds[_STAGES["eps"]], shape, self.device)
         return given.reshape(()) if n is None else given.reshape(-1, 1, 1, 1)[rows]
 
-    def _conditional(self) -> bool:
-        m = self.cfg.model
-        return m.arch in ("condgan", "biggan_pub") or (m.arch == "biggan" and m.num_classes > 0)
-
     def _host_batch(self, batch, draws) -> Dict[str, torch.Tensor]:
         """A step's inputs as tensors where the caller holds them: the batch's
-        ``image``, ``rna_data`` (wganvae) and ``labels`` (``condgan``,
-        ``biggan_pub``, and ``biggan`` with ``num_classes`` > 0, JAX's ``_labels``,
-        ``gan_trainer.py:184-189``), and the draws when given."""
+        ``image``, ``rna_data`` (wganvae) and ``labels`` (where the nets take
+        them, JAX's ``_labels``, ``gan_trainer.py:184-189``), and the draws
+        when given."""
         out = {"image": torch.as_tensor(batch["image"])}
         if self.cfg.loss_type == "wganvae":
             out["rna_data"] = torch.as_tensor(batch["rna_data"], dtype=torch.float32)
-        if self._conditional():
+        if takes_labels(self.cfg.model):
             if batch.get("labels") is None:
                 raise ValueError(f"arch={self.cfg.model.arch!r} with classes trains on batches with 'labels'")
             out["labels"] = torch.as_tensor(batch["labels"]).long()
@@ -298,10 +290,8 @@ class GANTrainer:
         return self.cfg.n_critic <= 1 or step % self.cfg.n_critic == self.cfg.n_critic - 1
 
     def captures(self) -> bool:
-        """Whether :meth:`train_step` runs as a captured CUDA graph: on a
-        CUDA device with one rank (every arch of ``CAPTURED_ARCHS``)."""
-        return (self.device.type == "cuda" and self.mesh.world == 1
-                and self.cfg.model.arch in CAPTURED_ARCHS)
+        """Whether :meth:`train_step` runs as a captured CUDA graph (``StepGraphs.captures``)."""
+        return self.step_graphs.captures()
 
     # ------------------------------------------------------------- train step
     def train_step(self, state: GANTrainState, batch: Dict[str, Any],
@@ -355,27 +345,28 @@ class GANTrainer:
         Each step's metrics vector (:meth:`metric_keys` order) is added to
         ``sums`` (a device tensor) when given; returns the last one.
 
-        Where :meth:`captures`, the steps replay a CUDA graph of the step
-        (``train/step_graph.py``), one per G-stage choice, built at the first
-        use for this state, these table shapes, ``prepare`` and ``capacity``
-        rows (default ``steps``): the host fills the tables (with the
-        steps' seeds and Adam bias corrections) once and enqueues ``steps``
-        replays with no synchronization. Otherwise each step runs
-        :meth:`train_step_eager` on ``prepare``'s batch."""
+        Where :meth:`captures`, the steps replay the ``step_graphs`` graph of
+        ``capacity`` rows (default ``steps``), a variant per G-stage choice:
+        the host fills the tables (with the steps' seeds and Adam bias
+        corrections) once and enqueues the replays with no synchronization.
+        Otherwise each step runs :meth:`train_step_eager` on ``prepare``'s batch."""
         if not self.captures():
             vec = None
             for i in range(steps):
                 given = {k: t[i] for k, t in tables.items()}
                 batch = prepare(given)
                 _, metrics = self.train_step_eager(state, batch, _draws_of(given))
-                vec = torch.stack([metrics[k].float().reshape(()) for k in self.metric_keys()])
+                vec = vector(metrics, self.metric_keys())
                 if sums is not None:
                     sums.add_(vec)
             return vec
         with profiling.span("gan.plan"):
             runs, seeds, corr, after = self._plan(state, steps)
-        graph = self._graph(state, {**tables, "seeds": seeds, "corr": corr}, prepare, capacity or steps)
-        graph.load({**tables, "seeds": seeds, "corr": corr}, steps)
+        full = {**tables, "seeds": seeds, "corr": corr}
+        graph = self.step_graphs.graph("train", (state.generator, state.discriminator, state.g_opt, state.d_opt),
+                                       self._state_tensors(state), full, prepare, capacity or steps,
+                                       lambda: self._body(state, prepare))
+        graph.load(full, steps)
         for run_g in runs:
             vec = graph.replay(run_g)
             if sums is not None:
@@ -408,26 +399,6 @@ class GANTrainer:
                 *(t for pair in state.g_stats + state.d_stats for t in pair),
                 *state.g_opt.mu, *state.g_opt.nu, *state.d_opt.mu, *state.d_opt.nu, *(state.g_ema or [])]
 
-    def _graph(self, state: GANTrainState, tables, prepare, capacity: int) -> StepGraph:
-        """The state's graphs for these tables, ``prepare`` and capacity
-        (built here at the first use; the last ``MAX_GRAPHS`` are kept). The
-        key holds the nets' configs too: replacing ``net.cfg`` (BigGAN's
-        ``remat``) changes the program."""
-        live = self._state_tensors(state)
-        flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
-                 torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-        key = (id(state.generator), id(state.discriminator), state.generator.cfg, state.discriminator.cfg,
-               tuple(t.data_ptr() for t in live), id(prepare),
-               tuple((k, tuple(t.shape[1:]), t.dtype) for k, t in sorted(tables.items())), capacity, flags)
-        graph = self._graphs.pop(key, None)
-        if graph is None:
-            # the body holds state and prepare: the ids in the key stay theirs while the graph lives
-            graph = StepGraph(self._body(state, prepare), tables, capacity, live, self.device)
-            while len(self._graphs) >= MAX_GRAPHS:
-                self._graphs.pop(next(iter(self._graphs)))
-        self._graphs[key] = graph
-        return graph
-
     def _body(self, state: GANTrainState, prepare) -> Callable[[bool, Dict[str, torch.Tensor]], torch.Tensor]:
         """What a graph captures: ``body(run_g, rows)`` runs one step from a
         row of every table (the seeds and bias corrections as device
@@ -436,8 +407,8 @@ class GANTrainer:
 
         def body(run_g, rows):
             with collectives.active(self.mesh):
-                metrics = self._step(state, prepare(rows), _draws_of(rows), rows["seeds"], rows["corr"], run_g)
-            return torch.stack([metrics[k].float().reshape(()) for k in keys])
+                return vector(self._step(state, prepare(rows), _draws_of(rows), rows["seeds"], rows["corr"], run_g),
+                              keys)
         return body
 
     def _step(self, state: GANTrainState, batch: Dict[str, torch.Tensor], draws, seeds, corr, run_g: bool):
@@ -570,7 +541,7 @@ class GANTrainer:
         patients' z_mean ((B, F) rows, B = n or 1), standardized over the batch,
         or with ``z_pop = (mean, std)`` by population statistics; both through
         K1 with Philox ``seed``. Without ``gene`` it is standard normal.
-        ``condgan``, ``biggan_pub`` and ``biggan`` with ``num_classes`` > 0 draw the labels
+        Nets that take labels (the registry's ``takes_labels``) draw them
         uniformly from their ``num_classes`` with a generator of ``seed``, or
         take ``labels`` (n,) when given.
         ``use_ema=None`` picks the EMA generator whenever the state has one."""
@@ -592,7 +563,7 @@ class GANTrainer:
         else:
             gen = self.seeds.generator("sample", seed, device=dev)
             noise = torch.randn((n, self.cfg.model.encoding_dims), generator=gen, device=dev)
-        if not self._conditional():
+        if not takes_labels(self.cfg.model):
             labels = None
         elif labels is not None:
             labels = torch.as_tensor(labels).to(dev, torch.long)

@@ -18,40 +18,28 @@ once it is enqueued. Elsewhere (the CPU, a mesh of several ranks) the same
 step function runs op by op, with host-int seeds and host-float
 corrections, which draw and round alike.
 
-A graph holds the live state and the data its ``prepare`` reads. Graphs are
-keyed on the state tensors' ``data_ptr``s: a deep copy of the state (the
-best one ``fit`` keeps) never invalidates them, and a state handed back in
-means a new capture. :meth:`GraphSteps.release` drops them with their
-memory pools. A failed capture raises; nothing falls back to eager steps.
+A graph holds the live state and the data its ``prepare`` reads; the
+trainer's ``step_graphs.release()`` drops them with their memory pools. A
+failed capture raises; nothing falls back to eager steps.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from rnagan_tpu_torch.parallel import collectives
-from rnagan_tpu_torch.train.step_graph import StepGraph
-
-#: bytes of the batch tables one chunk of host-fed steps fills
-CHUNK_BYTES = 128 << 20
-#: the step graphs (and twice as many ``prepare`` functions) a trainer keeps
-MAX_GRAPHS = 4
+from rnagan_tpu_torch.train.step_graph import StepGraphs, vector
 
 Prepare = Callable[[Dict[str, torch.Tensor]], Tuple[torch.Tensor, ...]]
-
-
-def chunk_steps(steps: int, step_bytes: int) -> int:
-    """Steps a chunk of tables holds: as many as ``CHUNK_BYTES`` takes, at least one."""
-    return max(1, min(steps, CHUNK_BYTES // max(step_bytes, 1)))
 
 
 class GraphSteps:
     """A trainer whose state is ``(step, model, opt)`` with ``opt`` an
     ``AdamW`` and whose steps run as captured graphs where it
-    :meth:`captures`. The trainer sets ``mesh``, ``device`` and ``seeds``,
-    calls :meth:`_init_graphs`, and defines ``_step(state, inputs, given,
+    :meth:`captures`. The trainer sets ``mesh``, ``device``, ``seeds`` and
+    ``step_graphs`` (a ``StepGraphs``), and defines ``_step(state, inputs, given,
     seeds, corr)`` (one train step in place, its metrics a dict of 0-dim
     tensors) and ``_eval(state, inputs)`` (a tuple of tensors), where
     ``inputs`` is what a ``prepare(rows)`` returns."""
@@ -63,18 +51,9 @@ class GraphSteps:
     draw_table: str
     metric_keys: Tuple[str, ...]
 
-    def _init_graphs(self) -> None:
-        self._graphs: Dict[Any, StepGraph] = {}
-        self._prepares: Dict[Any, Prepare] = {}
-
     def captures(self) -> bool:
-        """Whether the steps run as captured CUDA graphs: on a CUDA device with one rank."""
-        return self.device.type == "cuda" and self.mesh.world == 1
-
-    def release(self) -> None:
-        """Drop every graph (their memory pools, and the states and data they hold)."""
-        self._graphs.clear()
-        self._prepares.clear()
+        """Whether the steps run as captured CUDA graphs (``StepGraphs.captures``)."""
+        return self.step_graphs.captures()
 
     def _step_seeds(self, step: int) -> List[int]:
         return [self.seeds.seed(self.stream, step, j) for j in range(self.stages)]
@@ -84,48 +63,15 @@ class GraphSteps:
         """Every tensor a train step reads and writes in place."""
         return [*state.model.parameters(), *state.model.buffers(), *state.opt.mu, *state.opt.nu]
 
-    def _vector(self, metrics: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return torch.stack([metrics[k].detach().float().reshape(()) for k in self.metric_keys])
-
-    def _prepared(self, key, build: Callable[[], Prepare]) -> Prepare:
-        """The ``prepare`` kept under ``key`` (built at its first use), so the
-        graphs built for it are found again."""
-        fn = self._prepares.pop(key, None)
-        if fn is None:
-            fn = build()
-            while len(self._prepares) >= 2 * MAX_GRAPHS:
-                self._prepares.pop(next(iter(self._prepares)))
-        self._prepares[key] = fn
-        return fn
-
-    def _graph(self, kind: str, state, tables: Dict[str, torch.Tensor], prepare: Prepare,
-               capacity: int) -> StepGraph:
-        """The state's ``kind`` (``"train"`` or ``"eval"``) graph for these
-        tables, ``prepare``, capacity and cuDNN/TF32 flags (built at the first
-        use; the last ``MAX_GRAPHS`` are kept)."""
-        live = self._state_tensors(state)
-        flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
-                 torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-        key = (kind, id(state.model), id(state.opt), tuple(t.data_ptr() for t in live), id(prepare),
-               tuple((k, tuple(t.shape[1:]), t.dtype) for k, t in sorted(tables.items())), capacity, flags)
-        graph = self._graphs.pop(key, None)
-        if graph is None:
-            # the body holds state and prepare: the ids in the key stay theirs while the graph lives
-            graph = StepGraph(self._body(kind, state, prepare), tables, capacity, live if kind == "train" else [],
-                              self.device)
-            while len(self._graphs) >= MAX_GRAPHS:
-                self._graphs.pop(next(iter(self._graphs)))
-        self._graphs[key] = graph
-        return graph
-
     def _body(self, kind: str, state, prepare: Prepare) -> Callable:
         """What a graph captures: ``body(variant, rows)`` runs one train step
-        (seeds and AdamW's corrections from the rows) and returns its metrics
-        vector, or one eval step and returns its tuple."""
+        (seeds and AdamW's corrections from the rows: device tensors in a
+        graph, host ints and None op by op) and returns its metrics vector,
+        or one eval step and returns its tuple."""
         def train(_variant, rows):
             with collectives.active(self.mesh):
-                return self._vector(self._step(state, prepare(rows), rows.get(self.draw_table), rows["seeds"],
-                                               rows["opt"]))
+                return vector(self._step(state, prepare(rows), rows.get(self.draw_table), rows["seeds"],
+                                         rows["opt"]), self.metric_keys)
 
         def evaluate(_variant, rows):
             with collectives.active(self.mesh):
@@ -137,26 +83,22 @@ class GraphSteps:
         """``steps`` train steps, step i on row i of every table (what
         ``prepare`` builds the step's inputs from, and the given draws'
         table). Returns the steps' metrics, a (steps, len(metric_keys))
-        device tensor. Where :meth:`captures`, replays of the state's graph
-        for these tables, ``prepare`` and ``capacity`` rows (default
-        ``steps``), enqueued with no synchronization; else op by op."""
+        device tensor. Where :meth:`captures`, replays of the ``step_graphs``
+        graph of ``capacity`` rows (default ``steps``); else op by op."""
         out = torch.empty((steps, len(self.metric_keys)), device=self.device)
         if not self.captures():
+            body = self._body("train", state, prepare)
             for i in range(steps):
-                rows = {k: t[i] for k, t in tables.items()}
-                with collectives.active(self.mesh):
-                    metrics = self._step(state, prepare(rows), rows.get(self.draw_table),
-                                         self._step_seeds(state.step), None)
-                out[i].copy_(self._vector(metrics))
+                out[i].copy_(body(None, {**{k: t[i] for k, t in tables.items()},
+                                         "seeds": self._step_seeds(state.step), "opt": None}))
                 state.step += 1
             return out
         after = (state.step + steps, state.opt.count + steps)
         full = {**tables, "seeds": self.seeds.table(self.stream, state.step, steps, self.stages),
                 "opt": state.opt.plan(steps)}
-        graph = self._graph("train", state, full, prepare, capacity or steps)
-        graph.load(full, steps)
-        for i in range(steps):
-            out[i].copy_(graph.replay(None))
+        graph = self.step_graphs.graph("train", (state.model, state.opt), self._state_tensors(state), full, prepare,
+                                       capacity or steps, lambda: self._body("train", state, prepare))
+        graph.run(full, [None] * steps, out)
         state.step, state.opt.count = after
         return out
 
@@ -166,18 +108,9 @@ class GraphSteps:
         of ``_eval`` stacked over the steps, on the device. Replays of the
         state's eval graph where :meth:`captures`, else op by op."""
         if not self.captures():
-            outs = []
-            for i in range(steps):
-                with collectives.active(self.mesh):
-                    outs.append(self._eval(state, prepare({k: t[i] for k, t in tables.items()})))
+            body = self._body("eval", state, prepare)
+            outs = [body(None, {k: t[i] for k, t in tables.items()}) for i in range(steps)]
             return tuple(torch.stack(o) for o in zip(*outs))
-        graph = self._graph("eval", state, tables, prepare, capacity or steps)
-        graph.load(tables, steps)
-        stacked = None
-        for i in range(steps):
-            res = graph.replay(None)
-            if stacked is None:
-                stacked = tuple(torch.empty((steps, *r.shape), dtype=r.dtype, device=self.device) for r in res)
-            for s, r in zip(stacked, res):
-                s[i].copy_(r)
-        return stacked
+        graph = self.step_graphs.graph("eval", (state.model, state.opt), self._state_tensors(state), tables, prepare,
+                                       capacity or steps, lambda: self._body("eval", state, prepare))
+        return graph.run_stacked(tables, steps)

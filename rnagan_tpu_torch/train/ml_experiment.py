@@ -55,7 +55,8 @@ from rnagan_tpu_torch.models.resnet import ARCHS, ResNet
 from rnagan_tpu_torch.optim.adam import AdamW
 from rnagan_tpu_torch.parallel import collectives
 from rnagan_tpu_torch.parallel.mesh import Mesh, local_rows, make_mesh, module_tensors, replicated
-from rnagan_tpu_torch.train.graph_steps import GraphSteps, chunk_steps
+from rnagan_tpu_torch.train.graph_steps import GraphSteps
+from rnagan_tpu_torch.train.step_graph import StepGraphs, chunk_steps
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -172,7 +173,7 @@ class TileClassifierTrainer(GraphSteps):
         self._backbone_variables = backbone_variables
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
-        self._init_graphs()
+        self.step_graphs = StepGraphs(self.device, self.mesh)
 
     def init_state(self) -> MLTrainState:
         model = self.model(seed=self.seeds.seed("init"), device=self.device)
@@ -285,7 +286,7 @@ class TileClassifierTrainer(GraphSteps):
                 local = local_rows(rows, mesh) if shard else slice(None)
                 return tuple(step_rows[k].to(dev)[local] for k in ("images", "labels", "mask") if k in step_rows)
             return fn
-        return self._prepared(("host", rows, shard), build)
+        return self.step_graphs.prepared(("host", rows, shard), build)
 
     def _resident_prepare(self, images: torch.Tensor, labels: Optional[torch.Tensor], rows: int, shard: bool):
         """Steps whose ``idx`` table holds row indices into a uint8 NHWC set
@@ -305,7 +306,7 @@ class TileClassifierTrainer(GraphSteps):
                 x = unit_from_uint8(images.index_select(0, idx))
                 return (x,) if labels is None else (x, labels.index_select(0, idx), ones)
             return fn
-        return self._prepared(key, build)
+        return self.step_graphs.prepared(key, build)
 
     # ------------------------------------------------------------------ loops
     def _batches(self, n: int, epoch: int, shuffle: bool, pad_to: int = 1):
@@ -492,7 +493,7 @@ def run_cv_experiment(images01: np.ndarray, labels: np.ndarray, cfg: Optional[ML
         if test_images01 is not None:
             fold["test"] = trainer.evaluate(test_images01, test_labels, state)
         results["folds"].append(fold)
-        trainer.release()  # the fold's graphs and their pools, before the next fold captures its own
+        trainer.step_graphs.release()  # the fold's graphs and their pools, before the next fold captures its own
         del state
     results["mean_accuracy"] = float(np.mean([x["accuracy"] for x in results["folds"]]))
     results["mean_weighted_f1"] = float(np.mean([x["weighted_f1"] for x in results["folds"]]))

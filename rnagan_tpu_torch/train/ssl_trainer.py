@@ -53,7 +53,8 @@ from rnagan_tpu_torch.models.resnet import ResNet, lecun_normal_, resnet50
 from rnagan_tpu_torch.optim.adam import AdamW
 from rnagan_tpu_torch.parallel import collectives
 from rnagan_tpu_torch.parallel.mesh import Mesh, local_rows, make_mesh, module_tensors, replicated
-from rnagan_tpu_torch.train.graph_steps import GraphSteps, chunk_steps
+from rnagan_tpu_torch.train.graph_steps import GraphSteps
+from rnagan_tpu_torch.train.step_graph import StepGraphs, chunk_steps
 from rnagan_tpu_torch.train.ml_experiment import IMAGENET_MEAN, IMAGENET_STD, as_draw, flip_views, load_adamw
 
 VIEW_DRAWS = ("scale", "off_x", "off_y", "flip_h", "flip_v", "brightness", "contrast")
@@ -226,7 +227,7 @@ class SimCLRTrainer(GraphSteps):
         self.seeds = SeedStream(cfg.seed)
         self._mean = torch.from_numpy(IMAGENET_MEAN).to(self.device)
         self._std = torch.from_numpy(IMAGENET_STD).to(self.device)
-        self._init_graphs()
+        self.step_graphs = StepGraphs(self.device, self.mesh)
 
     def init_state(self) -> SSLTrainState:
         bb = self.backbone(num_classes=0, seed=self.seeds.seed("init"), device=self.device)
@@ -305,7 +306,7 @@ class SimCLRTrainer(GraphSteps):
         def build():
             mesh, dev = self.mesh, self.device
             return lambda step_rows: (step_rows["images"].to(dev)[local_rows(rows, mesh)],)
-        return self._prepared(("host", rows), build)
+        return self.step_graphs.prepared(("host", rows), build)
 
     def _resident_prepare(self, images: torch.Tensor, rows: int):
         """Steps whose ``idx`` table holds row indices into a float NHWC
@@ -313,7 +314,7 @@ class SimCLRTrainer(GraphSteps):
         def build():
             mesh, dev = self.mesh, self.device
             return lambda step_rows: (images.index_select(0, step_rows["idx"].to(dev)[local_rows(rows, mesh)]),)
-        return self._prepared(("idx", images.data_ptr(), tuple(images.shape), images.dtype, rows), build)
+        return self.step_graphs.prepared(("idx", images.data_ptr(), tuple(images.shape), images.dtype, rows), build)
 
     def fit(self, images01, *, num_epochs: Optional[int] = None,
             state: Optional[SSLTrainState] = None) -> Tuple[SSLTrainState, Dict[str, Any]]:

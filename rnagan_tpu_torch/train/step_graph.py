@@ -24,8 +24,8 @@ The function updates the training state in place: the kernels write the
 parameters and moments, and it ``copy_``'s new statistics into the state's
 own tensors, so the graph reads and writes the same memory on every replay
 (what "donated" means here). A graph is valid only while those tensors stay
-where they are: the caller keys its graphs on their ``data_ptr``s, and a new
-state means a new capture.
+where they are: :class:`StepGraphs`, the cache every trainer holds, keys
+its graphs on their ``data_ptr``s, and a new state means a new capture.
 
 Capture: the function runs once on a side stream first (cuBLAS and cuDNN
 initialize, choose algorithms and allocate there, outside the capture),
@@ -58,6 +58,12 @@ from rnagan_tpu_torch.core import profiling
 from rnagan_tpu_torch.core.checkpoint import AsyncSaver
 from rnagan_tpu_torch.kernels import fused_adam, infusion
 
+#: the step graphs a trainer keeps (a graph pins its state and its memory
+#: pool), and twice as many ``prepare`` functions
+MAX_GRAPHS = 4
+#: bytes of the tables one chunk of host-fed steps fills (13 batches of
+#: 128 x 19,198 float32 β-VAE rows, 9.8 MB each)
+CHUNK_BYTES = 128 << 20
 #: (wrapper, attribute) of every kernel launch counter a training step moves
 COUNTERS: Tuple[Tuple[object, str], ...] = ((infusion.infused_noise, "launches"),
                                             (fused_adam.fused_adam, "launches"))
@@ -70,6 +76,16 @@ def _counts() -> List[int]:
 def _set_counts(values: Sequence[int]) -> None:
     for (fn, attr), v in zip(COUNTERS, values):
         setattr(fn, attr, v)
+
+
+def chunk_steps(steps: int, step_bytes: int) -> int:
+    """Steps a chunk of tables holds: as many as ``CHUNK_BYTES`` takes, at least one."""
+    return max(1, min(steps, CHUNK_BYTES // max(step_bytes, 1)))
+
+
+def vector(metrics: Dict[str, torch.Tensor], keys: Sequence[str]) -> torch.Tensor:
+    """A step's 0-dim metrics as one float32 vector, in ``keys`` order."""
+    return torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
 
 
 def host_bytes(tables: Dict[str, torch.Tensor], steps: int) -> int:
@@ -129,6 +145,26 @@ class StepGraph:
         _set_counts([c + d for c, d in zip(_counts(), deltas)])
         return out
 
+    def run(self, tables: Dict[str, torch.Tensor], variants: Sequence[Hashable], out: torch.Tensor) -> None:
+        """Rows ``[0, len(variants))`` of ``tables``, then one replay of each
+        variant in turn, step i's output (a vector) copied into ``out[i]``."""
+        self.load(tables, len(variants))
+        for i, variant in enumerate(variants):
+            out[i].copy_(self.replay(variant))
+
+    def run_stacked(self, tables: Dict[str, torch.Tensor], steps: int) -> Tuple[torch.Tensor, ...]:
+        """Rows ``[0, steps)`` of ``tables``, then ``steps`` replays of the
+        variant None: each tensor of the output tuple stacked over the steps."""
+        self.load(tables, steps)
+        stacked = None
+        for i in range(steps):
+            res = self.replay(None)
+            if stacked is None:
+                stacked = tuple(torch.empty((steps, *r.shape), dtype=r.dtype, device=self.device) for r in res)
+            for s, r in zip(stacked, res):
+                s[i].copy_(r)
+        return stacked
+
     def _rows(self) -> Dict[str, torch.Tensor]:
         if self.capacity == 1:
             return {name: t[0] for name, t in self.tables.items()}
@@ -175,3 +211,67 @@ class StepGraph:
         _set_counts(before)
         self.pool_bytes += torch.cuda.memory_reserved(self.device) - reserved
         self.graphs[variant] = (graph, out, deltas)
+
+
+def _kept(cache: Dict[Hashable, Any], key: Hashable, build: Callable[[], Any], keep: int) -> Any:
+    """``cache[key]``, built at its first use; the ``keep`` most recently used stay."""
+    value = cache.pop(key, None)
+    if value is None:
+        value = build()
+        while len(cache) >= keep:
+            cache.pop(next(iter(cache)))
+    cache[key] = value
+    return value
+
+
+class StepGraphs:
+    """A trainer's captured steps: where they run (:meth:`captures`), its last
+    ``MAX_GRAPHS`` graphs and ``2 * MAX_GRAPHS`` ``prepare`` functions.
+
+    A graph's key: its kind (``"train"``/``"eval"``); the ids of the modules
+    and optimizers its body closes over, with each one's ``cfg`` (a replaced
+    ``cfg``, BigGAN's ``remat``, is another program); the live tensors'
+    ``data_ptr``s (a deep copy of the state never invalidates a graph);
+    ``id(prepare)``; the tables' row shapes and dtypes; the capacity; the
+    cuDNN/TF32 flags. The body holds the state and ``prepare``, so the ids
+    stay theirs while the graph lives."""
+
+    def __init__(self, device, mesh):
+        self.device, self.mesh = torch.device(device), mesh
+        self._graphs: Dict[Hashable, StepGraph] = {}
+        self._prepares: Dict[Hashable, Callable] = {}
+
+    def captures(self) -> bool:
+        """Whether the steps run as captured CUDA graphs: on a CUDA device with one rank."""
+        return self.device.type == "cuda" and self.mesh.world == 1
+
+    def graph(self, kind: str, owners: Sequence[object], live: Sequence[torch.Tensor],
+              tables: Dict[str, torch.Tensor], prepare: Callable, capacity: int,
+              body: Callable[[], Callable[[Hashable, Dict[str, torch.Tensor]], Any]]) -> StepGraph:
+        """The graph of this key, built around ``body()`` at its first use.
+        ``live`` lists what a train step writes in place (snapshotted around
+        the warm-up); an eval graph writes nothing and snapshots nothing."""
+        flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+                 torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        key = (kind, tuple((id(o), getattr(o, "cfg", None)) for o in owners), tuple(t.data_ptr() for t in live),
+               id(prepare), tuple((k, tuple(t.shape[1:]), t.dtype) for k, t in sorted(tables.items())), capacity,
+               flags)
+        return _kept(self._graphs, key, lambda: StepGraph(body(), tables, capacity,
+                                                          live if kind == "train" else [], self.device), MAX_GRAPHS)
+
+    def prepared(self, key: Hashable, build: Callable[[], Callable]) -> Callable:
+        """The ``prepare`` kept under ``key``, so its graphs are found again."""
+        return _kept(self._prepares, key, build, 2 * MAX_GRAPHS)
+
+    def graphs(self) -> List[Tuple[str, StepGraph]]:
+        """The kept graphs with their kinds, the least recently used first."""
+        return [(key[0], graph) for key, graph in self._graphs.items()]
+
+    def pool_bytes(self) -> int:
+        """Device memory the kept graphs' captures reserved, bytes."""
+        return sum(graph.pool_bytes for graph in self._graphs.values())
+
+    def release(self) -> None:
+        """Drop every graph (its memory pool, state and data) and ``prepare``."""
+        self._graphs.clear()
+        self._prepares.clear()

@@ -87,7 +87,7 @@ from rnagan_tpu_torch.optim.scheduled import ScheduledOptimizer, make_optimizer
 from rnagan_tpu_torch.parallel import collectives
 from rnagan_tpu_torch.parallel.mesh import (Mesh, full_state_dict, local_rows, make_mesh, module_tensors,
                                             replicated, shard_dense_params)
-from rnagan_tpu_torch.train.step_graph import StepGraph
+from rnagan_tpu_torch.train.step_graph import StepGraphs, chunk_steps, vector
 
 Losses = Dict[str, torch.Tensor]
 Prepare = Callable[[Dict[str, Any]], Tuple[torch.Tensor, torch.Tensor]]
@@ -98,11 +98,6 @@ LOSS_KEYS = ("total_loss", "reconstruction_loss", "kl_loss")
 _STAGES = {"keep": 0, "eps": 1, "rows": 2}
 #: a step's given draws, as ``draws`` keys and table names
 DRAW_KEYS = ("keep", "eps")
-#: bytes of the tables one chunk of ``fit``/``evaluate`` fills: 13 batches of
-#: 128 x 19,198 float32 rows (9.8 MB each) when the host holds the data
-CHUNK_BYTES = 128 << 20
-#: the step graphs and batch builders a trainer keeps (a graph pins its state and memory pool)
-MAX_GRAPHS = 4
 
 
 def given_rows(rows: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -144,8 +139,7 @@ class VAETrainer:
         self.device = self.mesh.device
         self.logger = logger or MetricsLogger()
         self.seeds = SeedStream(cfg.seed)
-        self._graphs: Dict[Any, StepGraph] = {}
-        self._prepares: Dict[Any, Prepare] = {}
+        self.step_graphs = StepGraphs(self.device, self.mesh)
 
     # ------------------------------------------------------------------ state
     def init_state(self) -> VAETrainState:
@@ -193,8 +187,8 @@ class VAETrainer:
         return torch.as_tensor(x, dtype=dtype).to(self.device)
 
     def captures(self) -> bool:
-        """Whether the steps run as captured CUDA graphs: on a CUDA device with one rank."""
-        return self.device.type == "cuda" and self.mesh.world == 1
+        """Whether the steps run as captured CUDA graphs (``StepGraphs.captures``)."""
+        return self.step_graphs.captures()
 
     def _step_seeds(self, step: int) -> List[int]:
         return [self.seeds.seed("train", step, i) for i in range(len(_STAGES))]
@@ -246,10 +240,6 @@ class VAETrainer:
         out, z_mean, z_logvar = state.model.eval()(x, eps=eps)
         losses = masked_beta_vae_loss(x, out, z_mean, z_logvar, m, self.cfg.model.beta, False, mesh.data_group)
         return collectives.reduce_metrics(losses, mesh.data_group), out
-
-    @staticmethod
-    def _vector(losses: Losses) -> torch.Tensor:
-        return torch.stack([losses[k].float().reshape(()) for k in LOSS_KEYS])
 
     def train_step(self, state: VAETrainState, batch, mask,
                    draws: Optional[Dict[str, Any]] = None) -> Tuple[VAETrainState, Losses]:
@@ -308,43 +298,23 @@ class VAETrainer:
         """Every tensor a train step reads and writes in place."""
         return [*state.model.parameters(), *state.model.buffers(), *state.opt.rule.mu, *state.opt.rule.nu]
 
-    def _graph(self, kind: str, state: VAETrainState, tables, prepare: Prepare, capacity: int) -> StepGraph:
-        """The state's ``kind`` (``"train"`` or ``"eval"``) graph for these
-        tables, ``prepare`` and capacity (built at the first use; the last
-        ``MAX_GRAPHS`` are kept)."""
-        live = self._state_tensors(state)
-        flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
-                 torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-        key = (kind, id(state.model), id(state.opt), state.model.cfg, tuple(t.data_ptr() for t in live), id(prepare),
-               tuple((k, tuple(t.shape[1:]), t.dtype) for k, t in sorted(tables.items())), capacity, flags)
-        graph = self._graphs.pop(key, None)
-        if graph is None:
-            # the body holds state and prepare: the ids in the key stay theirs while the graph lives;
-            # an eval graph writes nothing, so nothing is snapshotted around its warm-up
-            graph = StepGraph(self._body(kind, state, prepare), tables, capacity, live if kind == "train" else [],
-                              self.device)
-            while len(self._graphs) >= MAX_GRAPHS:
-                self._graphs.pop(next(iter(self._graphs)))
-        self._graphs[key] = graph
-        return graph
-
     def _body(self, kind: str, state: VAETrainState, prepare: Prepare) -> Callable:
         """What a graph captures: ``body(variant, rows)`` runs one train step
-        (the optimizer's row and seeds as device tensors, ``variant`` RAdam's)
-        and returns its losses vector, or one eval step and returns
-        ``(losses vector, reconstructions)``."""
+        (the optimizer's row and seeds as device tensors, ``variant`` RAdam's;
+        op by op host-int seeds and None) and returns its losses vector, or
+        one eval step and returns ``(losses vector, reconstructions)``."""
         def train(variant, rows):
             profiling.mark("vae_rows", self.device)
             x, m = prepare(rows)
             with collectives.active(self.mesh):
                 losses = self._step(state, x, m, _draws_of(rows), rows["seeds"], rows["opt"], variant)
-            return self._vector(losses)
+            return vector(losses, LOSS_KEYS)
 
         def evaluate(_variant, rows):
             x, m = prepare(rows)
             with collectives.active(self.mesh):
                 losses, out = self._eval(state, x, m, _draws_of(rows), rows["seeds"][0])
-            return self._vector(losses), out
+            return vector(losses, LOSS_KEYS), out
         return train if kind == "train" else evaluate
 
     def _plan(self, state: VAETrainState, steps: int):
@@ -367,31 +337,25 @@ class VAETrainer:
         Returns every step's losses, a (steps, 3) device tensor
         (``LOSS_KEYS`` order).
 
-        Where :meth:`captures`, the steps replay the state's graph for these
-        table shapes, ``prepare`` and ``capacity`` rows (default ``steps``),
-        one per RAdam variant: the host fills the tables (the seeds and the
-        optimizer's rows too) once and enqueues the replays with no
-        synchronization. Otherwise each step runs op by op. A step's
-        ``prepare`` is its device stage ``vae_rows`` (``core/profiling.py``)."""
+        Where :meth:`captures`, the steps replay the ``step_graphs`` graph of
+        ``capacity`` rows (default ``steps``), a variant per RAdam choice: the
+        host fills the tables (the seeds and the optimizer's rows too) once
+        and enqueues the replays with no synchronization. Otherwise each step
+        runs op by op. A step's ``prepare`` is its device stage ``vae_rows``."""
         out = torch.empty((steps, len(LOSS_KEYS)), device=self.device)
         if not self.captures():
+            body = self._body("train", state, prepare)
             for i in range(steps):
-                rows = {k: t[i] for k, t in tables.items()}
-                rows["seeds"] = self._step_seeds(state.step)
-                profiling.mark("vae_rows", self.device)
-                x, m = prepare(rows)
-                with collectives.active(self.mesh):
-                    vec = self._vector(self._step(state, x, m, _draws_of(rows), rows["seeds"], None, None))
+                out[i].copy_(body(None, {**{k: t[i] for k, t in tables.items()},
+                                         "seeds": self._step_seeds(state.step), "opt": None}))
                 state.step += 1
-                out[i].copy_(vec)
             return out
         with profiling.span("vae.plan"):
             seeds, opt_rows, variants, after = self._plan(state, steps)
         full = {**tables, "seeds": seeds, "opt": opt_rows}
-        graph = self._graph("train", state, full, prepare, capacity or steps)
-        graph.load(full, steps)
-        for i, variant in enumerate(variants):
-            out[i].copy_(graph.replay(variant))
+        graph = self.step_graphs.graph("train", (state.model, state.opt), self._state_tensors(state), full, prepare,
+                                       capacity or steps, lambda: self._body("train", state, prepare))
+        graph.run(full, variants, out)
         state.step, state.opt.count, state.opt.rule.count = after
         return out
 
@@ -403,26 +367,13 @@ class VAETrainer:
         rows, F) on the device: a captured graph's replays where
         :meth:`captures`, else op by op."""
         if not self.captures():
-            losses, outs = [], []
-            for i in range(steps):
-                rows = {k: t[i] for k, t in tables.items()}
-                x, m = prepare(rows)
-                with collectives.active(self.mesh):
-                    l, o = self._eval(state, x, m, _draws_of(rows), int(rows["seeds"][0]))
-                losses.append(self._vector(l))
-                outs.append(o)
-            return torch.stack(losses), torch.stack(outs)
-        graph = self._graph("eval", state, tables, prepare, capacity or steps)
-        graph.load(tables, steps)
-        losses, outs = None, None
-        for i in range(steps):
-            vec, out = graph.replay(None)
-            if losses is None:
-                losses = torch.empty((steps, *vec.shape), device=self.device)
-                outs = torch.empty((steps, *out.shape), dtype=out.dtype, device=self.device)
-            losses[i].copy_(vec)
-            outs[i].copy_(out)
-        return losses, outs
+            body = self._body("eval", state, prepare)
+            outs = [body(None, {**{k: t[i] for k, t in tables.items()}, "seeds": [int(tables["seeds"][i][0])]})
+                    for i in range(steps)]
+            return tuple(torch.stack(o) for o in zip(*outs))
+        graph = self.step_graphs.graph("eval", (state.model, state.opt), self._state_tensors(state), tables, prepare,
+                                       capacity or steps, lambda: self._body("eval", state, prepare))
+        return graph.run_stacked(tables, steps)
 
     # -------------------------------------------------------- data on the card
     def _prepare(self, kind: str, data: Optional[torch.Tensor], rows: int, given: bool = False) -> Prepare:
@@ -436,8 +387,8 @@ class VAETrainer:
         itself."""
         key = (kind, rows, given) if data is None else (kind, data.data_ptr(), tuple(data.shape), data.dtype,
                                                         rows, given)
-        fn = self._prepares.pop(key, None)
-        if fn is None:
+
+        def build() -> Prepare:
             mesh, dev = self.mesh, self.device
             ones = torch.ones(rows, device=dev)
 
@@ -453,10 +404,8 @@ class VAETrainer:
                 idx = step_rows["idx"].to(dev) if given else rng.randint(step_rows["seeds"][_STAGES["rows"]],
                                                                          len(data), (rows,), dev)
                 return data.index_select(0, idx), ones
-            while len(self._prepares) >= 2 * MAX_GRAPHS:
-                self._prepares.pop(next(iter(self._prepares)))
-        self._prepares[key] = fn
-        return fn
+            return fn
+        return self.step_graphs.prepared(key, build)
 
     def run_resident(self, state: VAETrainState, data: torch.Tensor, steps: int, batch: int, *,
                      rows=None, draws: Optional[Dict[str, Any]] = None,
@@ -516,7 +465,7 @@ class VAETrainer:
                                    dtype=torch.float32)
             prepare = self._prepare("host", None, rows)
             row_bytes = rows * (host.shape[1] * 4 + 4)
-        cap = max(1, min(steps, CHUNK_BYTES // row_bytes))
+        cap = chunk_steps(steps, row_bytes)
         losses, outs = [], []
         for s in range(0, steps, cap):
             k = min(cap, steps - s)

@@ -31,7 +31,7 @@ from rnagan_tpu.train.gan_trainer import GANTrainState as JaxState
 from rnagan_tpu_torch import convert
 from rnagan_tpu_torch.core import config as tcfg
 from rnagan_tpu_torch.models.biggan import BigGANGenerator, split_latent
-from rnagan_tpu_torch.models.dcgan import make_discriminator, make_generator
+from rnagan_tpu_torch.models.registry import make_discriminator, make_generator
 from rnagan_tpu_torch.models.sagan import spectral_norm
 from rnagan_tpu_torch.train.gan_trainer import GANTrainer
 

@@ -40,7 +40,7 @@ from rnagan_tpu_torch.losses import gan as gan_losses  # noqa: E402
 from rnagan_tpu_torch.models import biggan as port_biggan  # noqa: E402
 from rnagan_tpu_torch.models.biggan_pub import (PublishedBigGANDiscriminator, PublishedBigGANGenerator,  # noqa: E402
                                                 spectral_norm)
-from rnagan_tpu_torch.models.dcgan import make_discriminator, make_generator  # noqa: E402
+from rnagan_tpu_torch.models.registry import make_discriminator, make_generator  # noqa: E402
 from rnagan_tpu_torch.train.gan_trainer import GANTrainer  # noqa: E402
 
 N = 4

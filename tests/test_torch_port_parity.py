@@ -168,7 +168,7 @@ def test_folded_generator_matches_lax_apply(weights, rng):
 def test_later_archs_name_their_roadmap_item(arch):
     """The archs of ROADMAP A13 are ported: the registry builds them, and the
     DCGAN class refuses them."""
-    from rnagan_tpu_torch.models.dcgan import make_generator
+    from rnagan_tpu_torch.models.registry import make_generator
 
     cfg = tcfg.GANModelConfig(arch=arch, **GAN_KW)
     assert type(make_generator(cfg)).__name__.lower().startswith(arch)

@@ -37,7 +37,7 @@ from rnagan_tpu_torch.kernels.fused_adam import adam_update_plain
 from rnagan_tpu_torch.models.betavae import draw_keep
 from rnagan_tpu_torch.models.resnet import BasicBlock, ResNet
 from rnagan_tpu_torch.optim.adam import AdamW, bias_corrections
-from rnagan_tpu_torch.train import graph_steps
+from rnagan_tpu_torch.train import step_graph
 from rnagan_tpu_torch.train import ml_experiment as tml
 from rnagan_tpu_torch.train.fusion_trainer import FusionConfig, FusionTrainer, trainable_names
 from rnagan_tpu_torch.train.ssl_trainer import VIEW_DRAWS, SimCLRTrainer, SSLConfig, draw_view, given_views
@@ -231,7 +231,7 @@ def test_fit_in_chunks_is_fit_in_one(ml_data, monkeypatch):
     tr = _ml(num_epochs=2, batch_size=5)  # a padded last batch
     s0 = _warm(tr.init_state())
     one, res_one = tr.fit(images[:16], labels[:16], images[16:], labels[16:], state=copy.deepcopy(s0))
-    monkeypatch.setattr(graph_steps, "CHUNK_BYTES", 1)
+    monkeypatch.setattr(step_graph, "CHUNK_BYTES", 1)
     many, res_many = tr.fit(images[:16], labels[:16], images[16:], labels[16:], state=copy.deepcopy(s0))
     assert res_one == res_many
     _assert_same(one, many)
@@ -371,7 +371,7 @@ def test_fusion_fit_and_predict_in_chunks_are_one_chunk(monkeypatch):
     s0 = _warm(tr.init_state(data.bags.shape[1:], GENES))
     one, res_one = tr.fit(data, num_epochs=2, state=copy.deepcopy(s0))
     pred_one = tr.predict(data, one)
-    monkeypatch.setattr(graph_steps, "CHUNK_BYTES", 1)
+    monkeypatch.setattr(step_graph, "CHUNK_BYTES", 1)
     many, res_many = tr.fit(data, num_epochs=2, state=copy.deepcopy(s0))
     assert res_one == res_many and many.step == 5 + 2 * 3
     _assert_same(one, many)

@@ -33,6 +33,7 @@ from rnagan_tpu_torch.eval import serving as tserving
 from rnagan_tpu_torch.eval.generate import Synthesizer
 from rnagan_tpu_torch.kernels.quant_matmul import int8_matmul, int8_matmul_plain, plan, quantize_per_channel
 from rnagan_tpu_torch.models import dcgan as tdcgan
+from rnagan_tpu_torch.models import registry as tregistry
 
 F32 = np.float32
 KW = dict(out_size=32, encoding_dims=16, step_channels=8, compute_dtype="float32")
@@ -360,7 +361,7 @@ def test_up_generator_eval_matches_jax(rng, compat_no_tanh):
     z = _noise(rng, 3)
     ref = jdcgan.DCGANUpGenerator(jc, compat_no_tanh=compat_no_tanh).apply(
         {"params": params, "batch_stats": stats}, jnp.asarray(z), train=False)
-    port = tdcgan.make_generator(tc, compat_no_tanh=compat_no_tanh)
+    port = tregistry.make_generator(tc, compat_no_tanh=compat_no_tanh)
     port.load_state_dict(sd)
     np.testing.assert_allclose(_nhwc(port.eval()(torch.from_numpy(z))), np.asarray(ref), atol=1e-5)
 
@@ -496,7 +497,7 @@ def test_conditional_generator_matches_jax(rng):
     z, labels = _noise(rng, 5), np.array([0, 2, 1, 2, 0])
     ref = jdcgan.make_generator(jc).apply({"params": params, "batch_stats": stats}, jnp.asarray(z),
                                           labels=jnp.asarray(labels), train=False)
-    port = tdcgan.make_generator(tc)
+    port = tregistry.make_generator(tc)
     assert isinstance(port, tdcgan.ConditionalDCGANGenerator)
     port.load_state_dict(sd)
     got = port.eval()(torch.from_numpy(z), torch.from_numpy(labels))
@@ -518,7 +519,7 @@ def test_discriminators_match_jax(rng, arch):
     ref, upd = jdcgan.make_discriminator(jc).apply({"params": params, "batch_stats": stats},
                                                    jnp.asarray(x), train=True, mutable=["batch_stats"],
                                                    **kw)
-    port = tdcgan.make_discriminator(tc)
+    port = tregistry.make_discriminator(tc)
     port.load_state_dict(convert.discriminator_state_dict_from_jax(tc, params, stats))
     tkw = {"labels": torch.from_numpy(labels)} if arch == "condgan" else {}
     score, new = port(torch.from_numpy(x).permute(0, 3, 1, 2), port.bn_stats(), True, **tkw)

@@ -7,10 +7,12 @@ noise, ``train_step_eager`` against the JAX step, the quality tool's
 ``chip_smoke.py`` phase 15 holds it against ``train_step_eager`` there, bit
 for bit; here ``StepGraph`` must refuse to run without CUDA."""
 
+import dataclasses
 import importlib.util
 import os
 import threading
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -20,6 +22,7 @@ from test_torch_port_train import N, VAE_KW, _cfgs, _draws, _jax_state, _np, _po
 
 from rnagan_tpu.parallel.mesh import make_mesh
 from rnagan_tpu.train.gan_trainer import GANTrainer as JaxGANTrainer
+from rnagan_tpu_torch.core import config as tcfg
 from rnagan_tpu_torch.core import rng as trng
 from rnagan_tpu_torch.core.checkpoint import AsyncSaver, load_bundle, save_bundle
 from rnagan_tpu_torch.kernels.fused_adam import adam_update_plain, fused_adam
@@ -131,6 +134,100 @@ def test_step_graph_refuses_to_run_without_cuda(vae):
             step_graph.StepGraph(lambda v, rows: rows["x"], {"x": torch.zeros(1, 2)}, 1, [], device)
     _, tc = _cfgs({}, {})
     assert not GANTrainer(tc, vae[1], device="cpu").captures()
+
+
+class _Graph:
+    """``StepGraph`` without CUDA: what the cache built it from."""
+
+    def __init__(self, fn, tables, capacity, state, device):
+        self.capacity, self.state, self.pool_bytes, self.graphs = capacity, list(state), 1, {}
+
+
+class _Net(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.cfg = tcfg.GANModelConfig(arch="biggan", num_classes=2)
+        self.w = torch.nn.Parameter(torch.zeros(3))
+
+
+CACHE_CASES = ("same_key", "data_ptr", "prepare", "capacity", "table_dtype", "module_cfg", "cudnn_flag",
+               "tf32_flag", "fifth_key_evicts_the_oldest", "eval_snapshots_nothing", "prepare_cache", "captures",
+               "reads_and_release")
+
+
+@pytest.mark.parametrize("case", CACHE_CASES)
+def test_step_graphs_cache_policy(case, monkeypatch):
+    """``StepGraphs``' key, eviction, snapshot and capture rules, with
+    ``StepGraph`` (which needs a card) replaced by a stub: the same key finds
+    the same graph, and each part of the key builds a new one when it
+    changes."""
+    monkeypatch.setattr(step_graph, "StepGraph", _Graph)
+    graphs = step_graph.StepGraphs("cuda", SimpleNamespace(world=1))
+    net, opt = _Net(), object()
+    live = [net.w, torch.zeros(2)]
+    built = []
+
+    def body():
+        built.append(1)
+        return lambda variant, rows: None
+
+    def prepare(rows):
+        return rows
+
+    def graph(kind="train", live=live, tables=None, prepare=prepare, capacity=4):
+        tables = {"x": torch.zeros(4, 3)} if tables is None else tables
+        return graphs.graph(kind, (net, opt), live, tables, prepare, capacity, body)
+
+    first = graph()
+    if case == "same_key":
+        assert graph() is first and graph(tables={"x": torch.ones(9, 3)}) is first and len(built) == 1
+    elif case == "data_ptr":
+        assert graph(live=[torch.zeros(3), live[1]]) is not first
+    elif case == "prepare":
+        assert graph(prepare=lambda rows: rows) is not first
+    elif case == "capacity":
+        assert graph(capacity=5) is not first and graph(capacity=5).capacity == 5
+    elif case == "table_dtype":
+        assert graph(tables={"x": torch.zeros(4, 3, dtype=torch.float64)}) is not first
+        assert graph(tables={"x": torch.zeros(4, 2)}) is not first
+    elif case == "module_cfg":
+        net.cfg = dataclasses.replace(net.cfg, remat=True)
+        assert graph() is not first
+        net.cfg = dataclasses.replace(net.cfg, remat=False)
+        assert graph() is first
+    elif case == "cudnn_flag":
+        monkeypatch.setattr(torch.backends.cudnn, "benchmark", not torch.backends.cudnn.benchmark)
+        assert graph() is not first
+    elif case == "tf32_flag":
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", not torch.backends.cuda.matmul.allow_tf32)
+        assert graph() is not first
+    elif case == "fifth_key_evicts_the_oldest":
+        second = graph(capacity=5)
+        graph(capacity=6), graph(capacity=7)
+        assert graph() is first  # the first is now the most recently used
+        graph(capacity=8)  # the fifth key: the least recently used (capacity 5) goes
+        assert len(graphs.graphs()) == step_graph.MAX_GRAPHS == 4
+        assert graph() is first and graph(capacity=5) is not second
+    elif case == "eval_snapshots_nothing":
+        ev = graph(kind="eval")
+        assert ev is not first and ev.state == [] and [t is u for t, u in zip(first.state, live)] == [True, True]
+    elif case == "prepare_cache":
+        made = []
+        fns = [graphs.prepared(("host", k), lambda: made.append(1) or (lambda rows: rows))
+               for k in range(2 * step_graph.MAX_GRAPHS)]
+        assert graphs.prepared(("host", 0), lambda: None) is fns[0] and len(made) == 2 * step_graph.MAX_GRAPHS
+        graphs.prepared(("host", "new"), lambda: made.append(1) or (lambda rows: rows))
+        assert graphs.prepared(("host", 1), lambda: "rebuilt") == "rebuilt"  # the oldest went
+    elif case == "captures":
+        assert graphs.captures()
+        assert not step_graph.StepGraphs("cpu", SimpleNamespace(world=1)).captures()
+        assert not step_graph.StepGraphs("cuda", SimpleNamespace(world=2)).captures()
+    else:
+        graph(kind="eval")
+        assert [k for k, _ in graphs.graphs()] == ["train", "eval"] and graphs.pool_bytes() == 2
+        graphs.prepared("p", lambda: prepare)
+        graphs.release()
+        assert graphs.graphs() == [] and graphs.pool_bytes() == 0 and graphs.prepared("p", lambda: None) is None
 
 
 EAGER_CASES = {"wganvae": ({}, 2),

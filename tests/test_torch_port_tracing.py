@@ -25,7 +25,7 @@ from rnagan_tpu_torch.data.synthetic import SyntheticCorpus
 from rnagan_tpu_torch.eval.generate import Synthesizer
 from rnagan_tpu_torch.kernels import _build
 from rnagan_tpu_torch.models.betavae import BetaVAE
-from rnagan_tpu_torch.models.dcgan import make_generator
+from rnagan_tpu_torch.models.registry import make_generator
 from rnagan_tpu_torch.train import step_graph
 from rnagan_tpu_torch.train.gan_trainer import GANTrainer
 from rnagan_tpu_torch.train.vae_trainer import VAETrainer

@@ -398,7 +398,7 @@ def test_vae_fit_and_evaluate_on_device_rows_match_host_rows(tmp_path):
     assert host_res["history"] == dev_res["history"] and host_res["best_epoch"] == dev_res["best_epoch"]
     _assert_same_vae(host_best, dev_best)
     # one batch builder a batch shape, whatever the epoch: a graph keyed on it is found again
-    assert sorted(k[1] for k in tr._prepares if k[0] == "host") == [12, 16]
+    assert sorted(k[1] for k in tr.step_graphs._prepares if k[0] == "host") == [12, 16]
     losses, preds = tr.evaluate(val, dev_best)
     assert preds.shape == val.shape and set(losses) == set(LOSS_KEYS)
     assert losses["total_loss"] == losses["reconstruction_loss"]

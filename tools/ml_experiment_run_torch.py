@@ -184,7 +184,7 @@ def cv_resident(images_u8, labels, test_u8, test_labels, cfg, verbose=False, dev
         results["folds"].append(fold)
         print(f"  [fold {f}] val acc={fold['accuracy']:.4f} f1={fold['weighted_f1']:.4f} "
               f"test acc={fold['test']['accuracy']:.4f} ({fold['wall_s']}s)", flush=True)
-        trainer.release()  # the fold's graphs and their pools, before the next fold captures its own
+        trainer.step_graphs.release()  # the fold's graphs and their pools, before the next fold captures its own
         del state, trainer
     for k in ("accuracy", "weighted_f1"):
         results[f"mean_{k}"] = float(np.mean([x[k] for x in results["folds"]]))
