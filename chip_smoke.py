@@ -163,8 +163,9 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    and ``compat_reference_gp``, with given draws and drawn ones, 3 steps
    captured (``GANTrainer.train_step``, a CUDA graph) against the same 3 eager
    (``train_step_eager``) from one state: bit-equal; ``GANConfig()`` at full
-   width (bfloat16, batch 8): 10 captured steps with the K1 and K3 counters
-   set to 0 before them and read after (2 launches a step each), bit-equal
+   width (bfloat16, batch 8): 10 captured steps with the K1, K3 and
+   BatchNorm counters set to 0 before them and read after (2 launches a step
+   each of K1 and K3, 136 of the BatchNorm kernels), bit-equal
    to 10 eager steps, the graph pool's memory, then (cuDNN as PyTorch
    defaults it) 10 alternating pairs of eager and captured runs of 5 steps,
    one captured step under ``torch.profiler`` (device busy ms, idle share,
@@ -173,7 +174,17 @@ Phases (any failure raises and exits non-zero; no result line is printed):
    run's epoch at full width (256x256, batch 32, 32 steps with
    ``--steps_per_dispatch 16``) for wganvae and wgan, captured against eager:
    bit-equal losses and state, K1 and K3 twice a step (K1 never under wgan),
-   the step's ms both ways and the render's share;
+   the step's ms both ways and the render's share; the train-mode BatchNorm
+   kernels (``csrc/batchnorm.cu``, bf16 channels-last) at the DCGAN step's
+   maps (batch 8 and 32) and the published BigGAN's: each stage against its
+   plain version (y bit-equal), the op against the composite through the
+   penalty's double backward, bit-stable over launches and graph replays, no
+   kernel name in a benchmark category, their device ms beside the bound
+   of the function's bytes (10 an element forward and backward),
+   the plain stages, PyTorch's BatchNorm and the composite (on the
+   ``kernels`` line); and small ``dcgan``, ``dcgan_up``, ``condgan`` and
+   ``biggan_pub`` in bf16 captured against eager, bit-equal, every DCGAN
+   BatchNorm counted on the kernels;
 16. the β-VAE's steps, SAGAN's and BigGAN's as captured programs (run after
    15; float32 checks with TF32 off and cuDNN deterministic): K3 with
    ``corr = (c1, c2, lr)`` in device memory at the VAE's 26 tensors,
@@ -3596,17 +3607,23 @@ def timed_runs(fn, state, batches):
     return (time.perf_counter() - t0) * 1e3 / STEPS_A_RUN
 
 
+#: BatchNorm kernel launches of a ``GANConfig()`` step: two a stage pair, over 32 forwards (G's six maps
+#: twice, D's five four times), 31 backwards (G's six once, D's five five times) and D's five double backwards
+BN_LAUNCHES_A_STEP = 2 * (32 + 31 + 5)
+
+
 def captured_full_width(dev, gen, vae_sd):
     """``GANConfig()`` (wganvae, bfloat16, batch 8) at full width: the main
     path of the phase, ``CAPTURED_STEPS`` captured steps (the capture at the
     first) with the launch counters set to 0 before them and read after, 2
-    K1 and 2 K3 launches a step; the same steps eager from a copy of the
+    K1, 2 K3 and ``BN_LAUNCHES_A_STEP`` BatchNorm launches a step; the same steps eager from a copy of the
     state, bit-equal (cuDNN deterministic); the graph pool's memory; then,
     with cuDNN as PyTorch defaults it (phase 6's setting), ``TIMED_PAIRS``
     alternating pairs of eager and captured runs, and one captured step
     under ``torch.profiler`` (device busy ms, idle share, K1 and K3
     executions by kernel name)."""
     from rnagan_tpu_torch.core.config import GANConfig
+    from rnagan_tpu_torch.kernels.batchnorm import batch_norm_act
     from rnagan_tpu_torch.kernels.fused_adam import fused_adam
     from rnagan_tpu_torch.kernels.infusion import infused_noise
     from rnagan_tpu_torch.train.gan_trainer import GANTrainer
@@ -3621,18 +3638,19 @@ def captured_full_width(dev, gen, vae_sd):
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    fused_adam.launches = infused_noise.launches = 0
+    fused_adam.launches = infused_noise.launches = batch_norm_act.launches = 0
     t0 = time.perf_counter()
     m_cap = [tr.train_step(cap, batches[i % 4])[1] for i in range(CAPTURED_STEPS)]
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = launch_counts()
+    launches = {**launch_counts(), "batch_norm_act": batch_norm_act.launches}
     peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
     pool_gib = tr.step_graphs.pool_bytes() / 2**30
     print(f"phase 15 main path: {CAPTURED_STEPS} captured GANConfig() steps in {main_s:.3f} s "
           f"(the capture included); launches {launches}")
-    check(launches == {"infused_noise": 2 * CAPTURED_STEPS, "fused_adam": 2 * CAPTURED_STEPS},
-          f"captured steps launched {launches}, expected 2 a step each")
+    check(launches == {"infused_noise": 2 * CAPTURED_STEPS, "fused_adam": 2 * CAPTURED_STEPS,
+                       "batch_norm_act": BN_LAUNCHES_A_STEP * CAPTURED_STEPS},
+          f"captured steps launched {launches}, expected 2 K1, 2 K3 and {BN_LAUNCHES_A_STEP} BatchNorm a step")
     m_eag = [tr.train_step_eager(eag, batches[i % 4])[1] for i in range(CAPTURED_STEPS)]
     diff = state_diff(cap, eag)
     metric_diff = max(abs(float(a[k]) - float(b[k])) for a, b in zip(m_cap, m_eag) for k in a)
@@ -3768,6 +3786,252 @@ def captured_quality_epoch(dev):
     return out
 
 
+#: the train-mode BatchNorm maps (C, H, W) of the DCGAN step at 256x256 (G's six, then D's five) and of
+#: the published BigGAN's G at 256x256 (each block's bn1 and bn2, then output_bn)
+DCGAN_BN_MAPS = ((2048, 4, 4), (1024, 8, 8), (512, 16, 16), (256, 32, 32), (128, 64, 64), (64, 128, 128),
+                 (128, 64, 64), (256, 32, 32), (512, 16, 16), (1024, 8, 8), (2048, 4, 4))
+BIGGAN_BN_MAPS = ((1024, 4, 4), (1024, 8, 8), (1024, 8, 8), (512, 16, 16), (512, 16, 16), (512, 32, 32),
+                  (512, 32, 32), (256, 64, 64), (256, 64, 64), (128, 128, 128), (128, 128, 128),
+                  (64, 256, 256), (64, 256, 256))
+#: the gates of the BatchNorm kernels on bf16 maps, as shares of the compared tensor's largest value:
+#: the statistics and the backward's sums are float32 sums in another order than the plain version's
+#: (a few float32 ulps, far under 1e-5); dx with the same sums rounds apart by FMA contraction (under
+#: half a bf16 ulp at the largest value, 2^-8); against the composite the float32 statistics differ in
+#: their last bits, which moves some roundings of the bf16 y, dx and the penalty's x gradient by one
+#: ulp (2^-7 of the largest value's binade, so 2^-6 of the largest value at most); the double backward's
+#: coefficients and scale gradient come from float32 sums too, and take the sums' gate
+BN_GATES = {"sums": 1e-5, "dx_vs_plain": 2 ** -8, "vs_composite": 2 ** -6}
+#: the nets on the BatchNorm kernels captured against eager in bf16: name -> (arch, GANModelConfig fields)
+BN_CAPTURED_SMALL = {"dcgan": ("dcgan", {}), "dcgan_up": ("dcgan_up", {}), "condgan": ("condgan", {}),
+                     "biggan_pub": ("biggan_pub", {"num_classes": 2, "embed_dim": 16, "attn_size": 16})}
+
+
+def share_of_max(a, b):
+    """max |a - b| over max |b| (float)."""
+    a, b = a.detach().float(), b.detach().float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def bn_inputs(gen, dev, n, chw, affine):
+    c = chw[0]
+    x = (torch.randn((n, *chw), generator=gen, device=dev) * 1.5 + 0.3).to(torch.bfloat16)
+    x = x.contiguous(memory_format=torch.channels_last)
+    scale = torch.randn(c, generator=gen, device=dev) * 0.2 + 1 if affine else None
+    bias = torch.randn(c, generator=gen, device=dev) * 0.1 if affine else None
+    return x, scale, bias, torch.randn(c, generator=gen, device=dev), torch.rand(c, generator=gen, device=dev) + 0.5
+
+
+def bn_composite(x, scale, bias, mean, var, slope):
+    """``models/batchnorm.py``'s PyTorch composite on the card (the kernel route switched off)."""
+    from rnagan_tpu_torch.models import batchnorm as mbn
+
+    takes, mbn.takes_kernels = mbn.takes_kernels, lambda x, train: False
+    try:
+        return mbn.batch_norm(x, scale, bias, mean, var, train=True, leaky_slope=slope)
+    finally:
+        mbn.takes_kernels = takes
+
+
+def bn_full(fn, x0, scale0, bias0, mean, var, slope, cot, twice=True):
+    """Output, running statistics, first gradients of x, scale and bias, and
+    (with ``twice``) the gradients of a penalty-style ``sum(dx^2)`` (the GP's
+    double backward)."""
+    x = x0.clone().requires_grad_(True)
+    leaves = [x] + [t.clone().requires_grad_(True) for t in (scale0, bias0) if t is not None]
+    scale, bias = (leaves[1], leaves[2]) if scale0 is not None else (None, None)
+    y, new_mean, new_var = fn(x, scale, bias, mean, var, slope)
+    first = torch.autograd.grad((y.float() * cot).sum(), leaves, create_graph=True)
+    penalty = (first[0].float() ** 2).sum()
+    if not twice:
+        return [y, new_mean, new_var, *first, penalty]
+    second = torch.autograd.grad(penalty, leaves, allow_unused=True, materialize_grads=True)
+    return [y, new_mean, new_var, *first, *second]
+
+
+def bn_step_ms(fn, maps, n, gen, dev, backward=True):
+    """Device ms of ``fn`` (forward, and backward with ``backward``) over every map of ``maps`` at batch
+    ``n``, each replayed from a CUDA graph."""
+    total = 0.0
+    for chw in maps:
+        x, scale, bias, mean, var = bn_inputs(gen, dev, n, chw, True)
+        cot = torch.randn_like(x, dtype=torch.bfloat16)
+        leaves = [x.requires_grad_(backward), scale.requires_grad_(backward), bias.requires_grad_(backward)]
+
+        def call():
+            y = fn(x, scale, bias, mean, var, 0.2)[0]
+            if backward:
+                torch.autograd.grad(y, leaves, cot)
+        total += graph_ms(call, reps=10, iters=10)
+    return total
+
+
+def bn_plain(x, scale, bias, mean, var, slope):
+    """The op's plain stages on the card (forward; its backward is autograd's through them)."""
+    from rnagan_tpu_torch.kernels import batchnorm as kbn
+
+    stats, new_mean, new_var = kbn.stats_plain(kbn.rows_of(x), scale, mean, var)
+    return kbn._map_like(kbn.apply_plain(kbn.rows_of(x), stats, bias, slope), x), new_mean, new_var
+
+
+def bn_library(x, scale, bias, mean, var, slope):
+    """PyTorch's own train-mode BatchNorm on the channels-last map, then LeakyReLU (a yardstick)."""
+    y = torch.nn.functional.batch_norm(x, mean.clone(), var.clone(), scale.to(x.dtype), bias.to(x.dtype),
+                                       training=True, momentum=0.1, eps=1e-5)
+    return torch.nn.functional.leaky_relu(y, slope), mean, var
+
+
+def bn_kernel_checks(dev, gen):
+    """The BatchNorm kernels (``csrc/batchnorm.cu``) at the DCGAN step's maps
+    (batch 8 and 32; affine, LeakyReLU 0.2) and the published BigGAN's G's
+    (batch 8; CCBN's plain form and ``output_bn``'s affine one, identity):
+    each stage against its plain version on the same input (statistics and
+    the backward's sums within ``BN_GATES["sums"]``, y bit-equal, dx within
+    ``BN_GATES["dx_vs_plain"]``); the op against the composite, forward,
+    first backward and the penalty's double backward (``vs_composite``);
+    the statistics bit-stable over two launches and over two replays of a
+    captured forward, backward and double backward; no kernel name in a
+    benchmark category or a counted pattern; and the device ms of forward
+    and backward over the DCGAN step's eleven maps at batch 8 and 32 beside
+    the bytes' bound (16 bytes an element), the plain stages, PyTorch's own
+    channels-last BatchNorm with LeakyReLU and the composite, plus the
+    penalty's double backward over D's five maps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from perfbench.core import trace
+    from rnagan_tpu_torch.kernels import batchnorm as kbn
+
+    cases = [(n, chw, True, 0.2) for n in (8, 32) for chw in sorted(set(DCGAN_BN_MAPS))]
+    cases += [(8, chw, affine, None) for chw in sorted(set(BIGGAN_BN_MAPS)) for affine in (False, True)]
+    worst = {k: 0.0 for k in ("m", "rstd", "mul", "new_mean", "new_var", "dbias", "dscale", "dx_vs_plain",
+                              "grad2_coef", "grad2_dscale", "grad2_dg_vs_plain", "grad2_dx_vs_plain")}
+    y_equal = stable = True
+    vs_composite = {}
+    for n, chw, affine, slope in cases:
+        x, scale, bias, mean, var = bn_inputs(gen, dev, n, chw, affine)
+        rows = kbn.rows_of(x)
+        st, nm, nv = kbn._stats(rows, scale, mean, var)
+        st_p, nm_p, nv_p = kbn.stats_plain(rows, scale, mean, var)
+        g = torch.randn(rows.shape, generator=gen, device=dev).to(torch.bfloat16)
+        db, ds = kbn._grad_sums(g, rows, st, bias, slope)
+        db_p, ds_p = kbn.grad_sums_plain(g, rows, st, bias, slope)
+        dx = kbn._grad_input(g, rows, st, bias, slope, db, ds)
+        u = torch.randn(rows.shape, generator=gen, device=dev).to(torch.bfloat16)
+        a2, b2 = (torch.randn(chw[0], generator=gen, device=dev) for _ in range(2))
+        coef, gs = kbn._grad2_sums(g, rows, u, st, bias, slope, db, ds, a2, b2)
+        coef_p, gs_p = kbn.grad2_sums_plain(g, rows, u, st, bias, slope, db, ds, a2, b2)
+        gg, gx = kbn._grad2_input(g, rows, u, st, bias, slope, coef)
+        gg_p, gx_p = kbn.grad2_input_plain(g, rows, u, st, bias, slope, coef)
+        for key, a, b in (("m", st[0], st_p[0]), ("rstd", st[1], st_p[1]), ("mul", st[2], st_p[2]),
+                          ("new_mean", nm, nm_p), ("new_var", nv, nv_p), ("dbias", db, db_p), ("dscale", ds, ds_p),
+                          ("dx_vs_plain", dx, kbn.grad_input_plain(g, rows, st, bias, slope, db, ds)),
+                          ("grad2_coef", coef, coef_p), ("grad2_dscale", gs, gs_p), ("grad2_dg_vs_plain", gg, gg_p),
+                          ("grad2_dx_vs_plain", gx, gx_p)):
+            worst[key] = max(worst[key], share_of_max(a, b))
+        y_equal &= torch.equal(kbn._apply(rows, st, bias, slope), kbn.apply_plain(rows, st, bias, slope))
+        again = kbn._stats(rows, scale, mean, var)[0], kbn._grad_sums(g, rows, st, bias, slope)
+        stable &= torch.equal(again[0], st) and torch.equal(again[1][0], db) and torch.equal(again[1][1], ds)
+        if n == 8:
+            cot = torch.randn(x.shape, generator=gen, device=dev).contiguous(memory_format=torch.channels_last)
+            got = bn_full(kbn.batch_norm_act, x, scale, bias, mean, var, slope, cot)
+            want = bn_full(bn_composite, x, scale, bias, mean, var, slope, cot)
+            names = (("y", "mean", "var", "dx", "dscale", "dbias", "ddx", "ddscale", "ddbias") if affine
+                     else ("y", "mean", "var", "dx", "ddx"))
+            vs_composite[f"{n}x{chw},{'affine' if affine else 'plain'},{slope}"] = {
+                k: share_of_max(a, b) for k, a, b in zip(names, got, want)}
+    check(max(worst[k] for k in ("dx_vs_plain", "grad2_dg_vs_plain", "grad2_dx_vs_plain")) <= BN_GATES["dx_vs_plain"],
+          f"BatchNorm dx, or the double backward's maps, vs the plain version: {worst}")
+    check(max(v for k, v in worst.items() if not k.endswith("vs_plain")) <= BN_GATES["sums"],
+          f"BatchNorm statistics, sums or the double backward's coefficients vs the plain version: {worst}")
+    check(y_equal, "BatchNorm y differs from its plain version with the same statistics")
+    check(stable, "BatchNorm statistics or sums differ between two launches")
+    composite_worst = max(max(v.values()) for v in vs_composite.values())
+    check(composite_worst <= BN_GATES["vs_composite"], f"BatchNorm op vs the composite: {vs_composite}")
+
+    # two replays of a captured forward, backward and double backward at D's widest map, bit-equal
+    x, scale, bias, mean, var = bn_inputs(gen, dev, 8, (128, 64, 64), True)
+    cot = torch.randn(x.shape, generator=gen, device=dev).contiguous(memory_format=torch.channels_last)
+    outs = []
+
+    def body():
+        outs[:] = bn_full(kbn.batch_norm_act, x, scale, bias, mean, var, 0.2, cot)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        replays.append([t.detach().clone() for t in outs])
+    eager = bn_full(kbn.batch_norm_act, x, scale, bias, mean, var, 0.2, cot)
+    replay_equal = all(torch.equal(a, b) for a, b in zip(*replays))
+    eager_equal = all(torch.equal(a, b.detach()) for a, b in zip(replays[0], eager))
+    check(replay_equal and eager_equal, f"BatchNorm replays equal {replay_equal}, replay equal to eager {eager_equal}")
+    del graph, outs, replays
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        bn_full(kbn.batch_norm_act, x, scale, bias, mean, var, 0.2, cot)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages() if "rnagan_bn_" in e.key})
+    check(len(names) == 6 and all(trace.category(k) == "elementwise and other"
+                                  and not any(p in k for p in trace.COUNTED) for k in names),
+          f"BatchNorm kernel names {names}")
+
+    elements = {n: n * sum(math.prod(chw) for chw in DCGAN_BN_MAPS) for n in (8, 32)}
+    times = {}
+    for n in (8, 32):
+        times[n] = {"device_ms": bn_step_ms(kbn.batch_norm_act, DCGAN_BN_MAPS, n, gen, dev),
+                    "plain_ms": bn_step_ms(bn_plain, DCGAN_BN_MAPS, n, gen, dev),
+                    "library_ms": bn_step_ms(bn_library, DCGAN_BN_MAPS, n, gen, dev),
+                    "composite_ms": bn_step_ms(bn_composite, DCGAN_BN_MAPS, n, gen, dev),
+                    "forward_ms": bn_step_ms(kbn.batch_norm_act, DCGAN_BN_MAPS, n, gen, dev, backward=False),
+                    # the function's bytes: x read and y written forward; x and g read, dx written backward
+                    "bound_ms": bound_ms(10 * elements[n], 20 * elements[n])[0],
+                    # this design's: x read twice forward; x and g read twice backward
+                    "design_bytes_bound_ms": bound_ms(16 * elements[n], 20 * elements[n])[0],
+                    "elements": elements[n]}
+    # the penalty's double backward over D's five maps at batch 8: the whole, less the same without it
+    gp = {}
+    for name, fn in (("kernels", kbn.batch_norm_act), ("composite", bn_composite)):
+        total = {True: 0.0, False: 0.0}
+        for chw in DCGAN_BN_MAPS[6:]:
+            x, scale, bias, mean, var = bn_inputs(gen, dev, 8, chw, True)
+            cot = torch.randn(x.shape, generator=gen, device=dev).contiguous(memory_format=torch.channels_last)
+            for twice in (True, False):
+                total[twice] += graph_ms(lambda: bn_full(fn, x, scale, bias, mean, var, 0.2, cot, twice),
+                                         reps=5, iters=10)
+        gp[f"{name}_forward_backward_double_ms"] = total[True]
+        gp[f"{name}_double_backward_ms"] = total[True] - total[False]
+    out = {"worst_vs_plain": worst, "y_equal_to_plain": y_equal, "stable": stable,
+           "vs_composite_worst": composite_worst, "vs_composite": vs_composite, "kernel_names": names,
+           "replays_equal": replay_equal, "times_b8": times[8], "times_b32": times[32], "penalty_d_maps_b8": gp}
+    print("phase 15 BatchNorm kernels: " + json.dumps({k: v for k, v in out.items() if k != "vs_composite"}))
+    return out
+
+
+def bn_captured_small(dev):
+    """``BN_CAPTURED_SMALL``'s nets in bf16 through ``captured_small`` (3
+    captured steps bit-equal to 3 eager), with the counters ``bn.layers`` and
+    ``bn.layers_kernel`` read around it: every DCGAN BatchNorm on the kernels."""
+    from rnagan_tpu_torch.core import profiling
+
+    out = {}
+    for name, (arch, model_kw) in BN_CAPTURED_SMALL.items():
+        before = {k: profiling.counters.get(k, 0) for k in ("bn.layers", "bn.layers_kernel")}
+        rec = captured_small(dev, arch, {}, False, model_kw={"compute_dtype": "bfloat16", **model_kw})
+        rec["bn"] = {k: profiling.counters.get(k, 0) - v for k, v in before.items()}
+        if arch != "biggan_pub":
+            check(rec["bn"]["bn.layers"] == rec["bn"]["bn.layers_kernel"] > 0,
+                  f"bf16 {name}: BatchNorm calls {rec['bn']}, all expected on the kernels")
+        out[name] = rec
+    return out
+
+
 def captured_training(dev, vae_sd):
     """Phase 15: K1 and K3 with their scalar operands in device memory, the
     captured step against the eager one (small configurations, ``GANConfig()``
@@ -3786,6 +4050,9 @@ def captured_training(dev, vae_sd):
     torch.cuda.empty_cache()
     out["small"] = {f"{name},{'given' if given else 'drawn'}": captured_small(dev, arch, kw, given)
                     for name, (arch, kw) in CAPTURED_SMALL.items() for given in (True, False)}
+    out["batch_norm_kernels"] = bn_kernel_checks(dev, gen)
+    out["small_bf16_bn"] = bn_captured_small(dev)
+    torch.cuda.empty_cache()
     out["full_width"], tr, state = captured_full_width(dev, gen, vae_sd)
     with tempfile.TemporaryDirectory() as tmp:
         out["async_saver"] = async_saver_check(tr, state, tmp)
@@ -5004,6 +5271,14 @@ def main():
         kernels[i]["launches"] += sum(tool_runs[k].values())
         kernels[i]["tool_launches"] = tool_runs[k]
     kernels += device_operand_entries(k1_dev, k3_dev, captured["full_width"]["launches"])
+    # the train-mode BatchNorm kernels (no TPU counterpart): forward and backward over the DCGAN step's maps,
+    # launches of the main path's captured steps
+    bn = captured["batch_norm_kernels"]
+    kernels.append({"name": "batch_norm_act", "route": "cuda", "source": "rnagan_tpu_torch/csrc/batchnorm.cu",
+                    "replaces": None, "launches": captured["full_width"]["launches"]["batch_norm_act"],
+                    "max_share_of_max_vs_composite": bn["vs_composite_worst"],
+                    **{f"{k}_b8": v for k, v in bn["times_b8"].items()},
+                    **{f"{k}_b32": v for k, v in bn["times_b32"].items()}, "bound_by": "bytes"})
     # K3 with (c1, c2, lr) on the device: the captured VAEConfig() steps of phase 16's main path
     kernels.append({"name": "fused_adam_device_lr", "route": "cuda", "source": "rnagan_tpu_torch/csrc/fused_adam.cu",
                     "replaces": "rnagan_tpu/ops/fused_adam.py:66",

@@ -13,5 +13,8 @@ version; a CUDA tensor launches the kernel or raises. ``_build`` compiles
 | ``quant_matmul`` | ``csrc/quant_matmul.cu`` | ``rnagan_tpu/ops/quant_matmul.py::pallas_int8_matmul`` |
 
 ``csrc/marks.cu`` replaces no TPU kernel: its empty stage marks are launched
-by ``core/profiling.py::mark``.
+by ``core/profiling.py::mark``. Nor does ``csrc/batchnorm.cu`` (module
+``batchnorm``): the train-mode BatchNorm (+ LeakyReLU) of a bf16
+channels-last map and its backward, which XLA fuses on the TPU and
+``models/batchnorm.py`` routes to on the card.
 """

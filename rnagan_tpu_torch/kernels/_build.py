@@ -47,6 +47,22 @@ SIGNATURES = {
     "rnagan_int8_matmul_bytewise": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # stage, stream
     "rnagan_mark": [_I, _P],
+    # x, scale, mean, var, part and tickets scratch, stats, new_mean, new_var, rows, c, chunks, rows_per_chunk,
+    # stream
+    "rnagan_batch_norm_stats": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, stats, bias, y, rows, c, chunks, rows_per_chunk, slope, act, stream
+    "rnagan_batch_norm_apply": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # g, x, stats, bias, part and tickets scratch, dbias, dscale, rows, c, chunks, rows_per_chunk, slope, act,
+    # stream
+    "rnagan_batch_norm_grad_sums": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # g, x, stats, bias, dbias, dscale, dx, rows, c, chunks, rows_per_chunk, slope, act, stream
+    "rnagan_batch_norm_grad_input": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # g, x, u, stats, bias, dbias, dscale, a, b, part and tickets scratch, coef, dscale_grad, rows, c, chunks,
+    # rows_per_chunk, slope, act, stream
+    "rnagan_batch_norm_grad2_sums": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                     _P],
+    # g, x, u, stats, bias, coef, gg, gx, rows, c, chunks, rows_per_chunk, slope, act, stream
+    "rnagan_batch_norm_grad2_input": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
 }
 
 

@@ -24,6 +24,13 @@ row count, then ``var = max(E[x^2] - E[x]^2, 0)`` as on one device. Its
 backward all-reduces the statistics' gradients, so forward, backward and
 double backward are those of the one-rank batch. Without a data group the
 one-device arithmetic runs, bit for bit as before.
+
+On the card a train-mode call takes one autograd op backed by hand-written
+kernels (``kernels/batchnorm.py``, LeakyReLU fused when ``leaky_slope`` is
+given) where the input allows it (:func:`takes_kernels`: a bf16
+channels-last map with C % 8 == 0, outside a mesh); every other input keeps
+the PyTorch ops below, bit for bit. Each train-mode call on a CUDA map adds 1
+to the counter ``bn.layers``, and one on the kernels 1 to ``bn.layers_kernel``.
 """
 
 from __future__ import annotations
@@ -32,11 +39,11 @@ import math
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from rnagan_tpu_torch.core import profiling
+from rnagan_tpu_torch.kernels.batchnorm import EPS, MOMENTUM, batch_norm_act, kernel_map
 from rnagan_tpu_torch.parallel import collectives
-
-MOMENTUM = 0.9  # flax: weight of the old running statistics
-EPS = 1e-5
 
 #: running (mean, var) of each BatchNorm of a module, in module order
 Stats = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -74,14 +81,27 @@ class _MeanGrad(torch.autograd.Function):
         return (gg / ctx.n).sum(ctx.axes), None, None
 
 
+def takes_kernels(x: torch.Tensor, train: bool) -> bool:
+    """Whether a call on ``x`` takes ``kernels/batchnorm.py``'s op: train
+    mode on a CUDA map the kernels read as it is (``kernel_map``: bf16
+    channels-last, C % 8 == 0, 16-byte aligned), and no data group."""
+    return train and x.is_cuda and kernel_map(x) and collectives.data_group() is None
+
+
 def batch_norm(x: torch.Tensor, scale: Optional[torch.Tensor], bias: Optional[torch.Tensor],
-               mean: torch.Tensor, var: torch.Tensor, *,
-               train: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+               mean: torch.Tensor, var: torch.Tensor, *, train: bool,
+               leaky_slope: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``x`` (N, C, ...) in the compute dtype; ``scale``, ``bias`` and the
     running ``mean``, ``var`` (C,) float32; a None ``scale`` or ``bias`` is
     left out (flax's ``use_scale=False``, ``use_bias=False``). Returns ``(y,
-    new_mean, new_var)``: ``y`` in ``x``'s dtype; in eval mode the running
-    statistics come back as they were."""
+    new_mean, new_var)``: ``y`` in ``x``'s dtype, through
+    ``F.leaky_relu(y, leaky_slope)`` when ``leaky_slope`` is given; in eval
+    mode the running statistics come back as they were."""
+    if train and x.is_cuda:
+        profiling.count("bn.layers", 1)
+        if takes_kernels(x, train):
+            profiling.count("bn.layers_kernel", 1)
+            return batch_norm_act(x, scale, bias, mean, var, leaky_slope)
     axes = [0, *range(2, x.ndim)]
     xf = x.float()
     if train:
@@ -106,4 +126,7 @@ def batch_norm(x: torch.Tensor, scale: Optional[torch.Tensor], bias: Optional[to
     y = (xf + (-m).reshape(shape)) * mul.reshape(shape)
     if bias is not None:
         y = y + bias.reshape(shape)
-    return y.to(x.dtype), new_mean, new_var
+    y = y.to(x.dtype)
+    if leaky_slope is not None:
+        y = F.leaky_relu(y, leaky_slope)
+    return y, new_mean, new_var

@@ -66,7 +66,9 @@ Each convolution layer a forward runs adds 1 to the counter ``gan.convs``,
 and to ``gan.convs_channels_last`` when both operands are channels-last
 (``core/profiling.py``).
 
-BatchNorm has flax's semantics (``models/batchnorm.py``). ``forward_stats`` /
+BatchNorm has flax's semantics (``models/batchnorm.py``); the LeakyReLU after
+it goes into the same call, which on the card's kernel route is one fused
+op (``kernels/batchnorm.py``). ``forward_stats`` /
 the discriminator's ``forward`` take the running statistics as an argument
 and return the updated ones, so each training stage decides which to keep;
 a generator's ``forward`` keeps them in its BatchNorm buffers.
@@ -355,9 +357,14 @@ class _DCGAN(ArchTraits, nn.Module):
             bn.running_mean.copy_(mean)
             bn.running_var.copy_(var)
 
-    def _bn(self, x, p, block: int, stats: Stats, k: int, train: bool, new: Stats):
+    def _bn_act(self, x, p, block: int, stats: Stats, k: int, train: bool, new: Stats):
+        """Block ``block``'s BatchNorm (running statistics ``stats[k]``, the new
+        ones appended to ``new``) where the config has one, then LeakyReLU:
+        one fused op on the card's kernel route (``models/batchnorm.py``)."""
+        if not self.cfg.batchnorm:
+            return F.leaky_relu(x, self.cfg.leaky_slope)
         x, mean, var = batch_norm(x, p[f"model.{block}.1.weight"], p[f"model.{block}.1.bias"],
-                                  *stats[k], train=train)
+                                  *stats[k], train=train, leaky_slope=self.cfg.leaky_slope)
         new.append((mean, var))
         return x
 
@@ -442,9 +449,7 @@ class DCGANGenerator(_Generator):
             x = F.conv_transpose2d(x, w, None if bias is None else bias.to(dt), conv.stride, conv.padding)
             if i == last:
                 break
-            if self.cfg.batchnorm:
-                x = self._bn(x, p, i, stats, i, train, new)
-            x = F.leaky_relu(x, self.cfg.leaky_slope)
+            x = self._bn_act(x, p, i, stats, i, train, new)
         x = _output(x, train)
         return (torch.tanh(x) if self.final_tanh else x), new
 
@@ -506,9 +511,7 @@ class DCGANUpGenerator(_Generator):
                 x = F.conv2d(x, w, p[f"model.{i}.0.bias"].to(dt))
             if i == last:
                 break
-            if self.cfg.batchnorm:
-                x = self._bn(x, p, i, stats, i, train, new)
-            x = F.leaky_relu(x, self.cfg.leaky_slope)
+            x = self._bn_act(x, p, i, stats, i, train, new)
         x = _output(x, train)
         return (x if self.compat_no_tanh else torch.tanh(x)), new
 
@@ -568,9 +571,10 @@ class DCGANDiscriminator(_DCGAN):
             x = discriminator_conv(x, w, None if bias is None else bias.to(dt), conv.stride, conv.padding)
             if i == last:
                 break
-            if cfg.batchnorm and i > 0:
-                x = self._bn(x, p, i, stats, i - 1, train, new)
-            x = F.leaky_relu(x, cfg.leaky_slope)
+            if i > 0:
+                x = self._bn_act(x, p, i, stats, i - 1, train, new)
+            else:
+                x = F.leaky_relu(x, cfg.leaky_slope)
         score = x.float().reshape(x.shape[0])
         if cfg.critic == "projection":
             if cond is None:

@@ -56,7 +56,7 @@ import torch
 
 from rnagan_tpu_torch.core import profiling
 from rnagan_tpu_torch.core.checkpoint import AsyncSaver
-from rnagan_tpu_torch.kernels import fused_adam, infusion
+from rnagan_tpu_torch.kernels import batchnorm, fused_adam, infusion
 
 #: the step graphs a trainer keeps (a graph pins its state and its memory
 #: pool), and twice as many ``prepare`` functions
@@ -66,7 +66,8 @@ MAX_GRAPHS = 4
 CHUNK_BYTES = 128 << 20
 #: (wrapper, attribute) of every kernel launch counter a training step moves
 COUNTERS: Tuple[Tuple[object, str], ...] = ((infusion.infused_noise, "launches"),
-                                            (fused_adam.fused_adam, "launches"))
+                                            (fused_adam.fused_adam, "launches"),
+                                            (batchnorm.batch_norm_act, "launches"))
 
 
 def _counts() -> List[int]:

@@ -210,4 +210,4 @@ def test_c_entry_points_match_their_bindings():
         assert m, name
         assert len(m.group(1).split(",")) == len(argtypes), name
     assert {p.name for p in _build.sources()} == {"infusion.cu", "quantize.cu", "fused_adam.cu",
-                                                  "quant_matmul.cu", "marks.cu"}
+                                                  "quant_matmul.cu", "marks.cu", "batchnorm.cu"}
