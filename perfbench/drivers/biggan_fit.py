@@ -26,6 +26,11 @@ from perfbench.drivers import common, gan_fit
 from perfbench.drivers.gan_base import LOSSES, SCORES
 from perfbench.reference import biggan, biggan_steps, data as ref_data, draws, nets
 
+#: the faults its cells can have (``perfbench/faults.py``): ``gan_fit``'s corpus, feed and trainer, so its faults
+FAULTS = gan_fit.FAULTS
+#: the key of ``Runner.controls()`` that must fail the cell's limits: G and D in fp8, a step below bf16
+CONTROL = "fp8"
+
 
 def gan_config(cfg: dict, batch: int, seed: int):
     """The port's ``GANConfig`` of the configuration file (its ``model`` keys are ``GANModelConfig`` fields)."""

@@ -10,6 +10,7 @@ from typing import Callable, Dict, List
 
 import torch
 
+from perfbench import faults
 from perfbench.core import compare
 from perfbench.core.seeds import derive
 from perfbench.core.weights import dcgan_weights, load_into, vae_weights
@@ -25,6 +26,49 @@ SCORES = ("dx", "dgz")
 #: the control (G and D in fp8, a step below the stated bf16) and the faults the readings plant in the reference
 CONTROLS = {"fp8": dict(q=nets.fp8_operands), "half_batch": dict(half=True), "half_real": dict(half_real=True),
             "no_gp": dict(no_gp=True), "tiles_01": dict(tiles_01=True)}
+
+
+def _state_unchanged():
+    """No optimizer update, and G's and D's running statistics written back as they were."""
+    from rnagan_tpu_torch.optim.adam import Adam
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+
+    step = GANTrainer._step
+
+    def broken(self, state, *args):
+        stats = [t for pair in state.g_stats + state.d_stats for t in pair]
+        return faults.kept(stats, step, self, state, *args)
+    return [(Adam, "step", faults.unchanged_optimizer), (GANTrainer, "_step", broken)]
+
+
+def _half_batch():
+    """Half of each batch left out, the mean taken over the rest."""
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+
+    step = GANTrainer._step
+
+    def broken(self, state, batch, draws, seeds, corr, run_g):
+        n = batch["image"].shape[0]
+        return step(self, state, {k: v[:n // 2] for k, v in batch.items()}, draws, seeds, corr, run_g)
+    return [(GANTrainer, "_step", broken)]
+
+
+def _half_real():
+    """Half of the real tiles left out, the first half read twice in their place
+    (so the critic's mean over the real tiles is the first half's)."""
+    from rnagan_tpu_torch.train.gan_trainer import GANTrainer
+
+    step = GANTrainer._step
+
+    def broken(self, state, batch, draws, seeds, corr, run_g):
+        image = batch["image"]
+        half = torch.cat([image[:len(image) // 2]] * 2)
+        return step(self, state, {**batch, "image": half}, draws, seeds, corr, run_g)
+    return [(GANTrainer, "_step", broken)]
+
+
+#: the faults of a GAN step that every GAN driver can have (``perfbench/faults.py``)
+PATCHES = {"gan_state_unchanged": _state_unchanged, "gan_half_batch": _half_batch, "gan_half_real": _half_real}
 
 
 class GANRunner:

@@ -30,6 +30,24 @@ from perfbench.core.seeds import derive
 from perfbench.drivers.gan_base import LOSSES, SCORES, GANRunner
 from perfbench.reference import data as ref_data
 
+#: the faults its cells can have (``perfbench/faults.py``): the GAN step's, and the data plane's tiles in [0, 1]
+FAULTS = ("gan_state_unchanged", "gan_half_batch", "gan_half_real", "gan_tiles_01")
+#: the key of ``Runner.controls()`` that must fail the cell's limits: G and D in fp8, a step below bf16
+CONTROL = "fp8"
+
+
+def _tiles_01():
+    """The data plane's uint8 tiles mapped to [0, 1] instead of [-1, 1]."""
+    from rnagan_tpu_torch.data import patches
+
+    def broken(images):
+        return np.asarray(images, np.float32) / 255.0
+    return [(patches, "tiles_to_float", broken)]
+
+
+PATCHES = {"gan_tiles_01": _tiles_01}
+
+
 class Runner(GANRunner):
     rate = "gan_train_samples_per_s"
 

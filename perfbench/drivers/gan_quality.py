@@ -27,6 +27,11 @@ from perfbench.core.seeds import derive
 from perfbench.drivers.gan_base import GANRunner
 from perfbench.reference import render
 
+#: the faults its cells can have (``perfbench/faults.py``): the GAN step's (it bypasses the host data plane)
+FAULTS = ("gan_state_unchanged", "gan_half_batch", "gan_half_real")
+#: the key of ``Runner.controls()`` that must fail the cell's limits: G and D in fp8, a step below bf16
+CONTROL = "fp8"
+
 
 class Runner(GANRunner):
     rate = "quality_train_samples_per_s"

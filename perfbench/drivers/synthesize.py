@@ -32,6 +32,26 @@ from perfbench.reference import draws, nets
 
 #: requests the index table holds; request i takes row i modulo this
 TABLE_REQUESTS = 8192
+#: the faults its cells can have (``perfbench/faults.py``)
+FAULTS = ("synth_altered_tile",)
+#: the key of ``Runner.controls()`` that must fail the cell's limits: the generator in fp8, a step below bf16
+CONTROL = "fp8"
+
+
+def _altered_tile():
+    """One served tile replaced by another where it is made."""
+    from rnagan_tpu_torch.eval.generate import Synthesizer
+
+    synthesize = Synthesizer.synthesize
+
+    def broken(self, *a, **k):
+        out = synthesize(self, *a, **k).clone()
+        out[0] = out[1]
+        return out
+    return [(Synthesizer, "synthesize", broken)]
+
+
+PATCHES = {"synth_altered_tile": _altered_tile}
 
 
 class Runner:

@@ -18,6 +18,7 @@ from typing import Dict, List
 
 import torch
 
+from perfbench import faults
 from perfbench.core import compare
 from perfbench.core.bench import Unit
 from perfbench.core.device import sync
@@ -29,6 +30,36 @@ from perfbench.reference import draws, nets, train_steps
 
 #: the control (TF32 products, a step below the stated float32 with TF32 off) and the planted fault
 CONTROLS = {"tf32": dict(q=nets.tf32_operands), "half_batch": dict(half=True)}
+#: the faults its cells can have (``perfbench/faults.py``)
+FAULTS = ("vae_state_unchanged", "vae_half_batch")
+#: the key of ``Runner.controls()`` that must fail the cell's limits
+CONTROL = "tf32"
+
+
+def _state_unchanged():
+    """No optimizer update, and the running statistics written back as they were."""
+    from rnagan_tpu_torch.optim.scheduled import ScheduledOptimizer
+    from rnagan_tpu_torch.train.vae_trainer import VAETrainer
+
+    step = VAETrainer._step
+
+    def broken(self, state, *args):
+        return faults.kept([b for n, b in state.model.named_buffers() if "running" in n], step, self, state, *args)
+    return [(ScheduledOptimizer, "step", faults.unchanged_optimizer), (VAETrainer, "_step", broken)]
+
+
+def _half_batch():
+    """Half of each batch left out, the mean taken over the rest."""
+    from rnagan_tpu_torch.train.vae_trainer import VAETrainer
+
+    step = VAETrainer._step
+
+    def broken(self, state, x, m, draws, seeds, row, variant):
+        return step(self, state, x[:len(x) // 2], m[:len(x) // 2], draws, seeds, row, variant)
+    return [(VAETrainer, "_step", broken)]
+
+
+PATCHES = {"vae_state_unchanged": _state_unchanged, "vae_half_batch": _half_batch}
 
 
 class Runner:

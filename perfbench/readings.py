@@ -6,10 +6,10 @@ For each seed: the cell's set-up (the program's first steps, or a short run
 of requests that covers the held ones), the comparison's numbers of the
 program, then of the lower-precision control and of each fault put in the
 reference in the program's place (the drivers' ``controls()``); with
-``--plant`` the program's numbers with a fault of ``perfbench/faults.py``
-planted in it instead. One JSON line a seed,
-then the largest program reading and the smallest control and fault reading
-of each number. The benchmark's own runs do not run this.
+``--plant`` the program's numbers with a fault planted in it instead (any
+fault a file under ``perfbench/drivers/`` defines: ``perfbench/faults.py``).
+One JSON line a seed, then the largest program reading and the smallest
+control and fault reading of each number. The benchmark's own runs do not run this.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ def main(argv=None) -> int:
     p.add_argument("--seeds", type=int, default=12)
     p.add_argument("--first", type=int, default=3_000_000_000)
     p.add_argument("--list", type=int, nargs="*", help="these seeds instead of --seeds from --first")
-    p.add_argument("--plant", default=None, help="a fault of perfbench/faults.py planted in the program")
+    p.add_argument("--plant", default=None, help="a fault that a file under perfbench/drivers/ defines, planted in the program")
     args = p.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import torch

@@ -1,15 +1,26 @@
-"""The lower-precision control comes out not correct on the card, at the cells'
-own sizes and one seed each (the readings behind the limits use a dozen:
-``perfbench/readings.py``)."""
+"""The lower-precision control that a cell's driver declares (``CONTROL``,
+``perfbench/faults.py``) is among its runner's controls, and comes out not
+correct on the card, at the cells' own sizes and one seed each (the readings
+behind the limits use a dozen: ``perfbench/readings.py``)."""
 
 import pytest
 import torch
 
+from perfbench import faults
 from perfbench.core import bench, compare, spec
 from perfbench.tests import tiny
 
-CONTROL = {"rnagan-dcgan256.cli-train-b8": "fp8", "betavae-gtex.resident-train-b128": "tf32",
-           "rnagan-dcgan256.quality-train-b32": "fp8", "rnagan-dcgan256.synth-b128": "fp8"}
+
+def control_of(cell: spec.Cell) -> str:
+    """The key of the cell's runner's ``controls()`` whose numbers must fail its limits."""
+    return faults.control(cell.traffic["driver"], cell.base)
+
+
+@pytest.mark.parametrize("name", tiny.CELLS)
+def test_the_declared_control_is_among_the_runners_controls(name):
+    runner = tiny.runner(name)
+    runner.check()
+    assert control_of(spec.Cell(spec.load_benchmark(), name)) in runner.controls()
 
 
 @pytest.mark.card
@@ -22,6 +33,6 @@ def test_the_control_fails_the_limits(card, name):
     for _ in range(cell.traffic.get("sample_from", -1) + 1):
         runner.unit()
     assert compare.passes(compare.judge(runner.check(), cell.limits))
-    control = runner.controls()[CONTROL[name]]
+    control = runner.controls()[control_of(cell)]
     assert not compare.passes(compare.judge(control, cell.limits)), control
     torch.cuda.synchronize()

@@ -2,6 +2,8 @@
 (``core/program.py``) on made-up traces: each number comes from the right
 records, and a program that records none of them gives no number."""
 
+import ast
+
 import pytest
 
 from perfbench.core import bench, program, spec, trace
@@ -102,15 +104,39 @@ def test_counters_are_read_from_the_program(monkeypatch):
     assert read("gan_train.h2d_mb", p) is None
 
 
+def reads_the_program(name):
+    """Whether the metric's reader imports ``perfbench.core.program``, in any form."""
+    tree = ast.parse((spec.HERE / "metrics" / f"{name}.py").read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import) and any(a.name == "perfbench.core.program" for a in node.names):
+            return True
+        if isinstance(node, ast.ImportFrom) and (node.module == "perfbench.core.program" or (
+                node.module == "perfbench.core" and any(a.name == "program" for a in node.names))):
+            return True
+    return False
+
+
+@pytest.mark.parametrize("source, reads", [("from perfbench.core import program", True),
+                                           ("from perfbench.core import bench, program as p", True),
+                                           ("from perfbench.core.program import stage_ms", True),
+                                           ("import perfbench.core.program", True),
+                                           ("from perfbench.metrics import mfu as read", False),
+                                           ("# perfbench.core import program", False)])
+def test_the_program_readers_are_found_by_their_imports(tmp_path, monkeypatch, source, reads):
+    (tmp_path / "metrics").mkdir()
+    (tmp_path / "metrics" / "probe.py").write_text(source + "\n")
+    monkeypatch.setattr(spec, "HERE", tmp_path)
+    assert reads_the_program("probe") is reads
+
+
 def test_a_program_that_records_nothing_gives_no_number(monkeypatch):
     """What a parent without spans, marks or counters reads: nothing, and no error."""
     from rnagan_tpu_torch.core import profiling
 
     monkeypatch.delattr(profiling, "counters")
     p = profile(marks=False, spans=False)
-    new = [m["name"] for m in spec.load_benchmark()["per_layer"]
-           if (spec.HERE / "metrics" / f"{m['name']}.py").read_text().find("perfbench.core import program") >= 0]
-    assert len(new) == 18
+    new = [m["name"] for m in spec.load_benchmark()["per_layer"] if reads_the_program(m["name"])]
+    assert len(new) >= 29
     for name in new:
         assert read(name, p) is None, name
     assert program.unmarked_share(p) is None and program.marks_ms(p) is None

@@ -25,3 +25,15 @@ def run(name: str, seed: int = SEED, seconds: float = 0.5, bench_root=None, base
     cell = spec.Cell(b, name, base=base or spec.HERE)
     return bench.run(cell, seed, seconds, False, torch.device("cpu"), time.perf_counter(), shrink=TINY,
                      log=lambda s: None)
+
+
+def runner(name: str, seed: int = SEED):
+    """The cell's runner at tiny widths on the CPU, set up and through the units its comparison holds."""
+    cell = spec.Cell(spec.load_benchmark(), name)
+    ctx = bench.Context(spec.merge(cell.config, TINY["config"]), spec.merge(cell.traffic, TINY["traffic"]), seed,
+                        torch.device("cpu"), bench.Spans(False))
+    r = cell.driver().Runner(ctx)
+    r.setup()
+    for _ in range(ctx.traffic.get("sample_from", -1) + 1):
+        r.unit()
+    return r
